@@ -1,0 +1,143 @@
+"""Where a serving tick's time goes: time the paged engine's decode step
+and its chunked-prefill chunk apart, and summarise the device kernels of
+one decode step with ``torch.profiler``.
+
+  PYTHONPATH=src python -m repro_torch.launch.profile_step --full
+
+Runs the main path (paged engine, flash-decode kernel) on ``--device``
+(cuda by default) with random weights from seed 0: ``--batch`` requests
+of ``--context`` prompt tokens are prefilled whole (untimed), then
+``--steps`` decode steps are timed one by one on the host clock (each
+step ends in the argmax fetch, a synchronisation), one more step runs
+under the profiler, and a separate request of the same length is
+prefilled in ``--chunk``-token chunks, each timed with a synchronise.
+Prints one JSON line.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import time
+from typing import List, Optional
+
+import torch
+
+from repro_torch.models import registry
+from repro_torch.serving.engine import EngineConfig, make_engine
+from repro_torch.serving.scheduler import make_trace
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+
+
+def _nbytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _card(device: torch.device) -> str:
+    if device.type != "cuda":
+        return str(device)
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def main(argv: Optional[List[str]] = None) -> dict:
+    ap = argparse.ArgumentParser(prog="repro_torch.launch.profile_step")
+    ap.add_argument("--arch", choices=registry.ARCH_IDS, default="yi-6b")
+    ap.add_argument("--full", action="store_true")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--context", type=int, default=768)
+    ap.add_argument("--chunk", type=int, default=128)
+    ap.add_argument("--steps", type=int, default=10)
+    args = ap.parse_args(argv)
+    entry = registry.get(args.arch, reduced=not args.full)
+    cfg = entry.config
+    base = dict(max_batch=args.batch,
+                max_seq=args.context + args.steps + 8,
+                max_new_tokens=args.steps + 4, paged=True,
+                use_pallas_decode=True, device=args.device)
+    eng = make_engine(entry, EngineConfig(**base))
+    dev = eng.device
+    for req in make_trace(cfg.vocab, rate_req_s=1e9, n_requests=args.batch,
+                          prompt_len=args.context, seed=0):
+        if not eng.submit(req):
+            raise RuntimeError("the engine refused a request")
+    eng.step()                                   # warm-up
+    step_ms = []
+    for _ in range(args.steps):
+        t0 = time.perf_counter()
+        eng.step()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    # the device-side entries only: an op's own row repeats the time of
+    # the kernels it launched
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+
+    chunked = make_engine(entry, EngineConfig(**dict(
+        base, prefill_chunk=args.chunk)), params=eng.params)
+    (req,) = make_trace(cfg.vocab, rate_req_s=1e9, n_requests=1,
+                        prompt_len=args.context, seed=1)
+    if not chunked.admit(req):
+        raise RuntimeError("the engine refused a request")
+    chunk_ms = []
+    while chunked._prefilling is not None:
+        t0 = time.perf_counter()
+        chunked._prefill_chunk_tick()
+        _sync(dev)
+        chunk_ms.append((time.perf_counter() - t0) * 1e3)
+
+    # least bytes a decode step moves: every layer's weights and the head
+    # once, and the batch's valid K/V once per layer
+    emb = eng.params["embed"]
+    weight_bytes = _nbytes(eng.params["blocks"]) + _nbytes(
+        emb["head"] if "head" in emb else emb["table"])
+    pool = eng.paged.store[0]
+    kv_bytes = (2 * args.batch * (args.context + args.steps)
+                * pool[0, 0, 0].numel() * pool.element_size()
+                * cfg.num_layers)
+    out = {
+        "arch": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype,
+        "batch": args.batch, "context": args.context,
+        "decode_step_ms_median": statistics.median(step_ms),
+        "decode_step_ms": step_ms,
+        "profiled_step_wall_ms": prof_wall_ms,
+        "profiled_step_device_busy_ms": busy_ms,
+        # against an unprofiled step: the profiler slows the host side
+        "device_busy_share": busy_ms / statistics.median(step_ms),
+        "device_launches_per_step": sum(e.count for e in kernels),
+        "top_device_ops": [
+            {"name": e.key[:60], "count": e.count,
+             "ms": e.self_device_time_total / 1e3} for e in top],
+        "weight_bytes_per_step": weight_bytes,
+        "weights_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
+        "kv_bytes_per_step": kv_bytes,
+        "attention_bound_ms": kv_bytes / HBM_BYTES_PER_S * 1e3,
+        "chunk": args.chunk, "prefill_chunk_ms": chunk_ms,
+        "card": _card(dev)}
+    print(json.dumps(out))
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,119 @@
+"""Serving entry point: continuous-batching decode on the port (port of
+``repro.launch.serve`` for the flags this slice carries).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --full \
+      --paged --prefill-chunk 128 --pallas
+
+Runs on the CUDA card by default (``--device cpu`` runs the plain
+PyTorch path on the host); the reduced config is the default and
+``--full`` serves the published widths.  ``--pallas`` routes decode
+attention through the flash-decode CUDA kernel (the block-table kernel
+with ``--paged``); ``--paged`` switches KV residency to the page pool
+(``--page-size``, ``--num-pages`` to oversubscribe) and
+``--prefill-chunk`` interleaves Sarathi prefill chunks with the decode
+batch.  ``--eos-rate`` samples per-request early-stop decode lengths;
+``--trace-file`` replays a recorded JSON trace.
+
+Flags of features that later slices port (prefix sharing, placement,
+co-design pricing, the fused decode tick, multi-replica routing, tiers
+and Perfetto export) are accepted by the parser and refused with an
+error that names them.
+"""
+from __future__ import annotations
+
+import argparse
+from typing import List, Optional
+
+from repro_torch.models import registry
+from repro_torch.serving.engine import EngineConfig, make_engine
+from repro_torch.serving.scheduler import load_trace, make_trace
+
+# flag -> (value that means "not used", the slice that ports it)
+UNPORTED = {
+    "prefix_sharing": (False, "prefix sharing"),
+    "shared_prefix": (0, "prefix sharing"),
+    "placement": (None, "placement and priced page moves"),
+    "codesign": (False, "co-design pricing"),
+    "fuse_steps": (1, "the fused decode tick"),
+    "replicas": (1, "router and tiers"),
+    "tiers": (None, "router and tiers"),
+    "trace_out": (None, "Perfetto export"),
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="repro_torch.launch.serve")
+    ap.add_argument("--arch", choices=registry.ARCH_IDS, default="yi-6b")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu (plain PyTorch path)")
+    ap.add_argument("--rate", type=float, default=4.0)
+    ap.add_argument("--n-requests", type=int, default=12)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--full", action="store_true")
+    ap.add_argument("--pallas", action="store_true",
+                    help="flash-decode CUDA kernel for decode attention")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="Sarathi-style chunked prefill")
+    ap.add_argument("--paged", action="store_true",
+                    help="block-table paged KV cache")
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--num-pages", type=int, default=None,
+                    help="page-pool size (oversubscribe below the dense-"
+                         "equivalent capacity to exercise preemption)")
+    ap.add_argument("--defrag-threshold", type=float, default=0.5,
+                    help="fragmentation fraction that triggers pool "
+                         "defrag (negative disables)")
+    ap.add_argument("--eos-rate", type=float, default=None,
+                    help="per-step early-stop probability (samples "
+                         "per-request decode budgets)")
+    ap.add_argument("--trace-file", type=str, default=None,
+                    help="replay a recorded JSON trace "
+                         "(serving.scheduler.load_trace format)")
+    # not ported yet: refused in main()
+    ap.add_argument("--prefix-sharing", action="store_true")
+    ap.add_argument("--shared-prefix", type=int, default=0)
+    ap.add_argument("--placement", default=None)
+    ap.add_argument("--codesign", action="store_true")
+    ap.add_argument("--fuse-steps", type=int, default=1)
+    ap.add_argument("--replicas", type=int, default=1)
+    ap.add_argument("--tiers", type=str, default=None)
+    ap.add_argument("--trace-out", type=str, default=None)
+    return ap
+
+
+def main(argv: Optional[List[str]] = None) -> dict:
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    for dest, (unused, feature) in UNPORTED.items():
+        if getattr(args, dest) != unused:
+            ap.error(f"--{dest.replace('_', '-')} is not ported yet "
+                     f"({feature} arrives with a later slice)")
+    entry = registry.get(args.arch, reduced=not args.full)
+    ecfg = EngineConfig(max_batch=args.max_batch,
+                        max_seq=args.prompt_len + args.max_new + 2,
+                        max_new_tokens=args.max_new,
+                        use_pallas_decode=args.pallas,
+                        prefill_chunk=args.prefill_chunk,
+                        paged=args.paged,
+                        page_size=args.page_size,
+                        num_pages=args.num_pages,
+                        defrag_threshold=(None if args.defrag_threshold < 0
+                                          else args.defrag_threshold),
+                        device=args.device)
+    vocab = entry.config.vocab
+    if args.trace_file:
+        reqs = load_trace(args.trace_file, vocab=vocab)
+    else:
+        reqs = make_trace(vocab, rate_req_s=args.rate,
+                          n_requests=args.n_requests,
+                          prompt_len=args.prompt_len,
+                          eos_rate=args.eos_rate)
+    metrics = make_engine(entry, ecfg).run_trace(reqs)
+    print(f"[serve] {args.arch} on {args.device}: {metrics}")
+    return metrics
+
+
+if __name__ == "__main__":
+    main()

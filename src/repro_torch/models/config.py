@@ -1,0 +1,104 @@
+"""Architecture configuration (a copy of ``repro.models.config``).
+
+One ``ArchConfig`` describes any of the supported model families; the
+port serves the dense transformer family so far (see ``registry``).
+``padded_heads`` / ``padded_vocab`` pad head count and vocab to the
+tensor-parallel degree exactly as the reference does, so a bridged
+parameter tree has the same shapes on both sides.  ``nmp_spec`` (the
+near-memory simulator projection) arrives with the co-design slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Tuple
+
+
+def _pad_to(x: int, g: int) -> int:
+    return -(-x // g) * g
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                  # dense | moe | ssm | hybrid | vlm | audio
+    num_layers: int
+    d_model: int
+    num_q_heads: int
+    num_kv_heads: int
+    d_head: int
+    d_ff: int
+    vocab: int
+    # ---- MoE ----------------------------------------------------------------
+    num_experts: int = 0
+    topk: int = 0
+    d_ff_expert: int = 0
+    num_shared_experts: int = 0
+    capacity_factor: float = 1.25
+    # ---- attention / ffn ----------------------------------------------------
+    rope_theta: float = 10000.0
+    qkv_bias: bool = False
+    gated_ffn: bool = True
+    act: str = "silu"            # silu | gelu
+    norm: str = "rmsnorm"        # rmsnorm | layernorm
+    tie_embeddings: bool = False
+    mrope: bool = False          # Qwen2-VL multimodal rope
+    mrope_sections: Tuple[int, int, int] = (16, 24, 24)
+    # ---- ssm (rwkv6) ---------------------------------------------------------
+    rwkv_head_size: int = 64
+    # ---- hybrid (recurrentgemma) ---------------------------------------------
+    block_pattern: Tuple[str, ...] = ()
+    window: int = 0
+    lru_width: int = 0
+    conv_width: int = 4
+    # ---- encoder-decoder (whisper) --------------------------------------------
+    encoder_layers: int = 0
+    encoder_frames: int = 1500
+    # ---- misc -----------------------------------------------------------------
+    max_seq: int = 1 << 19
+    dtype: str = "bfloat16"
+    scan_unroll: int = 1
+
+    @property
+    def group_size(self) -> int:
+        return self.num_q_heads // max(1, self.num_kv_heads)
+
+    def padded_heads(self, tp: int) -> Tuple[int, int]:
+        """(q_heads, kv_heads) padded for a TP degree.  MHA (kv == q) pads
+        both together; GQA kv heads smaller than tp are replicated (not
+        padded).  Invariant: hq % hkv == 0."""
+        hq = _pad_to(self.num_q_heads, tp)
+        if self.num_kv_heads == self.num_q_heads:
+            return hq, hq
+        hkv = self.num_kv_heads if self.num_kv_heads < tp \
+            else _pad_to(self.num_kv_heads, tp)
+        if hq % hkv:
+            hq = _pad_to(hq, hkv)
+        return hq, hkv
+
+    def padded_vocab(self, tp: int) -> int:
+        return _pad_to(self.vocab, 128 * tp)
+
+    def reduced(self, **over) -> "ArchConfig":
+        """Tiny same-family config for CPU tests (the reference's sizes)."""
+        small = dict(
+            num_layers=5 if self.block_pattern else min(self.num_layers, 2),
+            d_model=128,
+            num_q_heads=4,
+            num_kv_heads=min(4, max(1, self.num_kv_heads)),
+            d_head=32,
+            d_ff=256,
+            vocab=512,
+            max_seq=256,
+            lru_width=128 if self.lru_width else 0,
+            window=min(self.window, 64) if self.window else 0,
+            num_experts=min(self.num_experts, 8) if self.num_experts else 0,
+            topk=min(self.topk, 2) if self.topk else 0,
+            d_ff_expert=128 if self.d_ff_expert else 0,
+            encoder_layers=min(self.encoder_layers, 2),
+            encoder_frames=32 if self.encoder_frames else 0,
+            rwkv_head_size=32,
+            dtype="float32",
+        )
+        small.update(over)
+        return dataclasses.replace(self, **small)

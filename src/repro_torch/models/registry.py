@@ -1,0 +1,77 @@
+"""Architecture registry: ``--arch <id>`` resolution (port of
+``repro.models.registry``).
+
+The port serves the dense transformer family.  Asking for an
+architecture whose family or config has not been ported raises
+``NotImplementedError`` naming the slice that brings it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from dataclasses import dataclass
+from typing import Any
+
+from repro_torch.models import transformer
+from repro_torch.models.config import ArchConfig
+
+ARCH_IDS = [
+    "dbrx-132b", "kimi-k2-1t-a32b", "rwkv6-7b", "stablelm-3b", "yi-6b",
+    "granite-3-8b", "qwen1.5-110b", "recurrentgemma-9b", "qwen2-vl-7b",
+    "whisper-small",
+]
+
+# configs ported so far (module name under repro_torch.configs)
+_CONFIG_MODULES = {"yi-6b": "yi_6b"}
+
+# the slice (ROADMAP queue 1) that brings each family still to port
+_PENDING_FAMILIES = {
+    "moe": "MoE and VLM on the transformer path (queue 1, item 8)",
+    "vlm": "MoE and VLM on the transformer path (queue 1, item 8)",
+    "ssm": "recurrent and encoder-decoder families (queue 1, item 9)",
+    "hybrid": "recurrent and encoder-decoder families (queue 1, item 9)",
+    "audio": "recurrent and encoder-decoder families (queue 1, item 9)",
+}
+
+
+@dataclass(frozen=True)
+class ArchEntry:
+    config: ArchConfig
+    module: Any     # model module implementing the protocol
+
+    def cache_zeros(self, batch: int, max_seq: int, tp: int = 1,
+                    device="cuda"):
+        return transformer.KVCache.zeros(self.config, batch, max_seq, tp,
+                                         device=device)
+
+
+def get_config(name: str) -> ArchConfig:
+    if name not in _CONFIG_MODULES:
+        raise NotImplementedError(
+            f"arch {name!r} is not ported yet: the port has configs for "
+            f"{sorted(_CONFIG_MODULES)}; the others arrive with the slice "
+            f"that ports their family (ROADMAP queue 1)")
+    mod = importlib.import_module(
+        f"repro_torch.configs.{_CONFIG_MODULES[name]}")
+    return mod.CONFIG
+
+
+def from_config(cfg: ArchConfig) -> ArchEntry:
+    if cfg.family != "dense":
+        slice_ = _PENDING_FAMILIES.get(cfg.family, "a later slice")
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) is not ported yet; it "
+            f"arrives with: {slice_}")
+    if cfg.window or cfg.mrope:
+        raise NotImplementedError(
+            f"{cfg.name}: windowed attention and M-RoPE are not ported yet")
+    return ArchEntry(config=cfg, module=transformer)
+
+
+def get(name: str, reduced: bool = False, **over) -> ArchEntry:
+    cfg = get_config(name)
+    if reduced:
+        cfg = cfg.reduced(**over)
+    elif over:
+        cfg = dataclasses.replace(cfg, **over)
+    return from_config(cfg)

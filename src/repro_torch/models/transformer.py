@@ -1,0 +1,267 @@
+"""Decoder-only transformer LM, dense family (port of
+``repro.models.transformer``).
+
+``init`` builds the reference's stacked-parameter tree (layer dim
+leading) as torch tensors; ``prefill`` / ``extend_step`` /
+``decode_step`` / ``decode_step_paged`` walk the layers in a Python loop.
+Where the reference threads caches and pools through ``lax`` loops and
+returns fresh arrays, these functions write the new K/V into the tensors
+they were given, in place, and return them.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.device import resolve
+from repro_torch.models import layers as L
+from repro_torch.models.config import ArchConfig
+
+Params = Dict[str, Any]
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor          # (L, B, S, Hkv, D)
+    v: torch.Tensor
+    lengths: torch.Tensor    # (B,) int32 valid prefix per request
+
+    @staticmethod
+    def zeros(cfg: ArchConfig, batch: int, max_seq: int, tp: int = 1,
+              dtype=None, device="cuda") -> "KVCache":
+        _, hkv = cfg.padded_heads(tp)
+        dt = dtype or L._dtype(cfg.dtype)
+        dev = resolve(device)
+        shape = (cfg.num_layers, batch, max_seq, hkv, cfg.d_head)
+        return KVCache(torch.zeros(shape, dtype=dt, device=dev),
+                       torch.zeros(shape, dtype=dt, device=dev),
+                       torch.zeros((batch,), dtype=torch.int32,
+                                   device=dev))
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+def init(cfg: ArchConfig, tp: int = 1, *, device="cuda",
+         seed: int = 0) -> Params:
+    """Random parameters with the reference's shapes, dtypes and
+    distributions, drawn from a ``torch.Generator`` seeded with ``seed``
+    on ``device`` (``"meta"`` gives an undrawn shape template)."""
+    dev = resolve(device)
+    gen = None
+    if dev.type != "meta":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+    dtype = L._dtype(cfg.dtype)
+    hq, hkv = cfg.padded_heads(tp)
+    lead = (cfg.num_layers,)
+    blocks = {
+        "ln1": L.init_norm(cfg.norm, cfg.d_model, device=dev, lead=lead),
+        "attn": L.init_attention(gen, cfg, dtype, hq, hkv, device=dev,
+                                 lead=lead),
+        "ln2": L.init_norm(cfg.norm, cfg.d_model, device=dev, lead=lead),
+        "ffn": L.init_ffn(gen, cfg.d_model, cfg.d_ff, cfg.gated_ffn, dtype,
+                          cfg.num_layers, device=dev, lead=lead),
+    }
+    return {
+        "embed": L.init_embed(gen, cfg.padded_vocab(tp), cfg.d_model, dtype,
+                              cfg.tie_embeddings, device=dev),
+        "blocks": blocks,
+        "ln_f": L.init_norm(cfg.norm, cfg.d_model, device=dev),
+    }
+
+
+def layer_params(params: Params, li: int) -> Params:
+    """Layer ``li``'s slice of the stacked block tree (views, no copy)."""
+    def take(tree):
+        return {k: take(v) if isinstance(v, dict) else v[li]
+                for k, v in tree.items()}
+    return take(params["blocks"])
+
+
+def _positions(start, n: int, batch: int, device) -> torch.Tensor:
+    pos = start + torch.arange(n, device=device)
+    return pos[None, :].expand(batch, n)
+
+
+def _attn_ffn_tail(cfg: ArchConfig, lp: Params, x: torch.Tensor,
+                   attn: torch.Tensor) -> torch.Tensor:
+    """Residual + output projection, then the FFN sub-block."""
+    x = x + attn.reshape(*attn.shape[:-2], -1) @ lp["attn"]["wo"]
+    h = L.apply_norm(cfg.norm, lp["ln2"], x)
+    return x + L.apply_ffn(lp["ffn"], h, cfg.act)
+
+
+def _qkv_rope(cfg: ArchConfig, lp: Params, x: torch.Tensor,
+              positions: torch.Tensor, hq: int, hkv: int):
+    h = L.apply_norm(cfg.norm, lp["ln1"], x)
+    q, k, v = L.qkv_project(lp["attn"], h, hq, hkv, cfg.d_head)
+    return (L.apply_rope(q, positions, cfg.rope_theta),
+            L.apply_rope(k, positions, cfg.rope_theta), v)
+
+
+# ---------------------------------------------------------------------------
+# Forward (prefill)
+# ---------------------------------------------------------------------------
+def forward_seq(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
+                tp: int = 1, collect_cache: bool = False):
+    """Full-sequence forward. Returns (hidden, (k_stack, v_stack) | None)."""
+    hq, hkv = cfg.padded_heads(tp)
+    x = L.embed(params["embed"], tokens)
+    b, s, _ = x.shape
+    positions = _positions(0, s, b, x.device)
+    ks, vs = [], []
+    for li in range(cfg.num_layers):
+        lp = layer_params(params, li)
+        q, k, v = _qkv_rope(cfg, lp, x, positions, hq, hkv)
+        attn = L.blocked_attention(q, k, v, causal=True)
+        x = _attn_ffn_tail(cfg, lp, x, attn)
+        if collect_cache:
+            ks.append(k)
+            vs.append(v)
+    x = L.apply_norm(cfg.norm, params["ln_f"], x)
+    kv = (torch.stack(ks), torch.stack(vs)) if collect_cache else None
+    return x, kv
+
+
+def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
+            tp: int = 1, max_seq: Optional[int] = None,
+            chunk: Optional[int] = None):
+    """Process the prompt; returns (last_logits, KVCache).
+
+    ``chunk`` enables Sarathi-style chunked prefill: the prompt is
+    processed ``chunk`` tokens at a time against the growing cache.
+    """
+    b, s = tokens.shape
+    if chunk is not None and s > chunk and s % chunk == 0:
+        return _prefill_chunked(params, cfg, tokens, tp, max_seq, chunk)
+    h, (k, v) = forward_seq(params, cfg, tokens, tp=tp, collect_cache=True)
+    if max_seq is not None and max_seq > s:
+        pad = (0, 0, 0, 0, 0, max_seq - s)
+        k = torch.nn.functional.pad(k, pad)
+        v = torch.nn.functional.pad(v, pad)
+    lengths = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
+    logits = L.unembed(params["embed"], h[:, -1])
+    return logits, KVCache(k, v, lengths)
+
+
+def _prefill_chunked(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
+                     tp: int, max_seq: Optional[int], chunk: int):
+    b, s = tokens.shape
+    total = max(max_seq or s, s)
+    cache = KVCache.zeros(cfg, b, total, tp, device=tokens.device)
+    logits = None
+    for c0 in range(0, s, chunk):
+        logits, cache = extend_step(params, cfg, tokens[:, c0:c0 + chunk],
+                                    cache, tp=tp, offset=c0)
+    return logits, cache
+
+
+def extend_step(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
+                cache: KVCache, tp: int = 1,
+                offset: Optional[int] = None) -> Tuple[torch.Tensor, KVCache]:
+    """Process a multi-token chunk against an existing cache.
+
+    One Sarathi prefill chunk: the chunk's K/V is written into
+    ``cache.k`` / ``cache.v`` in place at ``offset`` (default
+    ``cache.lengths[0]``, which must be uniform across the batch) and
+    ``lengths`` advances by the chunk length.  Returns the logits of the
+    chunk's last token.
+    """
+    hq, hkv = cfg.padded_heads(tp)
+    b, c = tokens.shape
+    if offset is None:
+        offset = int(cache.lengths[0])
+    x = L.embed(params["embed"], tokens)                  # (B, C, d)
+    positions = _positions(offset, c, b, x.device)
+    for li in range(cfg.num_layers):
+        lp = layer_params(params, li)
+        q, k, v = _qkv_rope(cfg, lp, x, positions, hq, hkv)
+        kc, vc = cache.k[li], cache.v[li]
+        kc[:, offset:offset + c] = k
+        vc[:, offset:offset + c] = v
+        # the causal mask (q_offset) blanks everything past the current
+        # position, including stale/zero future cache slots
+        attn = L.blocked_attention(q, kc, vc, causal=True, q_offset=offset)
+        x = _attn_ffn_tail(cfg, lp, x, attn)
+    h_last = L.apply_norm(cfg.norm, params["ln_f"], x[:, -1])
+    logits = L.unembed(params["embed"], h_last)
+    return logits, KVCache(cache.k, cache.v, cache.lengths + c)
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+def decode_step_paged(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
+                      k_pool: torch.Tensor, v_pool: torch.Tensor,
+                      tables: torch.Tensor, lengths: torch.Tensor,
+                      tp: int = 1, attn_fn=None):
+    """One decode iteration reading/writing KV through a block table.
+
+    k_pool/v_pool: (L, P+1, page, Hkv, D) page pools (page P is scratch);
+    tables: (B, nblk) page ids with unmapped entries pointing at the
+    scratch page; lengths: (B,).  Every lane writes its new K/V, in place,
+    into the page holding position ``lengths[b]`` (the engine routes
+    inactive lanes' tables to scratch).
+
+    ``attn_fn(q, k_pool_l, v_pool_l, tables, lengths) -> (B, Hq, D)``
+    defaults to the gather reference; the engine passes the paged
+    flash-decode kernel.
+    """
+    hq, hkv = cfg.padded_heads(tp)
+    attn_fn = attn_fn or L.paged_decode_attention
+    ps = k_pool.shape[2]
+    nblk = tables.shape[1]
+    x = L.embed(params["embed"], tokens)                 # (B, d)
+    b = x.shape[0]
+    positions = lengths[:, None]                         # (B, 1)
+    blk = lengths.long() // ps
+    # a position past the mapped window must write to the scratch page P,
+    # not alias (via clipping) onto the window's last live page
+    in_window = blk < nblk
+    blk = blk.clamp(0, nblk - 1)
+    page = torch.gather(tables.long(), 1, blk[:, None])[:, 0]
+    page = torch.where(in_window, page, k_pool.shape[1] - 1)
+    off = lengths.long() % ps
+    for li in range(cfg.num_layers):
+        lp = layer_params(params, li)
+        kc, vc = k_pool[li], v_pool[li]
+        q, k, v = _qkv_rope(cfg, lp, x[:, None, :], positions, hq, hkv)
+        kc[page, off] = k[:, 0]
+        vc[page, off] = v[:, 0]
+        attn = attn_fn(q[:, 0], kc, vc, tables, lengths + 1)
+        x = _attn_ffn_tail(cfg, lp, x, attn)
+    x = L.apply_norm(cfg.norm, params["ln_f"], x)
+    logits = L.unembed(params["embed"], x)
+    return logits, (k_pool, v_pool, lengths + 1)
+
+
+def decode_step(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
+                cache: KVCache, tp: int = 1,
+                attn_fn=None) -> Tuple[torch.Tensor, KVCache]:
+    """One decode iteration: tokens (B,) -> logits (B, V), updated cache.
+
+    ``attn_fn(q, k_cache, v_cache, lengths) -> (B, Hq, D)`` defaults to
+    the plain reference; the engine passes the flash-decode kernel.
+    """
+    hq, hkv = cfg.padded_heads(tp)
+    attn_fn = attn_fn or L.decode_attention
+    x = L.embed(params["embed"], tokens)                 # (B, d)
+    b = x.shape[0]
+    positions = cache.lengths[:, None]                   # (B, 1)
+    s = cache.k.shape[2]
+    # the reference's dynamic_update_slice clamps the start index, so a
+    # stale (finished) lane past the window rewrites position S-1
+    idx = cache.lengths.long().clamp(0, s - 1)
+    lanes = torch.arange(b, device=x.device)
+    for li in range(cfg.num_layers):
+        lp = layer_params(params, li)
+        kc, vc = cache.k[li], cache.v[li]
+        q, k, v = _qkv_rope(cfg, lp, x[:, None, :], positions, hq, hkv)
+        kc[lanes, idx] = k[:, 0]
+        vc[lanes, idx] = v[:, 0]
+        attn = attn_fn(q[:, 0], kc, vc, cache.lengths + 1)
+        x = _attn_ffn_tail(cfg, lp, x, attn)
+    x = L.apply_norm(cfg.norm, params["ln_f"], x)
+    logits = L.unembed(params["embed"], x)
+    return logits, KVCache(cache.k, cache.v, cache.lengths + 1)

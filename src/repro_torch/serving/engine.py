@@ -1,0 +1,574 @@
+"""Continuous-batching serving engines (port of
+``repro.serving.engine``, per-tick path).
+
+Two KV residency modes, as in the reference:
+
+* **Dense** (:class:`ServingEngine`) — the engine owns a
+  ``max_batch x max_seq`` cache; finished requests free their slot and
+  newly prefilled requests are written into a free one.
+* **Paged** (:class:`PagedServingEngine`) — KV lives in a page pool
+  (``serving/paged_cache.py``) and each slot maps its context through a
+  block table.  Prompt pages are reserved at admission, decode growth
+  allocates on demand, and an exhausted pool preempts the youngest
+  request.  Decode either gathers the slots' pages into the dense view
+  (the plain path) or, with ``use_pallas_decode``, reads pages through
+  the block table with the paged flash-decode kernel.
+
+With ``prefill_chunk`` set, prompts advance one Sarathi chunk of
+``transformer.extend_step`` per tick, co-scheduled with the decode
+batch; the paged engine writes those chunks straight into pages.  The
+trace-driving loop lives in ``serving/scheduler.py``.  Prefix sharing,
+placement, co-design pricing, the fused decode tick and page shipping
+arrive with later slices.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve
+from repro_torch.kernels import ops as kops
+from repro_torch.models import registry
+from repro_torch.obs.tracer import NULL_TRACER
+from repro_torch.serving.paged_cache import PagedCache, num_blocks
+from repro_torch.serving.replica_api import LoadReport
+from repro_torch.serving.scheduler import RequestState, Scheduler
+
+__all__ = ["EngineConfig", "ServingEngine", "PagedServingEngine",
+           "make_engine"]
+
+
+@dataclass
+class EngineConfig:
+    max_batch: int = 8
+    max_seq: int = 512
+    max_new_tokens: int = 32
+    eos_id: int = -1            # <0: never stops early (synthetic load)
+    # the flash-decode kernel for decode attention (the name is the
+    # reference's; here the kernels are CUDA)
+    use_pallas_decode: bool = False
+    prefill_chunk: Optional[int] = None   # Sarathi-style chunked prefill
+    paged: bool = False               # block-table KV residency
+    page_size: int = 16
+    num_pages: Optional[int] = None   # default: dense-equivalent capacity
+    # run PagedCache.defrag() when the fraction of holes below the
+    # high-water page index exceeds this (None disables the trigger)
+    defrag_threshold: Optional[float] = 0.5
+    device: str = "cuda"
+
+
+def _insert_slot(cache, new, slot: int) -> None:
+    """Write request 0 of ``new`` (batch-1 prefill output) into ``slot``
+    of ``cache``, in place."""
+    for c, n in zip(cache, new):
+        if c.ndim == 1:                       # lengths-like, batch axis 0
+            c[slot] = n[0]
+        else:                                 # (L, B, ...) batch axis 1
+            c[:, slot] = n[:, 0]
+
+
+class ServingEngine:
+    """Fixed-slot dense-cache engine."""
+
+    def __init__(self, entry: registry.ArchEntry, ecfg: EngineConfig,
+                 tp: int = 1, params: Optional[Dict[str, Any]] = None):
+        self.entry = entry
+        self.cfg = entry.config
+        self.ecfg = ecfg
+        self.tp = tp
+        self.device = resolve(ecfg.device)
+        self.params = (params if params is not None else
+                       entry.module.init(self.cfg, tp, device=self.device,
+                                         seed=0))
+        self.free_slots = list(range(ecfg.max_batch))
+        self.active: Dict[int, RequestState] = {}
+        self.completed: List[RequestState] = []
+        self.preemption_count = 0
+        self.requeue: List[RequestState] = []   # preempted, awaiting re-admit
+        self._prefilling: Optional[dict] = None   # chunk-scheduler state
+        # lifecycle tracing: NULL_TRACER keeps the hot path branch-cheap
+        self.tracer = NULL_TRACER
+        self._init_cache()
+
+        attn_fn = kops.attention_decode if ecfg.use_pallas_decode else None
+        mod, cfg = entry.module, self.cfg
+
+        def _prefill(params, tokens):
+            return mod.prefill(params, cfg, tokens, tp=tp,
+                               max_seq=ecfg.max_seq,
+                               chunk=ecfg.prefill_chunk)
+
+        def _decode(params, cache, tokens):
+            return mod.decode_step(params, cfg, tokens, cache, tp=tp,
+                                   attn_fn=attn_fn)
+
+        self._prefill = _prefill
+        self._decode = _decode
+        self._extend = (lambda params, tokens, cache:
+                        mod.extend_step(params, cfg, tokens, cache, tp=tp))
+        self._next_tok = np.zeros((ecfg.max_batch,), np.int32)
+
+    def set_tracer(self, tracer, replica: int = 0) -> None:
+        """Attach an ``obs.tracer`` Tracer; this replica's events carry
+        ``replica`` as their process id."""
+        self.tracer = tracer.for_replica(replica)
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(a).to(self.device)
+
+    def _argmax(self, logits: torch.Tensor) -> np.ndarray:
+        """Greedy ids over the real vocab (the padded tail excluded); the
+        host fetch is the step's only synchronisation."""
+        return logits[..., : self.cfg.vocab].argmax(-1).cpu().numpy()
+
+    # -- cache backend hooks (overridden by PagedServingEngine) ------------
+    def _init_cache(self):
+        self.cache = self.entry.cache_zeros(self.ecfg.max_batch,
+                                            self.ecfg.max_seq, self.tp,
+                                            device=self.device)
+
+    def _claim(self, req: RequestState) -> Optional[int]:
+        """Reserve a slot (and, when paged, the prompt's pages)."""
+        if not self.free_slots:
+            return None
+        return self.free_slots.pop()
+
+    def _insert(self, slot: int, new_cache, n_tokens: int) -> None:
+        _insert_slot(self.cache, new_cache, slot)
+
+    def _release(self, slot: int) -> None:
+        self.free_slots.append(slot)
+
+    def _decode_batch(self, toks: torch.Tensor) -> torch.Tensor:
+        """One decode iteration over all slots; returns logits."""
+        logits, self.cache = self._decode(self.params, self.cache, toks)
+        return logits
+
+    def _pre_decode_grow(self) -> None:
+        """Hook: ensure capacity for the token the step is about to write."""
+
+    def kv_report(self) -> dict:
+        """Resident-KV accounting (tokens of cache reserved vs. in use)."""
+        used = sum(len(r.prompt) + len(r.tokens_out)
+                   for r in self.active.values())
+        cap = self.ecfg.max_batch * self.ecfg.max_seq
+        return {"mode": "dense", "reserved_tokens": cap,
+                "peak_tokens": cap, "used_tokens": used}
+
+    def _budget(self, req: RequestState) -> int:
+        """Decode budget: the engine ceiling, tightened by the request's
+        trace-sampled early stop (eos-aware traces)."""
+        if req.decode_len is not None:
+            return min(self.ecfg.max_new_tokens, max(1, req.decode_len))
+        return self.ecfg.max_new_tokens
+
+    def _finish(self, slot: int, req: RequestState, now: float,
+                hit_eos: bool) -> None:
+        req.finish_s = now
+        req.finish_reason = (
+            "eos" if (hit_eos or self._budget(req) < self.ecfg.max_new_tokens)
+            else "budget")
+        self.completed.append(req)
+        if self.tracer.enabled:
+            self.tracer.emit("finish", ts=now, slot=slot, rid=req.rid,
+                             reason=req.finish_reason,
+                             tokens=len(req.tokens_out))
+
+    def _activate(self, slot: int, req: RequestState) -> None:
+        """Prefill done, first token emitted: either the request is
+        already finished (budget of one, or the first token IS eos) or it
+        joins the decode batch."""
+        hit_eos = (self.ecfg.eos_id >= 0
+                   and req.tokens_out[-1] == self.ecfg.eos_id)
+        if hit_eos or len(req.tokens_out) >= self._budget(req):
+            self._finish(slot, req, time.perf_counter(), hit_eos)
+            self._release(slot)
+            return
+        self.active[slot] = req
+
+    def _first_token(self, slot: int, req: RequestState, logits, t0: float,
+                     ts: float, take: int) -> None:
+        """Prefill boundary: emit the first token and activate the slot."""
+        first = int(self._argmax(logits[0]))
+        self._next_tok[slot] = first
+        req.slot = slot
+        req.prefill_done_s = time.perf_counter() - t0
+        req.first_token_s = time.perf_counter()
+        req.tokens_out.append(first)
+        if self.tracer.enabled:
+            self.tracer.emit("prefill_chunk", ts=ts,
+                             dur=req.first_token_s - ts, slot=slot,
+                             rid=req.rid, tokens=take, pos=len(req.prompt),
+                             last=True)
+        self._activate(slot, req)
+
+    # ------------------------------------------------------------------
+    def submit(self, req: RequestState) -> bool:
+        """Prefill the request into a free slot; False if engine is full."""
+        slot = self._claim(req)
+        if slot is None:
+            return False
+        t0 = time.perf_counter()
+        tokens = self._tensor(req.prompt[None, :])
+        logits, new_cache = self._prefill(self.params, tokens)
+        self._insert(slot, new_cache, len(req.prompt))
+        # whole-prompt prefill is one maximal "chunk"
+        self._first_token(slot, req, logits, t0, t0, len(req.prompt))
+        return True
+
+    def step(self) -> int:
+        """One decode iteration for all active slots; returns #finished."""
+        if not self.active:
+            return 0
+        t_step0 = time.perf_counter() if self.tracer.enabled else 0.0
+        batch0 = len(self.active)
+        self._pre_decode_grow()
+        logits = self._decode_batch(self._tensor(self._next_tok))
+        nxt = self._argmax(logits)
+        now = time.perf_counter()
+        finished = 0
+        for slot, req in list(self.active.items()):
+            tok = int(nxt[slot])
+            req.tokens_out.append(tok)
+            req.token_times.append(now)
+            hit_eos = self.ecfg.eos_id >= 0 and tok == self.ecfg.eos_id
+            if hit_eos or len(req.tokens_out) >= self._budget(req):
+                self._finish(slot, req, now, hit_eos)
+                del self.active[slot]
+                self._release(slot)
+                finished += 1
+            else:
+                self._next_tok[slot] = tok
+        if self.tracer.enabled:
+            self.tracer.emit("decode_step", ts=t_step0, dur=now - t_step0,
+                             batch=batch0, finished=finished)
+        return finished
+
+    # -- Sarathi chunk scheduler ---------------------------------------
+    def _chunkable(self) -> bool:
+        return self.ecfg.prefill_chunk is not None
+
+    def _start_chunked(self, req: RequestState) -> bool:
+        """Claim a slot and set up incremental prefill state for ``req``."""
+        if self._prefilling is not None:
+            return False
+        slot = self._claim(req)
+        if slot is None:
+            return False
+        buf = self.entry.cache_zeros(1, self.ecfg.max_seq, self.tp,
+                                     device=self.device)
+        self._prefilling = {"req": req, "slot": slot, "buf": buf,
+                            "pos": 0, "t0": time.perf_counter()}
+        return True
+
+    def _chunk_tokens(self, st: dict) -> torch.Tensor:
+        req = st["req"]
+        take = min(self.ecfg.prefill_chunk, len(req.prompt) - st["pos"])
+        return self._tensor(req.prompt[None, st["pos"]: st["pos"] + take])
+
+    def _chunk_progress(self, st: dict, take: int, t_ck0: float) -> None:
+        if self.tracer.enabled:
+            self.tracer.emit("prefill_chunk", ts=t_ck0,
+                             dur=time.perf_counter() - t_ck0,
+                             slot=st["slot"], rid=st["req"].rid,
+                             tokens=take, pos=st["pos"], last=False)
+
+    def _prefill_chunk_tick(self) -> bool:
+        """Advance the in-flight prefill by ONE chunk.  True when the
+        request became active (prefill complete)."""
+        st = self._prefilling
+        if st is None:
+            return False
+        t_ck0 = time.perf_counter()
+        toks = self._chunk_tokens(st)
+        take = toks.shape[1]
+        logits, st["buf"] = self._extend(self.params, toks, st["buf"])
+        st["pos"] += take
+        n = len(st["req"].prompt)
+        if st["pos"] < n:
+            self._chunk_progress(st, take, t_ck0)
+            return False
+        # prompt fully consumed: move the buffer into the slot
+        slot = st["slot"]
+        self._insert(slot, st["buf"], n)
+        self._prefilling = None
+        self._first_token(slot, st["req"], logits, st["t0"], t_ck0, take)
+        return True
+
+    # -- narrow replica interface (driven by Scheduler) ----------------
+    def admit(self, req: RequestState) -> bool:
+        """Claim a slot for ``req`` — chunked prefill start when chunking
+        is configured, full prefill otherwise.  False when saturated."""
+        return (self._start_chunked(req) if self._chunkable()
+                else self.submit(req))
+
+    def tick(self) -> int:
+        """Advance one iteration: at most one prefill chunk co-scheduled
+        with one decode step.  Returns #finished requests."""
+        if self._chunkable():
+            self._prefill_chunk_tick()
+        n_fin = self.step()
+        if self.tracer.enabled:
+            self._trace_gauges()
+        return n_fin
+
+    def _gauges(self) -> dict:
+        return {"active": len(self.active),
+                "free_slots": len(self.free_slots)}
+
+    def _trace_gauges(self) -> None:
+        """One ``gauge`` event per tick (tracing only)."""
+        self.tracer.emit("gauge", **self._gauges())
+
+    def busy(self) -> bool:
+        return bool(self.active) or self._prefilling is not None
+
+    def load_report(self) -> LoadReport:
+        """Load snapshot: resident work (``queue_depth``) and headroom
+        (``free_slots`` / ``free_pages``)."""
+        prefilling = int(self._prefilling is not None)
+        free = len(self.free_slots)
+        # dense engines have no page pool; slots are the capacity
+        return LoadReport(
+            active=len(self.active), prefilling=prefilling,
+            queue_depth=(len(self.active) + prefilling
+                         + len(self.requeue)),
+            free_slots=free, free_pages=free, min_region_free=free)
+
+    def run_trace(self, reqs: List[RequestState]) -> dict:
+        """Drive an explicit request trace through a single-replica
+        :class:`~repro_torch.serving.scheduler.Scheduler`."""
+        return Scheduler(self).run_trace(reqs)
+
+
+# ---------------------------------------------------------------------------
+# Paged engine
+# ---------------------------------------------------------------------------
+class PagedServingEngine(ServingEngine):
+    """Block-table KV residency + on-demand page growth + preemption."""
+
+    def _init_cache(self):
+        ecfg = self.ecfg
+        if ecfg.page_size <= 0:
+            raise ValueError(f"page_size must be positive, "
+                             f"got {ecfg.page_size}")
+        max_blocks = num_blocks(ecfg.max_seq, ecfg.page_size)
+        n_pages = ecfg.num_pages or ecfg.max_batch * max_blocks
+        if n_pages < max_blocks:
+            raise ValueError(
+                f"num_pages={n_pages} cannot hold even one max-length "
+                f"context ({max_blocks} pages)")
+        self.paged = PagedCache(self.entry, max_batch=ecfg.max_batch,
+                                max_seq=ecfg.max_seq,
+                                page_size=ecfg.page_size,
+                                num_pages=n_pages, tp=self.tp,
+                                device=self.device)
+        # PagedCache rounds max_seq up to a whole number of pages; adopt
+        # the rounded value so prefill buffers, gather views and occupancy
+        # math all agree with the table capacity (kv_report asserts this)
+        ecfg.max_seq = self.paged.max_seq
+        self._lengths_host = np.zeros((ecfg.max_batch,), np.int64)
+        self.pages_peak = 0
+        self.pages_logical_peak = 0
+        self.defrag_runs = 0
+
+    def set_tracer(self, tracer, replica: int = 0) -> None:
+        super().set_tracer(tracer, replica)
+        self.paged.tracer = self.tracer   # defrag events
+
+    # -- capacity ------------------------------------------------------
+    def _claim(self, req: RequestState) -> Optional[int]:
+        if not self.free_slots:
+            return None
+        slot = self.free_slots.pop()
+        if not self.paged.alloc_slot(slot, len(req.prompt) + 1):
+            self.free_slots.append(slot)
+            return None
+        self._note_pages()
+        return slot
+
+    def _insert(self, slot: int, new_cache, n_tokens: int) -> None:
+        self.paged.write_slot(slot, new_cache, n_tokens)
+        self._lengths_host[slot] = n_tokens
+
+    def _release(self, slot: int) -> None:
+        self.paged.free_slot(slot)
+        self._lengths_host[slot] = 0
+        self._maybe_defrag()
+        super()._release(slot)
+
+    def _maybe_defrag(self) -> None:
+        """Fragmentation-threshold defrag trigger: compact the page pool
+        when the live set has drifted too far from the lowest indices."""
+        thr = self.ecfg.defrag_threshold
+        if thr is not None and self.paged.fragmentation() > thr:
+            self.paged.defrag()
+            self.defrag_runs += 1
+
+    def _note_pages(self) -> None:
+        self.pages_peak = max(self.pages_peak, self.paged.pages_in_use())
+        self.pages_logical_peak = max(self.pages_logical_peak,
+                                      self.paged.logical_pages())
+
+    def load_report(self) -> LoadReport:
+        base = super().load_report()
+        free_pages = self.paged.alloc.free_pages
+        return LoadReport(
+            active=base.active, prefilling=base.prefilling,
+            queue_depth=base.queue_depth, free_slots=base.free_slots,
+            free_pages=free_pages, min_region_free=free_pages)
+
+    # -- chunked prefill straight into block-table pages ---------------
+    def _start_chunked(self, req: RequestState) -> bool:
+        if self._prefilling is not None:
+            return False
+        slot = self._claim(req)     # reserves the prompt's pages
+        if slot is None:
+            return False
+        self._prefilling = {"req": req, "slot": slot, "pos": 0,
+                            "t0": time.perf_counter()}
+        return True
+
+    def _prefill_chunk_tick(self) -> bool:
+        """Advance the in-flight prefill by ONE chunk, written directly
+        into the slot's pages (gather window -> extend_step -> scatter
+        chunk): no dense staging buffer, no admission-time copy."""
+        st = self._prefilling
+        if st is None:
+            return False
+        t_ck0 = time.perf_counter()
+        slot = st["slot"]
+        toks = self._chunk_tokens(st)
+        take = toks.shape[1]
+        view = self.paged.gather_slot(slot, st["pos"])
+        logits, view = self._extend(self.params, toks, view)
+        self.paged.scatter_chunk(slot, view, st["pos"], take)
+        st["pos"] += take
+        n = len(st["req"].prompt)
+        if st["pos"] < n:
+            self._chunk_progress(st, take, t_ck0)
+            return False
+        self._lengths_host[slot] = n
+        self._note_pages()
+        self._prefilling = None
+        self._first_token(slot, st["req"], logits, st["t0"], t_ck0, take)
+        return True
+
+    def kv_report(self) -> dict:
+        # _init_cache reconciled the engine's max_seq with the paged
+        # cache's page-rounded window; occupancy math is wrong if the two
+        # (or the table capacity) ever drift apart again
+        assert (self.paged.max_seq == self.ecfg.max_seq
+                == self.paged.max_blocks * self.ecfg.page_size), \
+            "engine max_seq out of sync with page-table capacity"
+        used = sum(len(r.prompt) + len(r.tokens_out)
+                   for r in self.active.values())
+        rep = {"mode": "paged",
+               "reserved_tokens": self.paged.kv_tokens_resident(),
+               "peak_tokens": self.pages_peak * self.ecfg.page_size,
+               "used_tokens": used,
+               "logical_peak_pages": self.pages_logical_peak,
+               "defrag_runs": self.defrag_runs}
+        rep.update(self.paged.sharing_report())
+        return rep
+
+    # -- decode --------------------------------------------------------
+    def _pre_decode_grow(self) -> None:
+        """Grow every active slot to cover the token this step writes;
+        preempt the youngest request when the pool runs dry."""
+        tr = self.tracer
+        pages0 = self.paged.pages_in_use() if tr.enabled else 0
+        for slot in sorted(self.active):
+            if slot not in self.active:      # preempted mid-loop
+                continue
+            need = num_blocks(int(self._lengths_host[slot]) + 1,
+                              self.ecfg.page_size)
+            if need > self.paged.max_blocks:
+                # preemption can never fix a max_seq overflow — don't
+                # evict innocents on the way to an inevitable failure
+                raise RuntimeError(
+                    f"slot {slot} context {self._lengths_host[slot] + 1} "
+                    f"exceeds max_seq={self.paged.max_seq}")
+            while not self.paged.extend_slot(
+                    slot, int(self._lengths_host[slot]) + 1):
+                victim = self._pick_victim(exclude=slot)
+                if victim is None:
+                    raise RuntimeError(
+                        "page pool exhausted with no preemptible request")
+                self._preempt(victim)
+        self._note_pages()
+        if tr.enabled:
+            grown = self.paged.pages_in_use() - pages0
+            if grown > 0:
+                tr.emit("grow", pages=grown)
+
+    def _pick_victim(self, exclude: int) -> Optional[int]:
+        cands = [s for s in self.active if s != exclude]
+        if not cands:
+            return None
+        # youngest request (latest arrival) loses its pages
+        return max(cands, key=lambda s: (self.active[s].arrival_s,
+                                         self.active[s].rid))
+
+    def _preempt(self, slot: int) -> None:
+        req = self.active.pop(slot)
+        if self.tracer.enabled:
+            self.tracer.emit("preempt", slot=slot, rid=req.rid,
+                             preemptions=req.preemptions + 1)
+        self._release(slot)
+        req.reset_generation()
+        req.preemptions += 1
+        self.preemption_count += 1
+        self.requeue.append(req)
+
+    def _decode_batch(self, toks: torch.Tensor) -> torch.Tensor:
+        lengths_pre = self._lengths_host.copy()
+        active = np.zeros((self.ecfg.max_batch,), bool)
+        active[list(self.active)] = True
+        if self.ecfg.use_pallas_decode:
+            logits = self._decode_paged_kernel(toks, active)
+        else:
+            cache = self.paged.gather()
+            logits, new_cache = self._decode(self.params, cache, toks)
+            self.paged.scatter_token(new_cache, lengths_pre, active)
+        self._lengths_host[active] += 1
+        return logits
+
+    def _decode_paged_kernel(self, toks: torch.Tensor,
+                             active: np.ndarray) -> torch.Tensor:
+        """Block-table read-through decode: no dense gather materialised."""
+        ki, vi = [i for i, s in enumerate(self.paged.is_seq) if s]
+        li = self.paged.is_seq.index(False)      # the lengths leaf
+        store = list(self.paged.store)
+        act = self._tensor(active)
+        lengths = self._tensor(np.where(active, self._lengths_host, 0)
+                               .astype(np.int32))
+        # a lane outside the decode batch can still have pages mapped (a
+        # slot mid chunked-prefill); every lane writes its K/V, so route
+        # each inactive lane's window to the scratch page — on device,
+        # over the incrementally maintained table mirror
+        tables = torch.where(act[:, None], self.paged.tables_device(),
+                             self.paged.num_pages)
+        logits, (_, _, new_len) = self.entry.module.decode_step_paged(
+            self.params, self.cfg, toks, store[ki], store[vi], tables,
+            lengths, tp=self.tp, attn_fn=kops.attention_decode_paged)
+        store[li] = torch.where(act, new_len, store[li])
+        self.paged.store = store
+        return logits
+
+    def _gauges(self) -> dict:
+        return {**super()._gauges(),
+                "free_pages": self.paged.alloc.free_pages}
+
+
+def make_engine(entry: registry.ArchEntry, ecfg: EngineConfig,
+                tp: int = 1, params: Optional[Dict[str, Any]] = None
+                ) -> ServingEngine:
+    """The paged or dense engine for ``ecfg`` on ``ecfg.device``;
+    ``params`` defaults to ``entry.module.init`` seeded with 0."""
+    cls = PagedServingEngine if ecfg.paged else ServingEngine
+    return cls(entry, ecfg, tp=tp, params=params)

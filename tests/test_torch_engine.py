@@ -1,0 +1,236 @@
+"""Serving engines of the PyTorch port against ``repro.serving.engine``.
+
+Both packages' engines serve the same ``make_trace`` trace on the
+reference's own reduced yi-6b weights (bridged), in float32.  Arrivals
+are all at t~0 (rate 1e9), so admission depends only on capacity and
+both sides schedule identically: token streams, finish reasons,
+preemptions and defrag runs must be equal.
+
+Near ties: greedy decode from random weights can meet a step whose top-2
+logit gap is within float rounding of a tie.  Where the streams first
+differ, the reference's gap at that step must be below 10x the logit
+tolerance and the two logit rows must agree within it; the rest of that
+stream is conditioned on a different token and is not compared.
+"""
+import functools
+
+import jax
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.models import registry as JR  # noqa: E402
+from repro.models import transformer as JT  # noqa: E402
+from repro.obs import metrics as jmetrics  # noqa: E402
+from repro.obs import tracer as jtracer  # noqa: E402
+from repro.serving import engine as JE  # noqa: E402
+from repro.serving import replica_api as japi  # noqa: E402
+from repro.serving import scheduler as jsched  # noqa: E402
+from repro_torch.kernels import flash_decode as fd  # noqa: E402
+from repro_torch.models import registry as TR  # noqa: E402
+from repro_torch.models.bridge import params_from_numpy  # noqa: E402
+from repro_torch.obs import metrics as tmetrics  # noqa: E402
+from repro_torch.obs import tracer as ttracer  # noqa: E402
+from repro_torch.serving import engine as TE  # noqa: E402
+from repro_torch.serving import replica_api as tapi  # noqa: E402
+from repro_torch.serving import scheduler as tsched  # noqa: E402
+
+LOGIT_TOL = 1e-5   # float32 both sides, sums in another order: ~6e-7 seen
+SKEWED = np.array([9, 17, 5, 30, 12, 24])
+
+# name -> (EngineConfig overrides, trace kwargs)
+CASES = {
+    "dense": (dict(), dict(prompt_lens=SKEWED, seed=3)),
+    "paged": (dict(paged=True, page_size=8),
+              dict(prompt_lens=SKEWED, seed=3)),
+    "paged_chunked": (dict(paged=True, page_size=8, prefill_chunk=8),
+                      dict(prompt_lens=SKEWED, seed=3)),
+    # two 28-token prompts reserve 4 of the 8 pages each; decode past 32
+    # tokens must evict the younger one
+    "oversubscribed": (dict(paged=True, page_size=8, num_pages=8),
+                       dict(prompt_lens=np.array([28, 28, 9, 9, 9]),
+                            seed=7)),
+    "eos": (dict(paged=True, page_size=8, prefill_chunk=8),
+            dict(prompt_lens=SKEWED, seed=5, eos_rate=0.3)),
+}
+# the port's kernel path (plain on the CPU) against the reference's
+# plain path of the same layout
+KERNEL_CASES = {"dense_kernel": "dense", "paged_kernel": "paged"}
+
+
+@pytest.fixture(scope="module")
+def weights():
+    cfg = JR.get("yi-6b", reduced=True).config
+    tree = jax.tree.map(np.asarray, JT.init(jax.random.PRNGKey(0), cfg))
+    return params_from_numpy(tree, TR.get("yi-6b", reduced=True).config,
+                             device="cpu")
+
+
+def _ecfg(over):
+    return dict(max_batch=3, max_seq=48, max_new_tokens=6, **over)
+
+
+def _trace(make, trace_kw):
+    n = len(trace_kw["prompt_lens"])
+    return make(512, rate_req_s=1e9, n_requests=n, prompt_len=0,
+                **trace_kw)
+
+
+def _host(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _record_logits(eng) -> dict:
+    """(rid, token index) -> the logits row each emitted token came
+    from, for the engines of both packages (they share hook names)."""
+    rec, last = {}, {}
+
+    def wrap_prefill(fn):
+        def run(*a):
+            out = fn(*a)
+            last["logits"] = out[0]
+            return out
+        return run
+
+    eng._prefill = wrap_prefill(eng._prefill)
+    eng._extend = wrap_prefill(eng._extend)
+    activate, decode = eng._activate, eng._decode_batch
+
+    def on_activate(slot, req):
+        rec[(req.rid, 0)] = _host(last["logits"])[0]
+        return activate(slot, req)
+
+    def on_decode(toks):
+        logits = decode(toks)
+        rows = _host(logits)
+        for slot, req in eng.active.items():
+            rec[(req.rid, len(req.tokens_out))] = rows[slot]
+        return logits
+
+    eng._activate, eng._decode_batch = on_activate, on_decode
+    return rec
+
+
+@functools.lru_cache(maxsize=None)
+def _reference(name):
+    over, trace_kw = CASES[name]
+    eng = JE.make_engine(JR.get("yi-6b", reduced=True),
+                         JE.EngineConfig(**_ecfg(over)))
+    rec = _record_logits(eng)
+    metrics = eng.run_trace(_trace(jsched.make_trace, trace_kw))
+    return eng, rec, metrics
+
+
+def _port(over, trace_kw, params):
+    eng = TE.make_engine(TR.get("yi-6b", reduced=True),
+                         TE.EngineConfig(device="cpu", **_ecfg(over)),
+                         params=params)
+    rec = _record_logits(eng)
+    metrics = eng.run_trace(_trace(tsched.make_trace, trace_kw))
+    return eng, rec, metrics
+
+
+def _assert_streams(ref, port):
+    (jeng, jrec, _), (teng, trec, _) = ref, port
+    jby = {r.rid: r for r in jeng.completed}
+    tby = {r.rid: r for r in teng.completed}
+    assert jby.keys() == tby.keys()
+    for rid, jr in jby.items():
+        tr = tby[rid]
+        assert tr.finish_reason == jr.finish_reason
+        assert len(tr.tokens_out) == len(jr.tokens_out)
+        for i, (a, b) in enumerate(zip(jr.tokens_out, tr.tokens_out)):
+            if a == b:
+                continue
+            jrow, trow = jrec[(rid, i)][:512], trec[(rid, i)][:512]
+            top2 = np.sort(jrow)[-2:]
+            assert top2[1] - top2[0] < 10 * LOGIT_TOL, (
+                f"request {rid} token {i}: {b} != {a} without a near tie")
+            np.testing.assert_allclose(trow, jrow, rtol=0, atol=LOGIT_TOL)
+            break
+
+
+@pytest.mark.parametrize("name", sorted(CASES) + sorted(KERNEL_CASES))
+def test_engine_matches_reference(name, weights):
+    ref_name = KERNEL_CASES.get(name, name)
+    over, trace_kw = CASES[ref_name]
+    if name in KERNEL_CASES:
+        over = dict(over, use_pallas_decode=True)
+    ref = _reference(ref_name)
+    fd.reset_launches()
+    port = _port(over, trace_kw, weights)
+    _assert_streams(ref, port)
+    jm, tm = ref[2], port[2]
+    for key in ("requests", "decoded_tokens", "preemptions", "finish_eos",
+                "finish_budget", "defrag_runs", "kv_peak_tokens",
+                "kv_logical_peak_pages", "kv_mode"):
+        assert tm[key] == jm[key], key
+    if ref_name == "oversubscribed":
+        assert tm["preemptions"] > 0
+    if ref_name == "eos":
+        assert tm["finish_eos"] > 0
+    if ref_name == "paged":
+        assert tm["defrag_runs"] > 0
+    # on the CPU the kernel path runs the plain versions: no launches
+    assert fd.LAUNCHES == {"flash_decode": 0, "paged_flash_decode": 0}
+
+
+def test_metric_keys_match_reference_contract(weights):
+    _, _, metrics = _port(*CASES["paged"], weights)
+    assert set(metrics) == set(jmetrics.SCHEDULER_METRIC_CONTRACT)
+    assert tmetrics.SCHEDULER_METRIC_CONTRACT == \
+        jmetrics.SCHEDULER_METRIC_CONTRACT
+    assert tmetrics.ROUTER_METRIC_CONTRACT == \
+        jmetrics.ROUTER_METRIC_CONTRACT
+
+
+def test_copied_contracts_match_reference():
+    assert ttracer.EVENT_KINDS == jtracer.EVENT_KINDS
+    assert (tapi.LoadReport.__dataclass_fields__.keys()
+            == japi.LoadReport.__dataclass_fields__.keys())
+
+
+@pytest.mark.parametrize("maker,kw", [
+    ("make_trace", dict(n_requests=5, prompt_len=7, eos_rate=0.4,
+                        sessions=np.arange(5))),
+    ("make_shared_prefix_trace", dict(n_requests=4, prefix_len=6,
+                                      tail_len=3)),
+    ("make_grouped_prefix_trace", dict(n_requests=6, n_groups=3,
+                                       prefix_len=5, tail_len=2)),
+])
+def test_same_seed_same_trace(maker, kw):
+    a = getattr(jsched, maker)(512, rate_req_s=3.0, seed=11, **kw)
+    b = getattr(tsched, maker)(512, rate_req_s=3.0, seed=11, **kw)
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        assert (x.rid, x.arrival_s, x.decode_len, x.session) == \
+            (y.rid, y.arrival_s, y.decode_len, y.session)
+        np.testing.assert_array_equal(x.prompt, y.prompt)
+
+
+def test_trace_file_roundtrip(tmp_path):
+    reqs = tsched.make_trace(512, rate_req_s=2.0, n_requests=3,
+                             prompt_len=4, seed=1)
+    path = str(tmp_path / "t.json")
+    tsched.save_trace(reqs, path)
+    back = jsched.load_trace(path)
+    assert [list(r.prompt) for r in back] == [list(r.prompt) for r in reqs]
+
+
+def test_load_report_and_tracer(weights):
+    eng = TE.make_engine(TR.get("yi-6b", reduced=True),
+                         TE.EngineConfig(device="cpu", paged=True,
+                                         page_size=8, **_ecfg({})),
+                         params=weights)
+    tracer = ttracer.Tracer()
+    eng.set_tracer(tracer)
+    rep = eng.load_report()
+    assert rep.free_slots == 3 and rep.free_pages == eng.paged.num_pages
+    eng.run_trace(_trace(tsched.make_trace, CASES["paged"][1]))
+    kinds = {e.kind for e in tracer.events}
+    assert {"arrival", "admit", "prefill_chunk", "decode_step", "finish",
+            "gauge"} <= kinds
+    assert eng.load_report().queue_depth == 0

@@ -1,0 +1,84 @@
+"""Package rules of the PyTorch port: it imports neither JAX nor the JAX
+package, asks for the card unless told otherwise, and its CLI serves on
+the CPU when asked and refuses flags whose features are not ported."""
+import ast
+import dataclasses
+import pathlib
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import registry  # noqa: E402
+from repro_torch.serving.engine import EngineConfig, make_engine  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+
+
+def _imported(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_and_no_reference_imports(path):
+    for mod in _imported(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), \
+            f"{path.name} imports {mod}"
+
+
+def test_cuda_is_the_default_device():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the default device is usable")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_engine(registry.get("yi-6b", reduced=True), EngineConfig())
+
+
+def test_unported_families_name_their_slice():
+    with pytest.raises(NotImplementedError, match="not ported"):
+        registry.get("rwkv6-7b", reduced=True)
+    cfg = registry.get_config("yi-6b")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        registry.from_config(dataclasses.replace(cfg, family="moe"))
+
+
+def test_cli_serves_on_cpu(capsys):
+    m = serve.main(["--device", "cpu", "--n-requests", "2",
+                    "--prompt-len", "6", "--max-new", "3", "--paged",
+                    "--page-size", "4", "--prefill-chunk", "4", "--pallas",
+                    "--rate", "1e9"])
+    assert m["requests"] == 2 and m["decoded_tokens"] == 6
+    assert "[serve] yi-6b on cpu" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flag", [["--prefix-sharing"],
+                                  ["--shared-prefix", "8"],
+                                  ["--placement", "affinity"],
+                                  ["--codesign"], ["--fuse-steps", "4"],
+                                  ["--replicas", "2"], ["--tiers", "1:1"],
+                                  ["--trace-out", "t.json"]])
+def test_cli_refuses_unported_flags(flag, capsys):
+    with pytest.raises(SystemExit) as exc:
+        serve.main(["--device", "cpu", *flag])
+    assert exc.value.code == 2
+    assert f"{flag[0]} is not ported yet" in capsys.readouterr().err
+
+
+def test_profile_step_runs_on_cpu(capsys):
+    from repro_torch.launch import profile_step
+    out = profile_step.main(["--device", "cpu", "--batch", "2",
+                             "--context", "20", "--chunk", "8",
+                             "--steps", "2"])
+    assert len(out["decode_step_ms"]) == 2
+    assert len(out["prefill_chunk_ms"]) == 3      # 20 tokens in chunks of 8
+    assert out["card"] == "cpu" and out["device_launches_per_step"] == 0
+    assert '"arch": "yi-6b"' in capsys.readouterr().out
