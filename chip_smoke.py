@@ -6,22 +6,36 @@
 Phases, one line each; any failure raises and exits non-zero:
 
 1. build   — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
-             with nvcc; print the card's name and power limit.
-2. kernels — each kernel against its plain PyTorch version at full-width
-             yi-6b shapes in bf16 (Hq=32, Hkv=4, D=128, page 16, B=8,
-             ragged lengths 0..4096, garbage past every length and in the
-             scratch page), rtol = atol = 2e-2 (the bf16 tolerance of
-             tests/test_kernels.py); times on the card beside the bound.
-3. parity  — full-width yi-6b at 2 layers in float32 (TF32 off): each
-             engine with its kernel against the same engine on the plain
-             path, teacher-forced on the plain run's tokens; per-step
-             logits within 1e-3.
-4. serve   — full-width, full-depth yi-6b in bf16 (random weights from a
-             seeded generator): 4 requests of 256-1024 prompt tokens and
-             32 new tokens through ``Scheduler.run_trace`` on the paged
-             engine (chunked prefill 128, paged kernel), then on the
-             dense engine (dense kernel).  Every launch counter is set to
-             0 just before each run and read just after it.
+             with nvcc (one process per source, in parallel); print the
+             card's name and power limit.
+2. kernels — each kernel against its plain PyTorch version, with its time
+             on the card beside the bound:
+             * flash decode at full-width yi-6b shapes in bf16 (Hq=32,
+               Hkv=4, D=128, page 16, B=8, ragged lengths 0..4096, garbage
+               past every length and in the scratch page), rtol = atol =
+               2e-2 (the bf16 tolerance of tests/test_kernels.py);
+             * WKV6 at rwkv6-7b shapes (H=64, hs=64): decode B=4, T=1 and
+               prefill B=1, T=1024, in float32 (tolerance 1e-4, as
+               tests/test_kernels.py) and bf16 inputs (2e-2), plus the
+               state carry wkv6(T1+T2) == wkv6(T2) . wkv6(T1) and the
+               new state written over the old one in place;
+             * the decode GEMM at rwkv6-7b's decode products, M=4, bf16:
+               (N, K) = (4096, 4096), (14336, 4096) IS, (4096, 14336) OS,
+               and a ragged float32 (13, 257, 129) (tests/test_kernels.py
+               tolerances).
+3. parity  — full-width yi-6b and rwkv6-7b at 2 layers in float32 (TF32
+             off): each engine with its kernels against the same engine
+             on the plain path, teacher-forced on the plain run's tokens;
+             per-step logits within 1e-3.
+4. serve   — full-width, full-depth models in bf16 (random weights from a
+             seeded generator), 4 requests of 256-1024 prompt tokens and
+             32 new tokens each through ``Scheduler.run_trace``: yi-6b on
+             the paged engine (chunked prefill 128, paged kernel), then on
+             the dense engine (dense kernel); then rwkv6-7b on the paged
+             engine with the WKV6 kernel.  Every launch counter is set to
+             0 just before each run and read just after it; the decode
+             GEMM is not wired into any model (as in the reference), so
+             its count on these runs is 0.
 
 The last three lines are the kernels' JSON, the card's name and power
 limit as nvidia-smi reports them, and the result JSON.  Exits non-zero
@@ -43,11 +57,17 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor rate
+F32_FLOP_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 HQ, HKV, D, PAGE, BATCH = 32, 4, 128, 16, 8
 LENGTHS = [0, 1, 16, 17, 255, 1000, 2048, 4096]
 KERNEL_TOL = dict(rtol=2e-2, atol=2e-2)
 PARITY_TOL = dict(rtol=1e-3, atol=1e-3)
 GARBAGE = 60.0
+WKV_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+           torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+GEMM_TOL = {torch.float32: dict(rtol=5e-3, atol=1e-3),
+            torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+WKV_H, WKV_HS = 64, 64          # rwkv6-7b: d 4096 / head size 64
 
 
 def card() -> str:
@@ -58,21 +78,28 @@ def card() -> str:
 
 
 def time_ms(fn, iters: int = 20) -> float:
-    """Median time of one call, by CUDA events around each call, with the
-    50 MB L2 flushed before it (a decode step finds each layer's KV
-    cold)."""
+    """Median device time of one call: ``fn`` is captured once in a CUDA
+    graph and each replay is timed between CUDA events, so the host's
+    dispatch (Python, argument checks, ctypes) is not counted; the 50 MB
+    L2 is flushed before each replay (a decode step finds each layer's
+    data cold)."""
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
     fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
     times = []
     for _ in range(iters):
         flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        graph.replay()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    del graph
     return statistics.median(times)
 
 
@@ -126,6 +153,21 @@ def _kernel_inputs():
     return q, k, v, kp, vp, tables, lengths, sum(need)
 
 
+def _bound(nbytes: float, flops: float, flop_rate: float):
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / flop_rate * 1e3
+    return (max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def _check(name, got, want, tol):
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    if not torch.allclose(got.float(), want.float(), **tol):
+        raise AssertionError(f"{name}: max |err| {err} beyond {tol}")
+    return err
+
+
 def phase_kernels(fd, ref):
     q, k, v, kp, vp, tables, lengths, pages_read = _kernel_inputs()
     ctx = sum(LENGTHS)
@@ -152,28 +194,136 @@ def phase_kernels(fd, ref):
     ]
     rows = []
     for name, replaces, kern, plain, library, nbytes in specs:
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        if not torch.allclose(got.float(), want.float(), **KERNEL_TOL):
-            raise AssertionError(f"{name}: max |err| {err} beyond "
-                                 f"{KERNEL_TOL}")
+        got = kern()
+        err = _check(name, got, plain(), KERNEL_TOL)
         if (got[0] != 0).any():
             raise AssertionError(f"{name}: the 0-length lane is not 0")
-        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        by_ops = flops / BF16_FLOP_PER_S * 1e3
+        bound, by = _bound(nbytes, flops, BF16_FLOP_PER_S)
         rows.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
             "replaces": replaces, "launches": None, "max_abs_err": err,
             "ms": time_ms(kern), "plain_ms": time_ms(plain),
-            "bound_ms": max(by_bytes, by_ops),
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bound_ms": bound, "bound_by": by,
             "library_ms": time_ms(library) if library else None})
     print("[kernels] " + json.dumps({"shapes": {
         "B": BATCH, "Hq": HQ, "Hkv": HKV, "D": D, "page": PAGE,
         "lengths": LENGTHS, "dtype": "bfloat16"}, "kernels": rows}))
     return rows
+
+
+def _wkv_inputs(gen, b, t, dtype):
+    """rwkv6-7b-shaped WKV6 inputs: r/k/v ~ N(0,1), decay in (0.4, 0.9),
+    small bonus and state (the distributions of tests/test_kernels.py)."""
+    shape = (b, t, WKV_H, WKV_HS)
+
+    def randn(*s):
+        return torch.randn(s, generator=gen, device="cuda")
+
+    r, k, v = (randn(*shape).to(dtype) for _ in range(3))
+    w = (torch.sigmoid(randn(*shape)) * 0.5 + 0.4).to(dtype)
+    u = (randn(WKV_H, WKV_HS) * 0.1).to(dtype)
+    s0 = randn(b, WKV_H, WKV_HS, WKV_HS) * 0.1
+    return r, k, v, w, u, s0
+
+
+def _wkv_case(wk, ref, gen, b, t, dtype):
+    args = _wkv_inputs(gen, b, t, dtype)
+    y, s_t = wk.wkv6(*args)
+    yr, sr = ref.wkv6_ref(*args)
+    tol = WKV_TOL[dtype]
+    err = max(_check("wkv6 y", y, yr, tol), _check("wkv6 state", s_t, sr,
+                                                    tol))
+    esize = args[0].element_size()
+    n = b * t * WKV_H * WKV_HS
+    nbytes = 5 * n * esize + WKV_H * WKV_HS * esize \
+        + 2 * b * WKV_H * WKV_HS * WKV_HS * 4
+    # 5 hs^2 flops per (b, h, t): y = r.S + v (r.(u*k)), S <- w*S + k v^T
+    bound, by = _bound(nbytes, 5 * n * WKV_HS, F32_FLOP_PER_S)
+    return {"shape": {"B": b, "T": t, "H": WKV_H, "hs": WKV_HS},
+            "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+            "ms": time_ms(lambda: wk.wkv6(*args)),
+            "plain_ms": time_ms(lambda: ref.wkv6_ref(*args), iters=3),
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            # the sweep over T is serial: T dependent steps per (b, h)
+            "serial_steps": t}
+
+
+def _gemm_case(sg, ref, gen, m, n, k, dtype):
+    a = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+    b = torch.randn(k, n, generator=gen, device="cuda").to(dtype)
+    mp = sg.choose_mapping(m, n, k, dtype)
+    err = _check(f"decode_gemm {m}x{n}x{k}", sg.snake_decode_gemm(a, b),
+                 ref.decode_gemm_ref(a, b), GEMM_TOL[dtype])
+    esize = a.element_size()
+    rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
+    bound, by = _bound((m * k + k * n + m * n) * esize, 2 * m * n * k, rate)
+    return {"shape": {"M": m, "N": n, "K": k},
+            "dtype": str(dtype).replace("torch.", ""),
+            "dataflow": mp.dataflow, "max_abs_err": err,
+            "ms": time_ms(lambda: sg.snake_decode_gemm(a, b)),
+            "plain_ms": time_ms(lambda: ref.decode_gemm_ref(a, b)),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": time_ms(lambda: torch.matmul(a, b))}
+
+
+def _row(name, source, replaces, head, cases):
+    """One kernel's JSON row: the numbers of its main-path case ``head``,
+    every case beside them."""
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": None,
+            **{k: head[k] for k in keys}, "cases": cases}
+
+
+def phase_kernels_rwkv(wk, sg, ref):
+    """WKV6 and the decode GEMM at rwkv6-7b shapes; returns their rows."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    f32, bf16 = torch.float32, torch.bfloat16
+    wkv = [_wkv_case(wk, ref, gen, b, t, dt)
+           for b, t in ((4, 1), (1, 1024)) for dt in (f32, bf16)]
+    # state carry: one sweep over T1 + T2 equals T2 after T1
+    r, k, v, w, u, s0 = _wkv_inputs(gen, 1, 1024, f32)
+    y, s_full = wk.wkv6(r, k, v, w, u, s0)
+    t1 = 400
+    y1, s1 = wk.wkv6(r[:, :t1], k[:, :t1], v[:, :t1], w[:, :t1], u, s0)
+    y2, s2 = wk.wkv6(r[:, t1:], k[:, t1:], v[:, t1:], w[:, t1:], u, s1)
+    # the model's call: the new state written over the old one in place
+    s_io = s0.clone()
+    y_io, _ = wk.wkv6(r, k, v, w, u, s_io, s_io)
+    carry = max(_check("wkv6 carry y", torch.cat([y1, y2], 1), y,
+                       WKV_TOL[f32]),
+                _check("wkv6 carry state", s2, s_full, WKV_TOL[f32]),
+                _check("wkv6 in-place y", y_io, y, WKV_TOL[f32]),
+                _check("wkv6 in-place state", s_io, s_full, WKV_TOL[f32]))
+    gemm = [_gemm_case(sg, ref, gen, 4, n, kk, bf16)
+            for n, kk in ((14336, 4096), (4096, 14336), (4096, 4096))]
+    gemm.append(_gemm_case(sg, ref, gen, 13, 257, 129, f32))
+    flows = {c["dataflow"] for c in gemm}
+    if flows != {"IS", "OS"}:
+        raise AssertionError(f"decode GEMM dataflows run: {flows}")
+    src = "src/repro_torch/kernels/csrc/"
+    rows = [_row("wkv6", src + "wkv6.cu", "src/repro/kernels/wkv6.py:49",
+                 wkv[0], wkv)]
+    for flow, line in (("IS", 90), ("OS", 97)):
+        cases = [c for c in gemm if c["dataflow"] == flow]
+        rows.append(_row(f"snake_decode_gemm_{flow.lower()}",
+                         src + "snake_gemm.cu",
+                         f"src/repro/kernels/snake_gemm.py:{line}",
+                         cases[0], cases))
+    print("[kernels] " + json.dumps({"wkv6_state_carry_max_abs_err": carry,
+                                     "kernels": rows}))
+    return rows
+
+
+def _reset(kmods):
+    for mod in kmods:
+        mod.reset_launches()
+
+
+def _launches(kmods):
+    return {k: v for mod in kmods for k, v in mod.LAUNCHES.items()}
 
 
 def _watch(eng):
@@ -233,76 +383,120 @@ def _lockstep(entry, params, ecfg_kw, trace):
 def phase_parity(registry, make_trace):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    entry = registry.get("yi-6b", num_layers=2, dtype="float32")
-    params = entry.module.init(entry.config, device="cuda", seed=1)
     lens = np.array([100, 300, 17, 180])
-
-    def trace():
-        return make_trace(entry.config.vocab, rate_req_s=1e9,
-                          n_requests=len(lens), prompt_len=0, seed=2,
-                          prompt_lens=lens)
-
     base = dict(max_batch=4, max_seq=int(lens.max()) + 18,
                 max_new_tokens=16, page_size=PAGE, prefill_chunk=128)
-    for paged in (True, False):
-        agree, total, err = _lockstep(entry, params,
-                                      dict(base, paged=paged), trace)
-        print(f"[parity] {'paged' if paged else 'dense'} engine, kernel vs "
-              f"plain, yi-6b 2 layers f32: max |logit err| {err:.3g} "
-              f"(tol {PARITY_TOL}), token agreement {agree}/{total}")
-    del params
-    torch.cuda.empty_cache()
+    for arch in ("yi-6b", "rwkv6-7b"):
+        entry = registry.get(arch, num_layers=2, dtype="float32")
+        params = entry.module.init(entry.config, device="cuda", seed=1)
+
+        def trace():
+            return make_trace(entry.config.vocab, rate_req_s=1e9,
+                              n_requests=len(lens), prompt_len=0, seed=2,
+                              prompt_lens=lens)
+
+        for paged in (True, False):
+            agree, total, err = _lockstep(entry, params,
+                                          dict(base, paged=paged), trace)
+            print(f"[parity] {'paged' if paged else 'dense'} engine, "
+                  f"kernels vs plain, {arch} 2 layers f32: max |logit err| "
+                  f"{err:.3g} (tol {PARITY_TOL}), token agreement "
+                  f"{agree}/{total}")
+        del params
+        torch.cuda.empty_cache()
 
 
-def phase_serve(registry, make_trace, fd, smi):
+def _serve(entry, params, ecfg, lens, make_trace, kmods, kernel, smi):
+    """Serve the 4-request trace after a 1-request warm-up; check that
+    every request finished its budget with finite logits and that the
+    launch counts are the main path's: ``kernel`` once per layer per
+    decode step (the WKV6 kernel also once per layer per prefill), every
+    other kernel never.  Returns ``kernel``'s count."""
     from repro_torch.serving.engine import EngineConfig, make_engine
-    entry = registry.get("yi-6b")
     cfg = entry.config
+    new = ecfg["max_new_tokens"]
+    warm = make_engine(entry, EngineConfig(**ecfg), params=params)
+    warm.run_trace(make_trace(cfg.vocab, rate_req_s=1e9, n_requests=1,
+                              prompt_len=130, seed=9))
+    eng = make_engine(entry, EngineConfig(**ecfg), params=params)
+    seen = _watch(eng)
+    prefills = []
+    prefill = eng._prefill
+    eng._prefill = lambda *a: prefills.append(1) or prefill(*a)
+    reqs = make_trace(cfg.vocab, rate_req_s=4.0, n_requests=len(lens),
+                      prompt_len=0, seed=0, prompt_lens=lens)
+    _reset(kmods)
+    metrics = eng.run_trace(reqs)
+    counts = _launches(kmods)
+    done = eng.completed
+    if len(done) != len(lens) or any(
+            r.finish_reason != "budget" or len(r.tokens_out) != new
+            for r in done):
+        got = [(r.rid, len(r.tokens_out), r.finish_reason) for r in done]
+        raise AssertionError(f"not every request finished its budget: "
+                             f"{got}")
+    if not bool(seen["finite"]):
+        raise AssertionError("non-finite logits in a decode step")
+    runs = seen["steps"] + (len(prefills) if kernel == "wkv6" else 0)
+    want = runs * cfg.num_layers
+    others = {k: v for k, v in counts.items() if k != kernel}
+    if counts[kernel] != want or any(others.values()):
+        raise AssertionError(f"launches {counts}, want {kernel}={want}")
+    keep = ("requests", "decoded_tokens", "tokens_per_s", "tbt_mean_s",
+            "tbt_p99_s", "ttft_mean_s", "preemptions", "defrag_runs",
+            "kv_peak_tokens", "wall_s")
+    print(f"[serve] {cfg.name} {cfg.num_layers} layers bf16, "
+          f"{'paged' if ecfg['paged'] else 'dense'} engine + {kernel}: "
+          f"prompts {lens.tolist()}, {new} new tokens, {len(prefills)} "
+          f"whole-prompt prefills, {seen['steps']} decode steps, launches "
+          f"{counts}; "
+          f"{json.dumps({k: metrics[k] for k in keep})} on {smi}")
+    return counts[kernel], metrics
+
+
+def _init_full(registry, arch):
+    entry = registry.get(arch)
     t0 = time.perf_counter()
-    params = entry.module.init(cfg, device="cuda", seed=0)
+    params = entry.module.init(entry.config, device="cuda", seed=0)
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    print(f"[serve] {arch} weights: "
+          f"{sum(t.numel() for t in _leaves(params)) / 1e9:.2f} B "
+          f"parameters, init {time.perf_counter() - t0:.1f} s")
+    return entry, params
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def phase_serve(registry, make_trace, kmods, smi):
     lens = np.random.default_rng(0).integers(256, 1025, size=4)
     new = 32
     base = dict(max_batch=4, max_seq=int(lens.max()) + new + 2,
                 max_new_tokens=new, page_size=PAGE, prefill_chunk=128,
                 use_pallas_decode=True)
     launches = {}
+    entry, params = _init_full(registry, "yi-6b")
     for paged, kernel in ((True, "paged_flash_decode"),
                           (False, "flash_decode")):
-        ecfg = dict(base, paged=paged)
-        warm = make_engine(entry, EngineConfig(**ecfg), params=params)
-        warm.run_trace(make_trace(cfg.vocab, rate_req_s=1e9, n_requests=1,
-                                  prompt_len=130, seed=9))
-        eng = make_engine(entry, EngineConfig(**ecfg), params=params)
-        seen = _watch(eng)
-        reqs = make_trace(cfg.vocab, rate_req_s=4.0, n_requests=len(lens),
-                          prompt_len=0, seed=0, prompt_lens=lens)
-        fd.reset_launches()
-        metrics = eng.run_trace(reqs)
-        counts = dict(fd.LAUNCHES)
-        done = eng.completed
-        if len(done) != len(lens) or any(
-                r.finish_reason != "budget" or len(r.tokens_out) != new
-                for r in done):
-            got = [(r.rid, len(r.tokens_out), r.finish_reason) for r in done]
-            raise AssertionError(f"not every request finished its budget: "
-                                 f"{got}")
-        if not bool(seen["finite"]):
-            raise AssertionError("non-finite logits in a decode step")
-        want = seen["steps"] * cfg.num_layers
-        others = {k: v for k, v in counts.items() if k != kernel}
-        if counts[kernel] != want or any(others.values()):
-            raise AssertionError(f"launches {counts}, want {kernel}={want}")
-        launches[kernel] = counts[kernel]
-        keep = ("requests", "decoded_tokens", "tokens_per_s",
-                "tbt_mean_s", "tbt_p99_s", "ttft_mean_s", "preemptions",
-                "defrag_runs", "kv_peak_tokens", "wall_s")
-        print(f"[serve] yi-6b 32 layers bf16, {'paged' if paged else 'dense'}"
-              f" engine + {kernel}: prompts {lens.tolist()}, {new} new "
-              f"tokens, {seen['steps']} decode steps, launches {counts}, "
-              f"weights init {init_s:.1f} s; "
-              f"{json.dumps({k: metrics[k] for k in keep})} on {smi}")
+        launches[kernel], _ = _serve(entry, params, dict(base, paged=paged),
+                                     lens, make_trace, kmods, kernel, smi)
+    del params
+    torch.cuda.empty_cache()
+    # rwkv6 prefills whole prompts (prefill_chunk is for attention
+    # families) and its state holds no pages
+    entry, params = _init_full(registry, "rwkv6-7b")
+    launches["wkv6"], metrics = _serve(entry, params, dict(base, paged=True),
+                                       lens, make_trace, kmods, "wkv6", smi)
+    if metrics["kv_peak_tokens"] != 0:
+        raise AssertionError(f"rwkv6 paged KV peak "
+                             f"{metrics['kv_peak_tokens']} != 0")
+    del params
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -312,17 +506,21 @@ def main() -> None:
                  "script needs an NVIDIA GPU")
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import snake_gemm as sg
+    from repro_torch.kernels import wkv6 as wk
     from repro_torch.models import registry
     from repro_torch.serving.scheduler import make_trace
 
     t0 = time.perf_counter()
     smi = card()
     phase_build(build, smi)
-    rows = phase_kernels(fd, ref)
+    rows = phase_kernels(fd, ref) + phase_kernels_rwkv(wk, sg, ref)
     phase_parity(registry, make_trace)
-    launches = phase_serve(registry, make_trace, fd, smi)
+    launches = phase_serve(registry, make_trace, (fd, wk, sg), smi)
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        # the decode GEMM is on no serving path: every serve run above
+        # asserted its counts stayed 0
+        row["launches"] = launches.get(row["name"], 0)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -84,10 +84,33 @@ def build_all() -> Dict[str, Path]:
     return {s.stem: library_path(s) for s in sources()}
 
 
-def library(name: str) -> ctypes.CDLL:
+def library(name: str, argtypes: Dict[str, list]) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<name>.cu`` (built first if
-    needed)."""
+    needed), with each exported function of ``argtypes`` bound to its
+    argument types and an ``int`` (``cudaError_t``) result."""
     lib = _loaded.get(name)
     if lib is None:
-        lib = _loaded[name] = ctypes.CDLL(str(build_all()[name]))
+        lib = ctypes.CDLL(str(build_all()[name]))
+        for fn, types in argtypes.items():
+            getattr(lib, fn).argtypes = types
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        _loaded[name] = lib
     return lib
+
+
+def launch(lib: ctypes.CDLL, fn: str, *args) -> None:
+    """Call the launcher ``fn`` of ``lib``; raise if the launch failed."""
+    err = getattr(lib, fn)(*args)
+    if err:
+        raise RuntimeError(f"{fn} launch failed: "
+                           f"{lib.repro_cuda_error_string(err).decode()}")
+
+
+def require_cuda(*ts) -> None:
+    """Raise ``ValueError`` unless every tensor lies on one CUDA device."""
+    dev = ts[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in ts):
+        raise ValueError("the CUDA kernels take tensors on one CUDA "
+                         f"device, got {[str(t.device) for t in ts]}")

@@ -34,10 +34,9 @@
 // Known limit (speed is later work): the grid is only B * Hkv blocks,
 // 16 at B=4 on 132 SMs; splitting the context across blocks with the
 // (acc, l, m) combine of layers.decode_attention_core would fill the card.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
@@ -46,22 +45,6 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kUnroll = 4;       // K/V rows in flight per warp
 constexpr int kMaxGroup = 8;     // query heads per kv head (G)
 constexpr float kNeg = -1e30f;   // the Pallas kernels' masked score
-
-struct F32 {
-  using raw = float;
-  static __device__ __forceinline__ float load(raw x) { return x; }
-  static __device__ __forceinline__ raw store(float x) { return x; }
-};
-
-struct BF16 {
-  using raw = uint16_t;
-  static __device__ __forceinline__ float load(raw x) {
-    return __bfloat162float(__ushort_as_bfloat16(x));
-  }
-  static __device__ __forceinline__ raw store(float x) {
-    return __bfloat16_as_ushort(__float2bfloat16(x));
-  }
-};
 
 template <typename R, int N>
 struct alignas(sizeof(R) * N) Vec {
@@ -293,10 +276,6 @@ int repro_paged_flash_decode(const void* q, const void* k_pool,
          p_sh, t_sb, hq, hkv > 0 ? hq / hkv : 0, nblk * page, page,
          inv_sqrt(d)};
   return dispatch<true>(a, dtype, batch, hkv, d, stream);
-}
-
-const char* repro_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

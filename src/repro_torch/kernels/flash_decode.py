@@ -41,17 +41,6 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.library("flash_decode")
-    if lib.repro_flash_decode.argtypes is None:
-        for fn, argtypes in _ARGTYPES.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.repro_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                lengths: torch.Tensor,
                tables: Optional[torch.Tensor] = None) -> None:
@@ -97,19 +86,8 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} rows must be {width}-byte aligned")
 
 
-def _require_cuda(*ts: torch.Tensor) -> None:
-    dev = ts[0].device
-    if dev.type != "cuda" or any(t.device != dev for t in ts):
-        raise ValueError("the CUDA kernels take tensors on one CUDA "
-                         f"device, got {[str(t.device) for t in ts]}")
-
-
 def _launch(fn: str, *args) -> None:
-    lib = _lib()
-    err = getattr(lib, fn)(*args)
-    if err:
-        raise RuntimeError(f"{fn} launch failed: "
-                           f"{lib.repro_cuda_error_string(err).decode()}")
+    build.launch(build.library("flash_decode", _ARGTYPES), fn, *args)
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -117,7 +95,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, Hq, D); k/v: (B, S, Hkv, D); lengths: (B,) int32 ->
     (B, Hq, D) in q's dtype."""
     check_args(q, k, v, lengths)
-    _require_cuda(q, k, v, lengths)
+    build.require_cuda(q, k, v, lengths)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     b, hq, d = q.shape
     _launch("repro_flash_decode",
@@ -137,7 +115,7 @@ def paged_flash_decode(q: torch.Tensor, k_pool: torch.Tensor,
     int32 -> (B, Hq, D) in q's dtype.  Table entries are trusted to be
     page ids of the pool, as in the reference kernel."""
     check_args(q, k_pool, v_pool, lengths, tables)
-    _require_cuda(q, k_pool, v_pool, tables, lengths)
+    build.require_cuda(q, k_pool, v_pool, tables, lengths)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     b, hq, d = q.shape
     _launch("repro_paged_flash_decode",

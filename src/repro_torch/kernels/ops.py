@@ -1,4 +1,4 @@
-"""Public entry points of the decode-attention kernels (port of
+"""Public entry points of the port's kernels (port of
 ``repro.kernels.ops``).
 
 A CUDA tensor launches the hand-written kernel (or the wrapper raises);
@@ -11,12 +11,25 @@ import torch
 
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import ref
+from repro_torch.kernels import snake_gemm as sg
+from repro_torch.kernels import wkv6 as wk
 
 
-def _route(q: torch.Tensor) -> str:
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no decode attention for device {q.device}")
-    return q.device.type
+def _route(x: torch.Tensor) -> str:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {x.device}")
+    return x.device.type
+
+
+def decode_gemm(a, b):
+    """Shape-adaptive small-M GEMM: a (M, K) @ b (K, N)."""
+    if _route(a) == "cuda":
+        return sg.snake_decode_gemm(a, b)
+    return ref.decode_gemm_ref(a, b)
+
+
+def decode_gemm_mapping(m: int, n: int, k: int, dtype=torch.bfloat16):
+    return sg.choose_mapping(m, n, k, dtype)
 
 
 def attention_decode(q, k, v, lengths):
@@ -32,3 +45,12 @@ def attention_decode_paged(q, k_pool, v_pool, tables, lengths):
     if _route(q) == "cuda":
         return fd.paged_flash_decode(q, k_pool, v_pool, tables, lengths)
     return ref.paged_flash_decode_ref(q, k_pool, v_pool, tables, lengths)
+
+
+def wkv6_scan(r, k, v, w, u, state0, state_out=None):
+    """RWKV6 recurrence with the state resident on chip for the sweep:
+    r/k/v/w (B,T,H,hs), u (H,hs), state0 (B,H,hs,hs) -> (y, state_T);
+    state_T goes into ``state_out`` when given (it may be ``state0``)."""
+    if _route(r) == "cuda":
+        return wk.wkv6(r, k, v, w, u, state0, state_out)
+    return ref.wkv6_ref(r, k, v, w, u, state0, state_out)

@@ -10,8 +10,9 @@ of ``--context`` prompt tokens are prefilled whole (untimed), then
 ``--steps`` decode steps are timed one by one on the host clock (each
 step ends in the argmax fetch, a synchronisation), one more step runs
 under the profiler, and a separate request of the same length is
-prefilled in ``--chunk``-token chunks, each timed with a synchronise.
-Prints one JSON line.
+prefilled in ``--chunk``-token chunks, each timed with a synchronise (a
+family without chunked prefill, rwkv6, prefills it whole, timed the
+same way).  Prints one JSON line.
 """
 from __future__ import annotations
 
@@ -98,9 +99,15 @@ def main(argv: Optional[List[str]] = None) -> dict:
         base, prefill_chunk=args.chunk)), params=eng.params)
     (req,) = make_trace(cfg.vocab, rate_req_s=1e9, n_requests=1,
                         prompt_len=args.context, seed=1)
-    if not chunked.admit(req):
-        raise RuntimeError("the engine refused a request")
     chunk_ms = []
+    if not chunked._chunkable():
+        t0 = time.perf_counter()
+        if not chunked.submit(req):
+            raise RuntimeError("the engine refused a request")
+        _sync(dev)
+        chunk_ms.append((time.perf_counter() - t0) * 1e3)
+    elif not chunked.admit(req):
+        raise RuntimeError("the engine refused a request")
     while chunked._prefilling is not None:
         t0 = time.perf_counter()
         chunked._prefill_chunk_tick()
@@ -108,14 +115,19 @@ def main(argv: Optional[List[str]] = None) -> dict:
         chunk_ms.append((time.perf_counter() - t0) * 1e3)
 
     # least bytes a decode step moves: every layer's weights and the head
-    # once, and the batch's valid K/V once per layer
+    # once, and the batch's valid K/V once per layer (a recurrent state:
+    # all of it, read and written)
     emb = eng.params["embed"]
     weight_bytes = _nbytes(eng.params["blocks"]) + _nbytes(
         emb["head"] if "head" in emb else emb["table"])
-    pool = eng.paged.store[0]
-    kv_bytes = (2 * args.batch * (args.context + args.steps)
-                * pool[0, 0, 0].numel() * pool.element_size()
-                * cfg.num_layers)
+    store = eng.paged.store
+    if eng.paged.has_seq:
+        cache_bytes = (2 * args.batch * (args.context + args.steps)
+                       * store[0][0, 0, 0].numel() * store[0].element_size()
+                       * cfg.num_layers)
+    else:
+        cache_bytes = 2 * sum(t.numel() * t.element_size()
+                              for t in store[:-1])
     out = {
         "arch": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype,
         "batch": args.batch, "context": args.context,
@@ -131,9 +143,10 @@ def main(argv: Optional[List[str]] = None) -> dict:
              "ms": e.self_device_time_total / 1e3} for e in top],
         "weight_bytes_per_step": weight_bytes,
         "weights_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
-        "kv_bytes_per_step": kv_bytes,
-        "attention_bound_ms": kv_bytes / HBM_BYTES_PER_S * 1e3,
-        "chunk": args.chunk, "prefill_chunk_ms": chunk_ms,
+        "cache_bytes_per_step": cache_bytes,
+        "cache_bound_ms": cache_bytes / HBM_BYTES_PER_S * 1e3,
+        "chunk": args.chunk if chunked._chunkable() else None,
+        "prefill_chunk_ms": chunk_ms,
         "card": _card(dev)}
     print(json.dumps(out))
     return out

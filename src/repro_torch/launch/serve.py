@@ -3,15 +3,20 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --full \
       --paged --prefill-chunk 128 --pallas
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
+      --full --paged --pallas
 
 Runs on the CUDA card by default (``--device cpu`` runs the plain
 PyTorch path on the host); the reduced config is the default and
-``--full`` serves the published widths.  ``--pallas`` routes decode
-attention through the flash-decode CUDA kernel (the block-table kernel
-with ``--paged``); ``--paged`` switches KV residency to the page pool
-(``--page-size``, ``--num-pages`` to oversubscribe) and
-``--prefill-chunk`` interleaves Sarathi prefill chunks with the decode
-batch.  ``--eos-rate`` samples per-request early-stop decode lengths;
+``--full`` serves the published widths.  The ported architectures are
+yi-6b (dense) and rwkv6-7b (ssm); the others are refused by name.
+``--pallas`` routes decode attention through the flash-decode CUDA
+kernel (the block-table kernel with ``--paged``) and, for rwkv6-7b, the
+recurrence of prefill and decode through the WKV6 CUDA kernel;
+``--paged`` switches KV residency to the page pool (``--page-size``,
+``--num-pages`` to oversubscribe; a recurrent state stays slot-dense)
+and ``--prefill-chunk`` interleaves Sarathi prefill chunks with the
+decode batch (attention families only: rwkv6 prefills whole prompts).  ``--eos-rate`` samples per-request early-stop decode lengths;
 ``--trace-file`` replays a recorded JSON trace.
 
 Flags of features that later slices port (prefix sharing, placement,
@@ -53,7 +58,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--pallas", action="store_true",
-                    help="flash-decode CUDA kernel for decode attention")
+                    help="the CUDA kernels: flash-decode attention "
+                         "(dense), the WKV6 recurrence (rwkv6-7b)")
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="Sarathi-style chunked prefill")
     ap.add_argument("--paged", action="store_true",

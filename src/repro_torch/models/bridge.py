@@ -1,10 +1,11 @@
 """Parameter bridge: the reference's parameter tree as port parameters.
 
-``repro.models.transformer.init`` returns a nested dict of arrays with
-the layer dim leading; converted leaf by leaf with ``np.asarray`` it is
-exactly the tree :func:`repro_torch.models.transformer.init` builds, so
-the two packages can be compared on identical weights.  This module
-takes numpy arrays only and never touches JAX.
+A reference model's ``init`` (``repro.models.transformer`` or
+``repro.models.rwkv6``) returns a nested dict of arrays with the layer
+dim leading; converted leaf by leaf with ``np.asarray`` it is exactly the
+tree the port's module of the same family builds, so the two packages
+can be compared on identical weights.  This module takes numpy arrays
+only and never touches JAX.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve
-from repro_torch.models import transformer
+from repro_torch.models import registry
 from repro_torch.models.config import ArchConfig
 
 
@@ -34,7 +35,8 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
     from what the port builds for ``cfg``.
     """
     dev = resolve(device)
-    template = transformer.init(cfg, tp, device="meta")
+    template = registry.from_config(cfg).module.init(cfg, tp,
+                                                     device="meta")
 
     def conv(t, ref, path):
         if isinstance(ref, dict):

@@ -1,9 +1,9 @@
 """Architecture registry: ``--arch <id>`` resolution (port of
 ``repro.models.registry``).
 
-The port serves the dense transformer family.  Asking for an
-architecture whose family or config has not been ported raises
-``NotImplementedError`` naming the slice that brings it.
+The port serves the dense transformer family and the RWKV6 (``ssm``)
+family.  Asking for an architecture whose family or config has not been
+ported raises ``NotImplementedError`` naming the slice that brings it.
 """
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ import importlib
 from dataclasses import dataclass
 from typing import Any
 
-from repro_torch.models import transformer
+from repro_torch.models import rwkv6, transformer
 from repro_torch.models.config import ArchConfig
 
 ARCH_IDS = [
@@ -22,13 +22,12 @@ ARCH_IDS = [
 ]
 
 # configs ported so far (module name under repro_torch.configs)
-_CONFIG_MODULES = {"yi-6b": "yi_6b"}
+_CONFIG_MODULES = {"yi-6b": "yi_6b", "rwkv6-7b": "rwkv6_7b"}
 
 # the slice (ROADMAP queue 1) that brings each family still to port
 _PENDING_FAMILIES = {
     "moe": "MoE and VLM on the transformer path (queue 1, item 8)",
     "vlm": "MoE and VLM on the transformer path (queue 1, item 8)",
-    "ssm": "recurrent and encoder-decoder families (queue 1, item 9)",
     "hybrid": "recurrent and encoder-decoder families (queue 1, item 9)",
     "audio": "recurrent and encoder-decoder families (queue 1, item 9)",
 }
@@ -41,6 +40,8 @@ class ArchEntry:
 
     def cache_zeros(self, batch: int, max_seq: int, tp: int = 1,
                     device="cuda"):
+        if self.config.family == "ssm":
+            return rwkv6.RWKVState.zeros(self.config, batch, device=device)
         return transformer.KVCache.zeros(self.config, batch, max_seq, tp,
                                          device=device)
 
@@ -57,6 +58,8 @@ def get_config(name: str) -> ArchConfig:
 
 
 def from_config(cfg: ArchConfig) -> ArchEntry:
+    if cfg.family == "ssm":
+        return ArchEntry(config=cfg, module=rwkv6)
     if cfg.family != "dense":
         slice_ = _PENDING_FAMILIES.get(cfg.family, "a later slice")
         raise NotImplementedError(

@@ -12,11 +12,14 @@ Two KV residency modes, as in the reference:
   allocates on demand, and an exhausted pool preempts the youngest
   request.  Decode either gathers the slots' pages into the dense view
   (the plain path) or, with ``use_pallas_decode``, reads pages through
-  the block table with the paged flash-decode kernel.
+  the block table with the paged flash-decode kernel.  A recurrent
+  family (RWKV6, ``ssm``) has no sequence leaf: its state stays
+  slot-dense in the paged engine too, and no page is ever allocated.
 
-With ``prefill_chunk`` set, prompts advance one Sarathi chunk of
-``transformer.extend_step`` per tick, co-scheduled with the decode
-batch; the paged engine writes those chunks straight into pages.  The
+With ``prefill_chunk`` set, prompts of the attention families advance
+one Sarathi chunk of ``transformer.extend_step`` per tick, co-scheduled
+with the decode batch; the paged engine writes those chunks straight
+into pages.  Families without ``extend_step`` prefill whole prompts.  The
 trace-driving loop lives in ``serving/scheduler.py``.  Prefix sharing,
 placement, co-design pricing, the fused decode tick and page shipping
 arrive with later slices.
@@ -41,6 +44,10 @@ from repro_torch.serving.scheduler import RequestState, Scheduler
 __all__ = ["EngineConfig", "ServingEngine", "PagedServingEngine",
            "make_engine"]
 
+# transformer-module families: chunkable prefill (extend_step) and the
+# flash-decode attention paths all key off this one set
+_ATTN_FAMILIES = ("dense", "moe", "vlm")
+
 
 @dataclass
 class EngineConfig:
@@ -48,8 +55,10 @@ class EngineConfig:
     max_seq: int = 512
     max_new_tokens: int = 32
     eos_id: int = -1            # <0: never stops early (synthetic load)
-    # the flash-decode kernel for decode attention (the name is the
-    # reference's; here the kernels are CUDA)
+    # the port's CUDA kernels (the name is the reference's): flash-decode
+    # attention for the attention families; for the ssm family (RWKV6),
+    # where the reference has no kernel to take, the WKV6 recurrence
+    # kernel in prefill and decode
     use_pallas_decode: bool = False
     prefill_chunk: Optional[int] = None   # Sarathi-style chunked prefill
     paged: bool = False               # block-table KV residency
@@ -94,22 +103,30 @@ class ServingEngine:
         self.tracer = NULL_TRACER
         self._init_cache()
 
-        attn_fn = kops.attention_decode if ecfg.use_pallas_decode else None
         mod, cfg = entry.module, self.cfg
+        # the kernel hook each family's steps take
+        prefill_kw, decode_kw = {}, {}
+        if cfg.family in _ATTN_FAMILIES:
+            prefill_kw = {"chunk": ecfg.prefill_chunk}
+            if ecfg.use_pallas_decode:
+                decode_kw = {"attn_fn": kops.attention_decode}
+        elif ecfg.use_pallas_decode:
+            prefill_kw = decode_kw = {"wkv_fn": kops.wkv6_scan}
 
         def _prefill(params, tokens):
             return mod.prefill(params, cfg, tokens, tp=tp,
-                               max_seq=ecfg.max_seq,
-                               chunk=ecfg.prefill_chunk)
+                               max_seq=ecfg.max_seq, **prefill_kw)
 
         def _decode(params, cache, tokens):
             return mod.decode_step(params, cfg, tokens, cache, tp=tp,
-                                   attn_fn=attn_fn)
+                                   **decode_kw)
 
         self._prefill = _prefill
         self._decode = _decode
-        self._extend = (lambda params, tokens, cache:
-                        mod.extend_step(params, cfg, tokens, cache, tp=tp))
+        self._extend = None
+        if cfg.family in _ATTN_FAMILIES:
+            self._extend = (lambda params, tokens, cache: mod.extend_step(
+                params, cfg, tokens, cache, tp=tp))
         self._next_tok = np.zeros((ecfg.max_batch,), np.int32)
 
     def set_tracer(self, tracer, replica: int = 0) -> None:
@@ -250,7 +267,8 @@ class ServingEngine:
 
     # -- Sarathi chunk scheduler ---------------------------------------
     def _chunkable(self) -> bool:
-        return self.ecfg.prefill_chunk is not None
+        return (self._extend is not None
+                and self.ecfg.prefill_chunk is not None)
 
     def _start_chunked(self, req: RequestState) -> bool:
         """Claim a slot and set up incremental prefill state for ``req``."""
@@ -416,6 +434,8 @@ class PagedServingEngine(ServingEngine):
 
     def load_report(self) -> LoadReport:
         base = super().load_report()
+        if not self.paged.has_seq:
+            return base
         free_pages = self.paged.alloc.free_pages
         return LoadReport(
             active=base.active, prefilling=base.prefilling,
@@ -424,6 +444,9 @@ class PagedServingEngine(ServingEngine):
 
     # -- chunked prefill straight into block-table pages ---------------
     def _start_chunked(self, req: RequestState) -> bool:
+        if not self.paged.has_seq:
+            # recurrent families: state is slot-dense, keep the buffer path
+            return super()._start_chunked(req)
         if self._prefilling is not None:
             return False
         slot = self._claim(req)     # reserves the prompt's pages
@@ -529,7 +552,7 @@ class PagedServingEngine(ServingEngine):
         lengths_pre = self._lengths_host.copy()
         active = np.zeros((self.ecfg.max_batch,), bool)
         active[list(self.active)] = True
-        if self.ecfg.use_pallas_decode:
+        if self.ecfg.use_pallas_decode and self.cfg.family in _ATTN_FAMILIES:
             logits = self._decode_paged_kernel(toks, active)
         else:
             cache = self.paged.gather()

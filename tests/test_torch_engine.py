@@ -1,7 +1,7 @@
 """Serving engines of the PyTorch port against ``repro.serving.engine``.
 
 Both packages' engines serve the same ``make_trace`` trace on the
-reference's own reduced yi-6b weights (bridged), in float32.  Arrivals
+reference's own reduced yi-6b or rwkv6-7b weights (bridged), in float32.  Arrivals
 are all at t~0 (rate 1e9), so admission depends only on capacity and
 both sides schedule identically: token streams, finish reasons,
 preemptions and defrag runs must be equal.
@@ -21,6 +21,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.models import registry as JR  # noqa: E402
+from repro.models import rwkv6 as JW  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
 from repro.obs import metrics as jmetrics  # noqa: E402
 from repro.obs import tracer as jtracer  # noqa: E402
@@ -28,6 +29,7 @@ from repro.serving import engine as JE  # noqa: E402
 from repro.serving import replica_api as japi  # noqa: E402
 from repro.serving import scheduler as jsched  # noqa: E402
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
+from repro_torch.kernels import wkv6 as wk  # noqa: E402
 from repro_torch.models import registry as TR  # noqa: E402
 from repro_torch.models.bridge import params_from_numpy  # noqa: E402
 from repro_torch.obs import metrics as tmetrics  # noqa: E402
@@ -57,6 +59,23 @@ CASES = {
 # the port's kernel path (plain on the CPU) against the reference's
 # plain path of the same layout
 KERNEL_CASES = {"dense_kernel": "dense", "paged_kernel": "paged"}
+# rwkv6 (ssm family): the state is slot-dense and prompts prefill whole
+# on both sides, with or without prefill_chunk; use_pallas_decode selects
+# the port's WKV6 kernel (plain on the CPU) and is a no-op in the
+# reference, which has no kernel to take
+RWKV_CASES = {
+    "dense": (dict(), dict(prompt_lens=SKEWED, seed=3)),
+    "dense_chunked": (dict(prefill_chunk=8),
+                      dict(prompt_lens=SKEWED, seed=3)),
+    "paged": (dict(paged=True, page_size=8),
+              dict(prompt_lens=SKEWED, seed=3)),
+    "paged_chunked": (dict(paged=True, page_size=8, prefill_chunk=8),
+                      dict(prompt_lens=SKEWED, seed=3)),
+    "eos": (dict(paged=True, page_size=8), dict(prompt_lens=SKEWED, seed=5,
+                                                eos_rate=0.3)),
+}
+RWKV_KERNEL = {"dense_kernel": "dense",
+               "paged_chunked_kernel": "paged_chunked"}
 
 
 @pytest.fixture(scope="module")
@@ -64,6 +83,14 @@ def weights():
     cfg = JR.get("yi-6b", reduced=True).config
     tree = jax.tree.map(np.asarray, JT.init(jax.random.PRNGKey(0), cfg))
     return params_from_numpy(tree, TR.get("yi-6b", reduced=True).config,
+                             device="cpu")
+
+
+@pytest.fixture(scope="module")
+def rwkv_weights():
+    cfg = JR.get("rwkv6-7b", reduced=True).config
+    tree = jax.tree.map(np.asarray, JW.init(jax.random.PRNGKey(0), cfg))
+    return params_from_numpy(tree, TR.get("rwkv6-7b", reduced=True).config,
                              device="cpu")
 
 
@@ -96,7 +123,8 @@ def _record_logits(eng) -> dict:
         return run
 
     eng._prefill = wrap_prefill(eng._prefill)
-    eng._extend = wrap_prefill(eng._extend)
+    if eng._extend is not None:       # None: the family cannot chunk
+        eng._extend = wrap_prefill(eng._extend)
     activate, decode = eng._activate, eng._decode_batch
 
     def on_activate(slot, req):
@@ -115,17 +143,17 @@ def _record_logits(eng) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def _reference(name):
-    over, trace_kw = CASES[name]
-    eng = JE.make_engine(JR.get("yi-6b", reduced=True),
+def _reference(name, arch="yi-6b"):
+    over, trace_kw = (RWKV_CASES if arch == "rwkv6-7b" else CASES)[name]
+    eng = JE.make_engine(JR.get(arch, reduced=True),
                          JE.EngineConfig(**_ecfg(over)))
     rec = _record_logits(eng)
     metrics = eng.run_trace(_trace(jsched.make_trace, trace_kw))
     return eng, rec, metrics
 
 
-def _port(over, trace_kw, params):
-    eng = TE.make_engine(TR.get("yi-6b", reduced=True),
+def _port(over, trace_kw, params, arch="yi-6b"):
+    eng = TE.make_engine(TR.get(arch, reduced=True),
                          TE.EngineConfig(device="cpu", **_ecfg(over)),
                          params=params)
     rec = _record_logits(eng)
@@ -234,3 +262,87 @@ def test_load_report_and_tracer(weights):
     assert {"arrival", "admit", "prefill_chunk", "decode_step", "finish",
             "gauge"} <= kinds
     assert eng.load_report().queue_depth == 0
+
+
+@pytest.mark.parametrize("name", sorted(RWKV_CASES) + sorted(RWKV_KERNEL))
+def test_rwkv_engine_matches_reference(name, rwkv_weights):
+    ref_name = RWKV_KERNEL.get(name, name)
+    over, trace_kw = RWKV_CASES[ref_name]
+    if name in RWKV_KERNEL:
+        over = dict(over, use_pallas_decode=True)
+    ref = _reference(ref_name, "rwkv6-7b")
+    wk.reset_launches()
+    fd.reset_launches()
+    port = _port(over, trace_kw, rwkv_weights, "rwkv6-7b")
+    _assert_streams(ref, port)
+    jm, tm = ref[2], port[2]
+    assert set(tm) == set(jmetrics.SCHEDULER_METRIC_CONTRACT)
+    for key in ("requests", "decoded_tokens", "preemptions", "finish_eos",
+                "finish_budget", "defrag_runs", "kv_peak_tokens",
+                "kv_logical_peak_pages", "kv_mode"):
+        assert tm[key] == jm[key], key
+    if over.get("paged"):
+        assert tm["kv_peak_tokens"] == 0 and tm["kv_mode"] == "paged"
+    if ref_name == "eos":
+        assert tm["finish_eos"] > 0
+    # whole-prompt prefill: one recorded prefill logits row per request
+    # and no chunk state left behind
+    assert port[0]._prefilling is None and not port[0]._chunkable()
+    assert wk.LAUNCHES == {"wkv6": 0}
+    assert fd.LAUNCHES == {"flash_decode": 0, "paged_flash_decode": 0}
+
+
+def test_rwkv_engine_routes_the_wkv6_kernel(rwkv_weights, monkeypatch):
+    """use_pallas_decode hands kernels.ops.wkv6_scan to prefill (one call
+    per layer over the whole prompt) and to every decode step (one call
+    per layer over T = 1); without it the model runs its plain default."""
+    from repro_torch.kernels import ops
+    plain, calls = ops.wkv6_scan, []
+
+    def counting(*args):
+        calls.append(args[0].shape[1])
+        return plain(*args)
+
+    monkeypatch.setattr(ops, "wkv6_scan", counting)
+    for kernel in (False, True):
+        calls.clear()
+        eng = TE.make_engine(
+            TR.get("rwkv6-7b", reduced=True),
+            TE.EngineConfig(device="cpu", paged=True, page_size=8,
+                            prefill_chunk=4, use_pallas_decode=kernel,
+                            **_ecfg({})), params=rwkv_weights)
+        steps = []
+        decode = eng._decode_batch
+        eng._decode_batch = lambda toks: steps.append(1) or decode(toks)
+        eng.run_trace(_trace(tsched.make_trace,
+                             dict(prompt_lens=np.array([5, 7]), seed=1)))
+        n = eng.cfg.num_layers
+        if kernel:
+            assert sorted(c for c in calls if c > 1) == [5] * n + [7] * n
+            assert calls.count(1) == n * len(steps) > 0
+        else:
+            assert calls == []
+
+
+def test_rwkv_paged_engine_reports_slots_not_pages(rwkv_weights):
+    """A recurrent state holds no pages: load_report counts slots as the
+    reference's does, chunked admission keeps the dense buffer path, and
+    no grow or defrag event is traced."""
+    eng = TE.make_engine(TR.get("rwkv6-7b", reduced=True),
+                         TE.EngineConfig(device="cpu", paged=True,
+                                         page_size=8, **_ecfg({})),
+                         params=rwkv_weights)
+    tracer = ttracer.Tracer()
+    eng.set_tracer(tracer)
+    rep = eng.load_report()
+    assert rep.free_pages == rep.min_region_free == rep.free_slots == 3
+    req = _trace(tsched.make_trace, dict(prompt_lens=np.array([6]),
+                                         seed=2))[0]
+    assert eng._start_chunked(req)
+    assert "buf" in eng._prefilling and eng.paged.pages_in_use() == 0
+    assert eng.load_report().free_pages == 2
+    eng._release(eng._prefilling.pop("slot"))
+    eng._prefilling = None
+    eng.run_trace(_trace(tsched.make_trace, RWKV_CASES["paged"][1]))
+    kinds = {e.kind for e in tracer.events}
+    assert "decode_step" in kinds and not kinds & {"grow", "defrag"}

@@ -45,8 +45,10 @@ def test_cuda_is_the_default_device():
 
 def test_unported_families_name_their_slice():
     with pytest.raises(NotImplementedError, match="not ported"):
-        registry.get("rwkv6-7b", reduced=True)
+        registry.get("recurrentgemma-9b", reduced=True)
     cfg = registry.get_config("yi-6b")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        registry.from_config(dataclasses.replace(cfg, family="hybrid"))
     with pytest.raises(NotImplementedError, match="item 8"):
         registry.from_config(dataclasses.replace(cfg, family="moe"))
 
@@ -58,6 +60,16 @@ def test_cli_serves_on_cpu(capsys):
                     "--rate", "1e9"])
     assert m["requests"] == 2 and m["decoded_tokens"] == 6
     assert "[serve] yi-6b on cpu" in capsys.readouterr().out
+
+
+def test_cli_serves_rwkv6_on_cpu(capsys):
+    m = serve.main(["--arch", "rwkv6-7b", "--device", "cpu",
+                    "--n-requests", "2", "--prompt-len", "6", "--max-new",
+                    "3", "--paged", "--page-size", "4", "--prefill-chunk",
+                    "4", "--pallas", "--rate", "1e9"])
+    assert m["requests"] == 2 and m["decoded_tokens"] == 6
+    assert m["kv_peak_tokens"] == 0
+    assert "[serve] rwkv6-7b on cpu" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("flag", [["--prefix-sharing"],
@@ -82,3 +94,17 @@ def test_profile_step_runs_on_cpu(capsys):
     assert len(out["prefill_chunk_ms"]) == 3      # 20 tokens in chunks of 8
     assert out["card"] == "cpu" and out["device_launches_per_step"] == 0
     assert '"arch": "yi-6b"' in capsys.readouterr().out
+
+
+def test_profile_step_runs_rwkv6_on_cpu(capsys):
+    from repro_torch.launch import profile_step
+    out = profile_step.main(["--arch", "rwkv6-7b", "--device", "cpu",
+                             "--batch", "2", "--context", "20",
+                             "--steps", "2"])
+    assert len(out["decode_step_ms"]) == 2
+    assert out["chunk"] is None and len(out["prefill_chunk_ms"]) == 1
+    # the recurrent state (tm_x, cm_x, wkv) of 2 layers x 2 lanes in
+    # float32, read and written once a step
+    assert out["cache_bytes_per_step"] == 2 * (2 * 2 * 4) * (
+        2 * 128 + 4 * 32 * 32)
+    assert '"arch": "rwkv6-7b"' in capsys.readouterr().out

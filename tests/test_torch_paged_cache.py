@@ -194,3 +194,45 @@ def test_bad_sizes_rejected(bad):
     with pytest.raises(ValueError):
         TP.PagedCache(TR.get("yi-6b", reduced=True), max_batch=2,
                       max_seq=16, page_size=bad, num_pages=4, device="cpu")
+
+
+def test_recurrent_state_stays_slot_dense():
+    """RWKV6 has no sequence leaf: the probe finds none, no page is ever
+    mapped, and write_slot / gather / scatter_token act on the dense
+    slot columns exactly as the reference's cache does."""
+    from repro.models.rwkv6 import RWKVState as JS
+    from repro_torch.models.rwkv6 import RWKVState as TS
+    j = JP.PagedCache(JR.get("rwkv6-7b", reduced=True), max_batch=BATCH,
+                      max_seq=MAX_SEQ, page_size=PAGE, num_pages=PAGES)
+    t = TP.PagedCache(TR.get("rwkv6-7b", reduced=True), max_batch=BATCH,
+                      max_seq=MAX_SEQ, page_size=PAGE, num_pages=PAGES,
+                      device="cpu")
+    assert t.is_seq == list(j.is_seq) == [False] * 4
+    assert not t.has_seq and not j.has_seq
+    rng = np.random.default_rng(0)
+
+    def state(b, length):
+        leaves = [rng.standard_normal((2, b, 128)).astype(np.float32),
+                  rng.standard_normal((2, b, 128)).astype(np.float32),
+                  rng.standard_normal((2, b, 4, 32, 32)).astype(np.float32),
+                  np.full((b,), length, np.int32)]
+        return (JS(*(jnp.asarray(a) for a in leaves)),
+                TS(*(torch.from_numpy(a) for a in leaves)))
+
+    for pc in (j, t):
+        assert pc.alloc_slot(2, 30) and pc.extend_slot(2, 31)
+    js, ts = state(1, 9)
+    j.write_slot(2, js, 9)
+    t.write_slot(2, ts, 9)
+    assert t.pages_in_use() == j.pages_in_use() == 0
+    for a, b in zip(j.gather(), t.gather()):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    js, ts = state(BATCH, 10)
+    active = np.array([False, True, True, False])
+    j.scatter_token(js, np.zeros(BATCH, np.int64), active)
+    t.scatter_token(ts, np.zeros(BATCH, np.int64), active)
+    for a, b, want in zip(j.gather(), t.gather(), ts):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+        assert b is want      # replaced wholesale, as the reference does
+    t.free_slot(2)
+    assert t.fragmentation() == 0.0 and t.alloc.free_pages == PAGES
