@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # the smoke run below
+    python3 chip_smoke.py --sweep    # build, then time both flash-decode
+                                     # kernels at both phase-2 shapes for
+                                     # every chunk C in fd.CHUNKS
 
 Phases, one line each; any failure raises and exits non-zero:
 
@@ -11,9 +14,14 @@ Phases, one line each; any failure raises and exits non-zero:
 2. kernels — each kernel against its plain PyTorch version, with its time
              on the card beside the bound:
              * flash decode at full-width yi-6b shapes in bf16 (Hq=32,
-               Hkv=4, D=128, page 16, B=8, ragged lengths 0..4096, garbage
-               past every length and in the scratch page), rtol = atol =
-               2e-2 (the bf16 tolerance of tests/test_kernels.py);
+               Hkv=4, D=128, page 16), timed at B=8 with ragged lengths
+               0..4096 and at the serve's decode shape (B=4, lengths
+               768-778), garbage past every length and in the scratch
+               page, rtol = atol = 2e-2 (the bf16 tolerance of
+               tests/test_kernels.py); the split plan (C, n_split, blocks
+               holding valid positions) of each timed case; then every
+               instantiation (f32 / bf16 x D 32/64/128 x G 1/4/8) on
+               lengths at the chunk edges, f32 within 2e-5;
              * WKV6 at rwkv6-7b shapes (H=64, hs=64): decode B=4, T=1 and
                prefill B=1, T=1024, in float32 (tolerance 1e-4, as
                tests/test_kernels.py) and bf16 inputs (2e-2), plus the
@@ -58,9 +66,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor rate
 F32_FLOP_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
-HQ, HKV, D, PAGE, BATCH = 32, 4, 128, 16, 8
+HQ, HKV, D, PAGE = 32, 4, 128, 16
 LENGTHS = [0, 1, 16, 17, 255, 1000, 2048, 4096]
+# profile_step.py's decode step: B=4, contexts 768-778, a window of 800
+SERVE_LENGTHS, SERVE_CAP = [768, 771, 775, 778], 800
 KERNEL_TOL = dict(rtol=2e-2, atol=2e-2)
+F32_KERNEL_TOL = dict(rtol=2e-5, atol=2e-5)
 PARITY_TOL = dict(rtol=1e-3, atol=1e-3)
 GARBAGE = 60.0
 WKV_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
@@ -120,37 +131,41 @@ def phase_build(build, smi):
           f"{torch.__version__}, CUDA {torch.version.cuda}; card {smi}")
 
 
-def _kernel_inputs():
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    dev, bf16 = "cuda", torch.bfloat16
-    s = max(LENGTHS)
+def _fd_inputs(gen, lengths, cap, dtype=torch.bfloat16, d=D, hq=HQ,
+               hkv=HKV, page=PAGE):
+    """Flash-decode inputs on the card: contiguous caches of ``cap``
+    positions and page pools dealt in a seeded shuffle, with garbage past
+    every length, in the scratch page and in table entries past each
+    length.  Also returns the number of table entries the kernel reads."""
+    dev = "cuda"
+    b = len(lengths)
 
     def rand(*shape):
-        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    q = rand(BATCH, HQ, D)
-    k, v = rand(BATCH, s, HKV, D), rand(BATCH, s, HKV, D)
-    for b, n in enumerate(LENGTHS):
-        k[b, n:] = GARBAGE
-        v[b, n:] = GARBAGE
-    lengths = torch.tensor(LENGTHS, dtype=torch.int32, device=dev)
-    # pages dealt in a seeded shuffle; entries past each length -> scratch
-    need = [-(-n // PAGE) for n in LENGTHS]
+    q = rand(b, hq, d)
+    k, v = rand(b, cap, hkv, d), rand(b, cap, hkv, d)
+    for i, n in enumerate(lengths):
+        k[i, n:] = GARBAGE
+        v[i, n:] = GARBAGE
+    need = [-(-n // page) for n in lengths]
     n_pages = sum(need) + 8
     order = np.random.default_rng(0).permutation(n_pages)
-    kp, vp = rand(n_pages + 1, PAGE, HKV, D), rand(n_pages + 1, PAGE, HKV, D)
+    kp, vp = rand(n_pages + 1, page, hkv, d), rand(n_pages + 1, page, hkv, d)
     kp[n_pages] = GARBAGE
     vp[n_pages] = GARBAGE
-    tables = np.full((BATCH, s // PAGE), n_pages, np.int32)
-    i = 0
-    for b, n in enumerate(LENGTHS):
-        tables[b, :need[b]] = order[i:i + need[b]]
-        i += need[b]
-        if n % PAGE:
-            kp[int(tables[b, need[b] - 1]), n % PAGE:] = GARBAGE
-            vp[int(tables[b, need[b] - 1]), n % PAGE:] = GARBAGE
-    tables = torch.from_numpy(tables).to(dev)
-    return q, k, v, kp, vp, tables, lengths, sum(need)
+    tables = np.full((b, cap // page), n_pages, np.int32)
+    j = 0
+    for i, n in enumerate(lengths):
+        tables[i, :need[i]] = order[j:j + need[i]]
+        j += need[i]
+        if n % page:
+            kp[int(tables[i, need[i] - 1]), n % page:] = GARBAGE
+            vp[int(tables[i, need[i] - 1]), n % page:] = GARBAGE
+    return dict(q=q, k=k, v=v, kp=kp, vp=vp,
+                tables=torch.from_numpy(tables).to(dev),
+                lengths=torch.tensor(lengths, dtype=torch.int32,
+                                     device=dev), pages_read=sum(need))
 
 
 def _bound(nbytes: float, flops: float, flop_rate: float):
@@ -168,12 +183,11 @@ def _check(name, got, want, tol):
     return err
 
 
-def phase_kernels(fd, ref):
-    q, k, v, kp, vp, tables, lengths, pages_read = _kernel_inputs()
-    ctx = sum(LENGTHS)
-    io = 2 * q.numel() * q.element_size() + lengths.numel() * 4
-    kv_bytes = 2 * ctx * HKV * D * q.element_size()
-    flops = 4 * HQ * D * ctx
+def _fd_calls(fd, ref, x, chunk=None):
+    """(name, replaces, kernel, plain, library, cap, page) of both
+    flash-decode kernels on the inputs ``x``."""
+    q, k, v, kp, vp, tables, lengths = (x[n] for n in (
+        "q", "k", "v", "kp", "vp", "tables", "lengths"))
     mask = (torch.arange(k.shape[1], device="cuda")[None, :]
             < lengths[:, None])[:, None, None, :]
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)
@@ -182,34 +196,126 @@ def phase_kernels(fd, ref):
         return torch.nn.functional.scaled_dot_product_attention(
             q[:, :, None, :], kt, vt, attn_mask=mask, enable_gqa=True)
 
-    specs = [
+    page = kp.shape[1]
+    return [
         ("paged_flash_decode", "src/repro/kernels/flash_decode.py:115",
-         lambda: fd.paged_flash_decode(q, kp, vp, tables, lengths),
+         lambda: fd.paged_flash_decode(q, kp, vp, tables, lengths, chunk),
          lambda: ref.paged_flash_decode_ref(q, kp, vp, tables, lengths),
-         None, io + kv_bytes + pages_read * 4),
+         None, tables.shape[1] * page, page),
         ("flash_decode", "src/repro/kernels/flash_decode.py:169",
-         lambda: fd.flash_decode(q, k, v, lengths),
+         lambda: fd.flash_decode(q, k, v, lengths, chunk),
          lambda: ref.flash_decode_ref(q, k, v, lengths),
-         sdpa, io + kv_bytes),
+         sdpa, k.shape[1], 1),
     ]
-    rows = []
-    for name, replaces, kern, plain, library, nbytes in specs:
+
+
+def _fd_case(fd, ref, x, chunk=None, timed=True):
+    """Both kernels on ``x`` against their plain versions (and every
+    0-length lane exactly 0); with ``timed``, each kernel's row: times,
+    bound, plain and library times, and the split plan (C, n_split, the
+    blocks launched and the blocks that hold valid positions)."""
+    q, lengths = x["q"], x["lengths"]
+    lens = lengths.tolist()
+    b, hq, d = q.shape
+    hkv = x["k"].shape[2]
+    esize = q.element_size()
+    ctx = sum(lens)
+    io = 2 * q.numel() * esize + b * 4
+    kv_bytes = 2 * ctx * hkv * d * esize
+    tol = KERNEL_TOL if q.dtype == torch.bfloat16 else F32_KERNEL_TOL
+    rows = {}
+    for name, replaces, kern, plain, library, cap, page in _fd_calls(
+            fd, ref, x, chunk):
         got = kern()
-        err = _check(name, got, plain(), KERNEL_TOL)
-        if (got[0] != 0).any():
-            raise AssertionError(f"{name}: the 0-length lane is not 0")
-        bound, by = _bound(nbytes, flops, BF16_FLOP_PER_S)
-        rows.append({
+        err = _check(f"{name} {tuple(q.shape)} lengths {lens} "
+                     f"chunk {chunk}", got, plain(), tol)
+        if any((got[i] != 0).any() for i, n in enumerate(lens) if n == 0):
+            raise AssertionError(f"{name}: a 0-length lane is not 0")
+        if not timed:
+            rows[name] = err
+            continue
+        c, n_split = fd.split_plan(cap, b, hkv, page, d * esize, chunk)
+        table_bytes = x["pages_read"] * 4 if page > 1 else 0
+        bound, by = _bound(io + kv_bytes + table_bytes, 4 * hq * d * ctx,
+                           BF16_FLOP_PER_S)
+        rows[name] = {
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
             "replaces": replaces, "launches": None, "max_abs_err": err,
             "ms": time_ms(kern), "plain_ms": time_ms(plain),
             "bound_ms": bound, "bound_by": by,
-            "library_ms": time_ms(library) if library else None})
-    print("[kernels] " + json.dumps({"shapes": {
-        "B": BATCH, "Hq": HQ, "Hkv": HKV, "D": D, "page": PAGE,
-        "lengths": LENGTHS, "dtype": "bfloat16"}, "kernels": rows}))
+            "library_ms": time_ms(library) if library else None,
+            "shape": {"B": b, "Hq": hq, "Hkv": hkv, "D": d, "page": page,
+                      "cap": cap, "lengths": lens,
+                      "dtype": str(q.dtype).replace("torch.", "")},
+            "plan": {"C": c, "n_split": n_split,
+                     "blocks": b * hkv * n_split,
+                     "active_blocks": hkv * sum(-(-n // c) for n in lens)}}
     return rows
+
+
+def _ragged_checks(fd, ref, gen):
+    """Every instantiation (f32 and bf16 x D in {32, 64, 128} x G in {1,
+    4, 8}), paged and dense, on lengths at the chunk edges (0, 1, C-1, C,
+    C+1 and one lane over several chunks) with garbage past every length,
+    at the planned C and at the largest C that fits; returns the largest
+    |err| per dtype."""
+    worst = {}
+    for dt in (torch.float32, torch.bfloat16):
+        key = str(dt).replace("torch.", "")
+        row = torch.tensor([], dtype=dt).element_size()
+        for d in fd.HEAD_DIMS:
+            big = max(c for c in fd.CHUNKS
+                      if c * d * row <= fd.MAX_TILE_BYTES)
+            cap = 4 * big
+            planned, _ = fd.split_plan(cap, 6, 2, PAGE, d * row)
+            for g in (1, 4, 8):
+                for c in sorted({planned, big}):
+                    lens = [0, 1, c - 1, c, c + 1, 3 * c + 5]
+                    x = _fd_inputs(gen, lens, cap, dt, d, 2 * g, 2)
+                    errs = _fd_case(fd, ref, x, c, timed=False)
+                    worst[key] = max(worst.get(key, 0.0), *errs.values())
+    return worst
+
+
+def phase_kernels(fd, ref):
+    """Both flash-decode kernels at chip_smoke's ragged shape (B=8,
+    lengths 0..4096) and at the serve's decode shape (B=4, lengths
+    768-778), timed; every instantiation on chunk-edge lengths."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    head = _fd_case(fd, ref, _fd_inputs(gen, LENGTHS, max(LENGTHS)))
+    serve = _fd_case(fd, ref, _fd_inputs(gen, SERVE_LENGTHS, SERVE_CAP))
+    ragged = _ragged_checks(fd, ref, gen)
+    keys = ("shape", "plan", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "library_ms")
+    rows = []
+    for name, row in head.items():
+        cases = [{k: case[name][k] for k in keys} for case in (head, serve)]
+        del row["shape"], row["plan"]
+        rows.append({**row, "cases": cases})
+    print("[kernels] " + json.dumps({"ragged_max_abs_err": ragged,
+                                     "kernels": rows}))
+    return rows
+
+
+def phase_sweep(fd, ref, smi):
+    """Time both kernels at both timed shapes for every C in fd.CHUNKS."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shapes = {"chip_smoke": (LENGTHS, max(LENGTHS)),
+              "serve": (SERVE_LENGTHS, SERVE_CAP)}
+    out = []
+    for label, (lens, cap) in shapes.items():
+        x = _fd_inputs(gen, lens, cap)
+        for c in sorted(fd.CHUNKS):
+            for name, row in _fd_case(fd, ref, x, c).items():
+                out.append({"shape": label, "kernel": name, **row["plan"],
+                            **{k: row[k] for k in ("ms", "bound_ms",
+                                                   "library_ms",
+                                                   "max_abs_err")}})
+    planned = {label: fd.split_plan(cap, len(lens), HKV, PAGE, D * 2)[0]
+               for label, (lens, cap) in shapes.items()}
+    print("[sweep] " + json.dumps({"planned_C": planned, "card": smi,
+                                   "cases": out}))
 
 
 def _wkv_inputs(gen, b, t, dtype):
@@ -514,6 +620,12 @@ def main() -> None:
     t0 = time.perf_counter()
     smi = card()
     phase_build(build, smi)
+    if sys.argv[1:] == ["--sweep"]:
+        phase_sweep(fd, ref, smi)
+        return
+    if sys.argv[1:]:
+        sys.exit(f"chip_smoke: unknown arguments {sys.argv[1:]} (only "
+                 f"--sweep)")
     rows = phase_kernels(fd, ref) + phase_kernels_rwkv(wk, sg, ref)
     phase_parity(registry, make_trace)
     launches = phase_serve(registry, make_trace, (fd, wk, sg), smi)

@@ -9,50 +9,63 @@
 //       tables (B, nblk); page P is a scratch page
 //
 // Function (exactly the Pallas kernels'): scale 1/sqrt(D); float32
-// scores, running max, running sum and accumulator; positions
-// >= lengths[b] contribute nothing; the output is acc / max(l, 1e-20),
-// so a 0-length lane gives 0; written in q's dtype (float32 or bf16).
+// scores, max, sum and accumulator; positions >= lengths[b] (clamped to
+// the cap) contribute nothing; the output is acc / max(l, 1e-20), so a
+// 0-length lane gives 0; written in q's dtype (float32 or bf16).
 //
 // Bound on the H100: decode attention does 4 * Hq * D flops per context
 // position and reads 2 * Hkv * D elements of K/V for it, about G = Hq/Hkv
 // flops per byte in bf16 -- far below the ~295 flop/byte ridge.  So the
-// least time is the bytes of K/V of the valid context, read once, over
-// 3.35 TB/s.  What the design does about it:
-//   * one block per (request, kv head) covers all G query heads of the
-//     group, so each K/V row is read from device memory once per group
-//     (the Pallas (G, D) q block does the same);
-//   * the paged kernel reads the page id from tables[b, blk] itself (the
-//     counterpart of the scalar-prefetched index_map) and addresses the
-//     pool in its native (P+1, page, Hkv, D) layout, so no copy of the
-//     pool is ever made; it stops at lengths[b] instead of walking all
-//     nblk table entries, since masked pages add nothing;
-//   * each warp streams its own positions with 16-byte-or-smaller vector
-//     loads (a row is D contiguous elements, one slice per lane), keeps
-//     a private online softmax in registers, and kUnroll rows in flight;
-//     the warps' (m, l, acc) are combined once at the end in shared
-//     memory, so the main loop has no barrier.
-// Known limit (speed is later work): the grid is only B * Hkv blocks,
-// 16 at B=4 on 132 SMs; splitting the context across blocks with the
-// (acc, l, m) combine of layers.decode_attention_core would fill the card.
+// least time is the bytes of the valid K/V, read once, over 3.35 TB/s.
+// What the design does about it:
+//   * split the context: the grid is (B, Hkv, n_split) and each block
+//     owns one chunk of C positions of one (request, kv head), so a batch
+//     of 4 short contexts still gives hundreds of blocks on 132 SMs (the
+//     IS-S split of layers.decode_attention_core).  The wrapper picks C
+//     and n_split = ceil(cap / C) from shapes alone; a block whose chunk
+//     starts at or past lengths[b] writes an empty partial (l = 0) and
+//     exits, so the call reads nothing back to the host and stays
+//     capturable in a CUDA graph;
+//   * one block covers all G query heads of its group, so each K/V row
+//     is read from device memory once per group;
+//   * the chunk's K and V rows are staged in shared memory with 16-byte
+//     cp.async, K and V in two commit groups, so V is in flight while the
+//     scores are computed; rows are padded by 16 bytes so that threads on
+//     neighbouring rows hit different banks;
+//   * the paged kernel reads the page ids of its C/page table entries
+//     itself and addresses the pool in its native (P+1, page, Hkv, D)
+//     layout: no copy of the pool is made;
+//   * scores: a thread owns whole (position, head) pairs, each a D-long
+//     dot product out of shared memory (no shuffle chain per score); the
+//     chunk's max and sum come from one reduction per head; P.V: a thread
+//     owns (head, 16-byte slice of d) outputs;
+//   * each block writes its (acc[G][D], l[G], m[G]) in f32 to a scratch
+//     buffer; a second small kernel combines the ceil(len/C) partials of
+//     each (request, head): out = sum_i e_i acc_i / max(sum_i e_i l_i,
+//     1e-20), e_i = exp(m_i - max_i m_i).
+// Left on the table: two launches per call (a "last block combines"
+// design would make it one); the partials' round trip through L2; empty
+// blocks are still launched up to the cap; no TMA / wgmma (a chunk of
+// 32-256 rows does not fill their 64-row tiles at G <= 8).
 #include <math.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kUnroll = 4;       // K/V rows in flight per warp
-constexpr int kMaxGroup = 8;     // query heads per kv head (G)
-constexpr float kNeg = -1e30f;   // the Pallas kernels' masked score
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxGroup = 8;       // query heads per kv head (G)
+constexpr int kMaxChunk = 256;     // positions per block
+constexpr int kMaxSmem = 232448;   // H100: opt-in shared memory per block
+constexpr float kNeg = -1e30f;     // the Pallas kernels' masked score
 
 template <typename R, int N>
 struct alignas(sizeof(R) * N) Vec {
   R v[N];
 };
 
-// N consecutive elements in one vector load (the wrapper checks that
-// every row start is aligned to sizeof(raw) * N).
+// N consecutive elements in one vector load (p aligned to the vector).
 template <typename Tr, int N>
 __device__ __forceinline__ void load_vec(const typename Tr::raw* p,
                                          float (&out)[N]) {
@@ -62,11 +75,42 @@ __device__ __forceinline__ void load_vec(const typename Tr::raw* p,
   for (int i = 0; i < N; ++i) out[i] = Tr::load(x.v[i]);
 }
 
+// 16 bytes global -> shared, bypassing L1; zero-filled when !valid
+// (then nothing is read from src).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
 struct Args {
   const void* q;        // (B, Hq, D), strides q_sb, q_sh, 1
   const void* k;        // dense (B, S, Hkv, D) / paged (P+1, page, Hkv, D)
   const void* v;        // same shape and strides as k
   void* out;            // (B, Hq, D) contiguous
+  float* acc;           // partials (B, Hkv, n_split, G, D)
+  float* m;             // (B, Hkv, n_split, G)
+  float* l;             // (B, Hkv, n_split, G)
   const int* tables;    // paged: (B, nblk), row stride t_sb; else null
   const int* lengths;   // (B,)
   long long q_sb, q_sh;
@@ -75,174 +119,241 @@ struct Args {
   long long kv_sh;      // head stride
   long long t_sb;
   int hq, group, cap, page;   // cap: S (dense) or nblk * page (paged)
+  int chunk, n_split;         // C positions per block, ceil(cap / C)
   float scale;
 };
 
-// grid (B, Hkv), kThreads threads; EPL = D / 32 elements per lane.
-template <typename Tr, int EPL, bool PAGED>
-__global__ void __launch_bounds__(kThreads)
-decode_attention_kernel(const Args a) {
+// Shared memory of one block: K and V rows of the chunk (each padded by
+// 16 bytes), the group's pre-scaled q rows and the chunk's scores.
+template <typename Tr, int D>
+struct Smem {
+  static constexpr int kRow = D * static_cast<int>(sizeof(typename Tr::raw))
+                              + 16;
+  static constexpr int kVec = 16 / static_cast<int>(sizeof(typename Tr::raw));
+  static constexpr int kPieces = D / kVec;   // 16-byte pieces per row
+  static __host__ __device__ int score_stride(int chunk) { return chunk + 4; }
+  static __host__ __device__ int bytes(int chunk) {
+    return 2 * chunk * kRow + kMaxGroup * D * 4 +
+           kMaxGroup * score_stride(chunk) * 4;
+  }
+};
+
+__device__ __forceinline__ int clamp_len(const Args& a, int b) {
+  const int n = a.lengths[b];
+  return n < 0 ? 0 : (n > a.cap ? a.cap : n);
+}
+
+// Copy rows [start, start + nvalid) of head h into dst (chunk rows,
+// padded); rows past nvalid are zero-filled.
+template <typename Tr, int D, bool PAGED>
+__device__ __forceinline__ void stage_rows(const Args& a, const void* base,
+                                           unsigned char* dst, int b, int h,
+                                           int start, int nvalid) {
   using raw = typename Tr::raw;
-  constexpr int D = 32 * EPL;
-  const int b = blockIdx.x;
-  const int h = blockIdx.y;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int G = a.group;
-  int len = a.lengths[b];
-  len = len < 0 ? 0 : (len > a.cap ? a.cap : len);
-
-  // this group's G query heads, pre-scaled, one D/32 slice per lane
-  const raw* qp = static_cast<const raw*>(a.q) + b * a.q_sb +
-                  static_cast<long long>(h) * G * a.q_sh + lane * EPL;
-  float qr[kMaxGroup][EPL];
-  float m[kMaxGroup], l[kMaxGroup], acc[kMaxGroup][EPL];
-#pragma unroll
-  for (int g = 0; g < kMaxGroup; ++g) {
-    if (g < G) {
-      load_vec<Tr, EPL>(qp + g * a.q_sh, qr[g]);
-    } else {
-#pragma unroll
-      for (int i = 0; i < EPL; ++i) qr[g][i] = 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < EPL; ++i) {
-      qr[g][i] *= a.scale;
-      acc[g][i] = 0.f;
-    }
-    m[g] = kNeg;
-    l[g] = 0.f;
-  }
-
-  const raw* kb = static_cast<const raw*>(a.k);
-  const raw* vb = static_cast<const raw*>(a.v);
-  const long long head_off = static_cast<long long>(h) * a.kv_sh + lane * EPL;
+  using S = Smem<Tr, D>;
+  const raw* src0 = static_cast<const raw*>(base);
   const int* trow = PAGED ? a.tables + b * a.t_sb : nullptr;
-
-  // warp w takes positions w, w + kWarps, ...; kUnroll of them per pass
-  for (int base = warp; base < len; base += kWarps * kUnroll) {
-    float kf[kUnroll][EPL], vf[kUnroll][EPL];
-    bool ok[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int pos = base + u * kWarps;
-      ok[u] = pos < len;
-      if (ok[u]) {
-        long long off;
-        if (PAGED) {
-          const int blk = pos / a.page;
-          off = static_cast<long long>(trow[blk]) * a.kv_s0 +
-                static_cast<long long>(pos - blk * a.page) * a.kv_s1;
-        } else {
-          off = b * a.kv_s0 + static_cast<long long>(pos) * a.kv_s1;
-        }
-        load_vec<Tr, EPL>(kb + off + head_off, kf[u]);
-        load_vec<Tr, EPL>(vb + off + head_off, vf[u]);
+  for (int i = threadIdx.x; i < a.chunk * S::kPieces; i += kThreads) {
+    const int r = i / S::kPieces;
+    const int c = i - r * S::kPieces;
+    const bool ok = r < nvalid;
+    const raw* src = src0;
+    if (ok) {
+      const int pos = start + r;
+      long long off;
+      if (PAGED) {
+        const int blk = pos / a.page;
+        off = static_cast<long long>(trow[blk]) * a.kv_s0 +
+              static_cast<long long>(pos - blk * a.page) * a.kv_s1;
       } else {
-#pragma unroll
-        for (int i = 0; i < EPL; ++i) kf[u][i] = vf[u][i] = 0.f;
+        off = b * a.kv_s0 + static_cast<long long>(pos) * a.kv_s1;
       }
+      src = src0 + off + h * a.kv_sh + c * S::kVec;
     }
-#pragma unroll
-    for (int g = 0; g < kMaxGroup; ++g) {
-      if (g >= G) continue;
-      float s[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        float part = 0.f;
-#pragma unroll
-        for (int i = 0; i < EPL; ++i) part = fmaf(qr[g][i], kf[u][i], part);
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1)
-          part += __shfl_xor_sync(0xffffffffu, part, o);
-        s[u] = part;
-      }
-      float mx = m[g];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-        if (ok[u]) mx = fmaxf(mx, s[u]);
-      const float corr = expf(m[g] - mx);
-      float p[kUnroll];
-      float psum = 0.f;
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        p[u] = ok[u] ? expf(s[u] - mx) : 0.f;
-        psum += p[u];
-      }
-      l[g] = l[g] * corr + psum;
-#pragma unroll
-      for (int i = 0; i < EPL; ++i) {
-        float x = acc[g][i] * corr;
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) x = fmaf(p[u], vf[u][i], x);
-        acc[g][i] = x;
-      }
-      m[g] = mx;
-    }
-  }
-
-  // combine the warps' partial softmaxes: out = sum_w c_w acc_w /
-  // max(sum_w c_w l_w, 1e-20) with c_w = exp(m_w - max_w m_w)
-  __shared__ float sm_m[kWarps][kMaxGroup];
-  __shared__ float sm_l[kWarps][kMaxGroup];
-  __shared__ float sm_acc[kWarps][kMaxGroup][D];
-#pragma unroll
-  for (int g = 0; g < kMaxGroup; ++g) {
-    if (g >= G) continue;
-    if (lane == 0) {
-      sm_m[warp][g] = m[g];
-      sm_l[warp][g] = l[g];
-    }
-#pragma unroll
-    for (int i = 0; i < EPL; ++i) sm_acc[warp][g][lane * EPL + i] = acc[g][i];
-  }
-  __syncthreads();
-  raw* out = static_cast<raw*>(a.out) +
-             (static_cast<long long>(b) * a.hq + static_cast<long long>(h) * G) * D;
-  for (int idx = threadIdx.x; idx < G * D; idx += kThreads) {
-    const int g = idx / D;
-    const int d = idx - g * D;
-    float mmax = kNeg;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) mmax = fmaxf(mmax, sm_m[w][g]);
-    float lsum = 0.f, asum = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float c = expf(sm_m[w][g] - mmax);
-      lsum = fmaf(sm_l[w][g], c, lsum);
-      asum = fmaf(sm_acc[w][g][d], c, asum);
-    }
-    out[idx] = Tr::store(asum / fmaxf(lsum, 1e-20f));
+    cp_async16(dst + r * S::kRow + c * 16, src, ok);
   }
 }
 
-template <typename Tr, bool PAGED>
-int launch(const Args& a, int batch, int hkv, int d, cudaStream_t stream) {
-  const dim3 grid(batch, hkv);
-  switch (d) {
-    case 32:
-      decode_attention_kernel<Tr, 1, PAGED><<<grid, kThreads, 0, stream>>>(a);
-      break;
-    case 64:
-      decode_attention_kernel<Tr, 2, PAGED><<<grid, kThreads, 0, stream>>>(a);
-      break;
-    case 128:
-      decode_attention_kernel<Tr, 4, PAGED><<<grid, kThreads, 0, stream>>>(a);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+// grid (B, Hkv, n_split), kThreads threads, Smem::bytes(chunk) dynamic
+// shared memory: the partial (acc, l, m) of one chunk of one group.
+template <typename Tr, int D, bool PAGED>
+__global__ void __launch_bounds__(kThreads)
+decode_partial_kernel(const Args a) {
+  using raw = typename Tr::raw;
+  using S = Smem<Tr, D>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b = blockIdx.x;
+  const int h = blockIdx.y;
+  const int split = blockIdx.z;
+  const int G = a.group;
+  const int C = a.chunk;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long part =
+      (static_cast<long long>(b) * gridDim.y + h) * a.n_split + split;
+  const int len = clamp_len(a, b);
+  const int start = split * C;
+  if (start >= len) {                  // empty chunk: l = 0
+    if (threadIdx.x < G) {
+      a.m[part * G + threadIdx.x] = kNeg;
+      a.l[part * G + threadIdx.x] = 0.f;
+    }
+    return;
   }
+  const int nvalid = min(C, len - start);
+
+  unsigned char* sk = smem;
+  unsigned char* sv = sk + C * S::kRow;
+  float* sq = reinterpret_cast<float*>(sv + C * S::kRow);
+  float* ss = sq + kMaxGroup * D;
+  const int sst = S::score_stride(C);
+
+  stage_rows<Tr, D, PAGED>(a, a.k, sk, b, h, start, nvalid);
+  cp_async_commit();
+  stage_rows<Tr, D, PAGED>(a, a.v, sv, b, h, start, nvalid);
+  cp_async_commit();
+
+  // the group's G query rows, pre-scaled, while K and V are in flight
+  const raw* qp = static_cast<const raw*>(a.q) + b * a.q_sb +
+                  static_cast<long long>(h) * G * a.q_sh;
+  for (int i = threadIdx.x; i < G * D; i += kThreads) {
+    const int g = i / D;
+    sq[i] = Tr::load(qp[g * a.q_sh + (i - g * D)]) * a.scale;
+  }
+  cp_async_wait<1>();
+  __syncthreads();
+
+  // scores: thread owns (position, head) pairs; a warp's lanes take
+  // neighbouring positions of one head (q reads are broadcasts)
+  for (int i = threadIdx.x; i < G * C; i += kThreads) {
+    const int g = i / C;
+    const int p = i - g * C;
+    if (p >= nvalid) continue;
+    const raw* kr = reinterpret_cast<const raw*>(sk + p * S::kRow);
+    const float* qr = sq + g * D;
+    float s = 0.f;
+#pragma unroll
+    for (int c = 0; c < S::kPieces; ++c) {
+      float kf[S::kVec];
+      load_vec<Tr, S::kVec>(kr + c * S::kVec, kf);
+#pragma unroll
+      for (int j = 0; j < S::kVec; ++j)
+        s = fmaf(qr[c * S::kVec + j], kf[j], s);
+    }
+    ss[g * sst + p] = s;
+  }
+  __syncthreads();
+
+  // the chunk's max and sum per head, one warp per head; p = exp(s - m)
+  for (int g = warp; g < G; g += kWarps) {
+    float* row = ss + g * sst;
+    float mx = kNeg;
+    for (int p = lane; p < nvalid; p += 32) mx = fmaxf(mx, row[p]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int p = lane; p < nvalid; p += 32) {
+      const float e = expf(row[p] - mx);
+      row[p] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    if (lane == 0) {
+      a.m[part * G + g] = mx;
+      a.l[part * G + g] = sum;
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // P.V: thread owns (head, 16-byte slice of d) outputs
+  for (int i = threadIdx.x; i < G * S::kPieces; i += kThreads) {
+    const int g = i / S::kPieces;
+    const int c = i - g * S::kPieces;
+    const float* pr = ss + g * sst;
+    const raw* vc = reinterpret_cast<const raw*>(sv) + c * S::kVec;
+    float o[S::kVec];
+#pragma unroll
+    for (int j = 0; j < S::kVec; ++j) o[j] = 0.f;
+    for (int p = 0; p < nvalid; ++p) {
+      float vf[S::kVec];
+      load_vec<Tr, S::kVec>(vc + p * (S::kRow / sizeof(raw)), vf);
+      const float w = pr[p];
+#pragma unroll
+      for (int j = 0; j < S::kVec; ++j) o[j] = fmaf(w, vf[j], o[j]);
+    }
+    float4* dst = reinterpret_cast<float4*>(a.acc + (part * G + g) * D +
+                                            c * S::kVec);
+#pragma unroll
+    for (int j = 0; j < S::kVec / 4; ++j)
+      dst[j] = make_float4(o[4 * j], o[4 * j + 1], o[4 * j + 2], o[4 * j + 3]);
+  }
+}
+
+// grid (B, Hq), D threads: out[b, hq, d] from the ceil(len / C) partials
+// of (b, hq / G).
+template <typename Tr, int D>
+__global__ void __launch_bounds__(D) decode_combine_kernel(const Args a) {
+  const int b = blockIdx.x;
+  const int hq = blockIdx.y;
+  const int d = threadIdx.x;
+  const int G = a.group;
+  const int h = hq / G;
+  const int g = hq - h * G;
+  const int n = (clamp_len(a, b) + a.chunk - 1) / a.chunk;
+  const long long base =
+      (static_cast<long long>(b) * (a.hq / G) + h) * a.n_split;
+  float mmax = kNeg;
+  for (int i = 0; i < n; ++i) mmax = fmaxf(mmax, a.m[(base + i) * G + g]);
+  float lsum = 0.f, asum = 0.f;
+  for (int i = 0; i < n; ++i) {
+    const long long j = (base + i) * G + g;
+    const float e = expf(a.m[j] - mmax);
+    lsum = fmaf(a.l[j], e, lsum);
+    asum = fmaf(a.acc[j * D + d], e, asum);
+  }
+  static_cast<typename Tr::raw*>(a.out)[(static_cast<long long>(b) * a.hq +
+                                         hq) * D + d] =
+      Tr::store(asum / fmaxf(lsum, 1e-20f));
+}
+
+template <typename Tr, int D, bool PAGED>
+int launch(const Args& a, int batch, int hkv, cudaStream_t stream) {
+  const int smem = Smem<Tr, D>::bytes(a.chunk);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  // above 48 KB a block's dynamic shared memory needs the opt-in, once
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      decode_partial_kernel<Tr, D, PAGED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  decode_partial_kernel<Tr, D, PAGED>
+      <<<dim3(batch, hkv, a.n_split), kThreads, smem, stream>>>(a);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  decode_combine_kernel<Tr, D><<<dim3(batch, a.hq), D, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Tr, bool PAGED>
+int launch_d(const Args& a, int batch, int hkv, int d, cudaStream_t s) {
+  switch (d) {
+    case 32: return launch<Tr, 32, PAGED>(a, batch, hkv, s);
+    case 64: return launch<Tr, 64, PAGED>(a, batch, hkv, s);
+    case 128: return launch<Tr, 128, PAGED>(a, batch, hkv, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 template <bool PAGED>
 int dispatch(const Args& a, int dtype, int batch, int hkv, int d,
              void* stream) {
-  if (a.group < 1 || a.group > kMaxGroup || batch < 1 || hkv < 1)
+  if (a.group < 1 || a.group > kMaxGroup || batch < 1 || hkv < 1 ||
+      a.chunk < 16 || a.chunk > kMaxChunk || a.chunk % 16 ||
+      a.n_split < 1 || a.n_split > 65535 ||
+      static_cast<long long>(a.n_split) * a.chunk < a.cap)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<F32, PAGED>(a, batch, hkv, d, s);
-  if (dtype == 1) return launch<BF16, PAGED>(a, batch, hkv, d, s);
+  if (dtype == 0) return launch_d<F32, PAGED>(a, batch, hkv, d, s);
+  if (dtype == 1) return launch_d<BF16, PAGED>(a, batch, hkv, d, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -253,28 +364,34 @@ float inv_sqrt(int d) { return static_cast<float>(1.0 / sqrt(static_cast<double>
 
 extern "C" {
 
-// dtype: 0 float32, 1 bfloat16.  Strides are in elements.  Returns the
-// cudaError_t of the launch (0 on success).
+// dtype: 0 float32, 1 bfloat16.  Strides are in elements.  acc/m/l are
+// f32 scratch of (B, Hkv, n_split, G, D) / (B, Hkv, n_split, G) each.
+// Two launches (partials, combine) on `stream`; returns the cudaError_t
+// of the launches (0 on success).
 int repro_flash_decode(const void* q, const void* k, const void* v,
-                       void* out, const int* lengths, int dtype, int batch,
-                       int hq, int hkv, int d, int seq, long long q_sb,
-                       long long q_sh, long long k_sb, long long k_ss,
-                       long long k_sh, void* stream) {
-  Args a{q, k, v, out, nullptr, lengths, q_sb, q_sh, k_sb, k_ss, k_sh, 0,
-         hq, hkv > 0 ? hq / hkv : 0, seq, 0, inv_sqrt(d)};
+                       void* out, const int* lengths, float* acc, float* m,
+                       float* l, int dtype, int batch, int hq, int hkv,
+                       int d, int seq, int chunk, int n_split,
+                       long long q_sb, long long q_sh, long long k_sb,
+                       long long k_ss, long long k_sh, void* stream) {
+  Args a{q, k, v, out, acc, m, l, nullptr, lengths, q_sb, q_sh, k_sb, k_ss,
+         k_sh, 0, hq, hkv > 0 ? hq / hkv : 0, seq, 0, chunk, n_split,
+         inv_sqrt(d)};
   return dispatch<false>(a, dtype, batch, hkv, d, stream);
 }
 
 int repro_paged_flash_decode(const void* q, const void* k_pool,
                              const void* v_pool, void* out,
                              const int* tables, const int* lengths,
-                             int dtype, int batch, int hq, int hkv, int d,
-                             int page, int nblk, long long q_sb,
-                             long long q_sh, long long p_sp, long long p_sr,
-                             long long p_sh, long long t_sb, void* stream) {
-  Args a{q, k_pool, v_pool, out, tables, lengths, q_sb, q_sh, p_sp, p_sr,
-         p_sh, t_sb, hq, hkv > 0 ? hq / hkv : 0, nblk * page, page,
-         inv_sqrt(d)};
+                             float* acc, float* m, float* l, int dtype,
+                             int batch, int hq, int hkv, int d, int page,
+                             int nblk, int chunk, int n_split,
+                             long long q_sb, long long q_sh, long long p_sp,
+                             long long p_sr, long long p_sh, long long t_sb,
+                             void* stream) {
+  Args a{q, k_pool, v_pool, out, acc, m, l, tables, lengths, q_sb, q_sh,
+         p_sp, p_sr, p_sh, t_sb, hq, hkv > 0 ? hq / hkv : 0, nblk * page,
+         page, chunk, n_split, inv_sqrt(d)};
   return dispatch<true>(a, dtype, batch, hkv, d, stream);
 }
 

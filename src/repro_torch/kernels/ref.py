@@ -13,6 +13,9 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
+
+NEG = -1e30            # the kernels' masked score and an empty chunk's m
 
 
 def decode_gemm_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -57,6 +60,78 @@ def paged_flash_decode_ref(q: torch.Tensor, k_pool: torch.Tensor,
     k = k_pool[idx].reshape(b, nblk * ps, *k_pool.shape[2:])
     v = v_pool[idx].reshape(b, nblk * ps, *v_pool.shape[2:])
     return flash_decode_ref(q, k, v, lengths)
+
+
+def decode_partials_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        lengths: torch.Tensor, chunk: int):
+    """First pass of the split-context kernels: for each (request, kv
+    head, chunk of ``chunk`` positions) the un-normalised ``acc`` and the
+    chunk's softmax max ``m`` and sum ``l`` over its valid positions.
+
+    q: (B, Hq, D); k/v: (B, S, Hkv, D); lengths: (B,), clamped to [0, S].
+    Returns acc (B, Hkv, n_split, G, D), m and l (B, Hkv, n_split, G), all
+    float32, with ``n_split = max(1, ceil(S / chunk))``; a chunk that
+    starts at or past its length has ``l = 0`` and ``m = NEG``.
+    """
+    b, hq, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    n = max(1, -(-s // chunk))
+    pad = (0, 0, 0, 0, 0, n * chunk - s)
+    kc = F.pad(k.float(), pad).reshape(b, n, chunk, hkv, d)
+    vc = F.pad(v.float(), pad).reshape(b, n, chunk, hkv, d)
+    qr = q.reshape(b, hkv, g, d).float() * (1.0 / math.sqrt(d))
+    lens = lengths.to(q.device).long().clamp(0, s)
+    pos = torch.arange(n * chunk, device=q.device).reshape(n, chunk)
+    valid = (pos[None] < lens[:, None, None])[:, None, :, None, :]
+    scores = torch.einsum("bhgd,bnchd->bhngc", qr, kc)
+    scores = torch.where(valid, scores, -math.inf)
+    m = scores.amax(-1)
+    m = torch.where(torch.isfinite(m), m, NEG)
+    p = torch.where(valid, torch.exp(scores - m[..., None]), 0.0)
+    acc = torch.einsum("bhngc,bnchd->bhngd", p, vc)
+    return acc, m, p.sum(-1)
+
+
+def combine_partials_ref(acc: torch.Tensor, m: torch.Tensor,
+                         l: torch.Tensor, lengths: torch.Tensor, chunk: int,
+                         cap: int, dtype: torch.dtype) -> torch.Tensor:
+    """Second pass: out = sum_i e_i acc_i / max(sum_i e_i l_i, 1e-20) over
+    the ``ceil(len / chunk)`` partials of each (request, head), with
+    ``e_i = exp(m_i - max_i m_i)``; a 0-length lane reads none and gives
+    0.  Returns (B, Hq, D) in ``dtype``."""
+    b, hkv, n, g, d = acc.shape
+    lens = lengths.to(acc.device).long().clamp(0, cap)
+    read = (torch.arange(n, device=acc.device)[None, :] * chunk
+            < lens[:, None])[:, None, :, None]
+    mmax = torch.where(read, m, NEG).amax(2, keepdim=True)
+    e = torch.where(read, torch.exp(m - mmax), 0.0)
+    out = (acc * e[..., None]).sum(2) / torch.clamp(
+        (l * e).sum(2), min=1e-20)[..., None]
+    return out.reshape(b, hkv * g, d).to(dtype)
+
+
+def flash_decode_split_ref(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, lengths: torch.Tensor,
+                           chunk: int) -> torch.Tensor:
+    """The split-context kernel's two passes over contiguous caches:
+    :func:`decode_partials_ref`, then :func:`combine_partials_ref`."""
+    acc, m, l = decode_partials_ref(q, k, v, lengths, chunk)
+    return combine_partials_ref(acc, m, l, lengths, chunk, k.shape[1],
+                                q.dtype)
+
+
+def paged_flash_decode_split_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                                 v_pool: torch.Tensor, tables: torch.Tensor,
+                                 lengths: torch.Tensor,
+                                 chunk: int) -> torch.Tensor:
+    """The same two passes through a block table (positions, and so the
+    chunks, are those of the gathered ``nblk * page`` context)."""
+    b, nblk = tables.shape
+    idx = tables.long()
+    k = k_pool[idx].reshape(b, nblk * k_pool.shape[1], *k_pool.shape[2:])
+    v = v_pool[idx].reshape(b, nblk * v_pool.shape[1], *v_pool.shape[2:])
+    return flash_decode_split_ref(q, k, v, lengths, chunk)
 
 
 def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

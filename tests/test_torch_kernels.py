@@ -43,12 +43,12 @@ def _pair(a: np.ndarray, dtype: str):
             torch.from_numpy(a).to(getattr(torch, dtype)))
 
 
-def _paged_case(g, dtype, seed=0, b=3, hkv=2, d=32, page=4,
-                lengths=(0, 7, 13)):
+def _paged_case(g, dtype, seed=0, hkv=2, d=32, page=4,
+                lengths=(0, 7, 13), nblk=4):
     """Pools with pages dealt in shuffled order, the tail of each
     slot's last page and the scratch page filled with garbage."""
     rng = np.random.default_rng(seed)
-    nblk = 4
+    b = len(lengths)
     need = [-(-n // page) for n in lengths]
     p = sum(need) + 2
     order = rng.permutation(p)
@@ -187,22 +187,155 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
         build.build_all()
 
 
+def _edges(c):
+    """Lengths at the edges of chunks of ``c`` positions, and one lane
+    over several chunks."""
+    return (0, 1, c - 1, c, c + 1, 3 * c + 5)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["small", "edges_16", "edges_planned"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("g", [1, 4, 8])
-def test_cuda_kernels_match_plain(dtype, g):
+def test_cuda_kernels_match_plain(dtype, g, case):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    esize = 4 if dtype == "float32" else 2
+    nblk = 32                      # cap 128 at page 4
+    planned, _ = fd.split_plan(128, 6, 2, 4, 64 * esize)
+    chunk, lengths = {"small": (None, (0, 7, 13)),
+                      "edges_16": (16, _edges(16)),
+                      "edges_planned": (None, _edges(planned))}[case]
     q, kp, vp, tables, lengths = (torch.from_numpy(a).cuda() for a in
-                                  _paged_case(g, dtype, d=64))
+                                  _paged_case(g, dtype, d=64,
+                                              lengths=lengths, nblk=nblk))
     q, kp, vp = (t.to(getattr(torch, dtype)) for t in (q, kp, vp))
-    got = fd.paged_flash_decode(q, kp, vp, tables, lengths)
+    b = q.shape[0]
+    got = fd.paged_flash_decode(q, kp, vp, tables, lengths, chunk)
     want = ref.paged_flash_decode_ref(q, kp, vp, tables, lengths)
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
-    k = kp[tables.long()].reshape(3, -1, *kp.shape[2:]).contiguous()
-    v = vp[tables.long()].reshape(3, -1, *vp.shape[2:]).contiguous()
-    torch.testing.assert_close(fd.flash_decode(q, k, v, lengths).float(),
-                               want.float(), **_tol(dtype))
+    assert not got[0].any()
+    k = kp[tables.long()].reshape(b, -1, *kp.shape[2:]).contiguous()
+    v = vp[tables.long()].reshape(b, -1, *vp.shape[2:]).contiguous()
+    got = fd.flash_decode(q, k, v, lengths, chunk)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    assert not got[0].any()
+
+
+# ---------------------------------------------------------------------------
+# Split-context flash decode: the plan and the two-pass plain rendering
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("page", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("cap", [1, 16, 100, 770, 800, 4096, 32768])
+def test_split_plan_chunks_cover_the_cap(page, cap):
+    c, n = fd.split_plan(cap, 4, 4, page)
+    assert c % page == 0 and c % 16 == 0 and 16 <= c <= 256
+    assert n * c >= cap > (n - 1) * c
+
+
+@pytest.mark.parametrize("batch,lengths,cap", [
+    (4, [770] * 4, 770),                          # the serve's decode step
+    (4, [768, 771, 775, 778], 800),
+    (8, [0, 1, 16, 17, 255, 1000, 2048, 4096], 4096),   # chip_smoke's
+])
+def test_split_plan_fills_one_wave(batch, lengths, cap):
+    hkv, page = 4, 16
+    c, n = fd.split_plan(cap, batch, hkv, page)
+    assert hkv * sum(-(-x // c) for x in lengths) >= 132
+    assert n == -(-cap // c)
+
+
+def test_split_plan_keeps_a_chunk_in_shared_memory():
+    for row_bytes in (64, 128, 256, 512):         # D * element size
+        for cap in (32, 1000, 10**5):
+            c, _ = fd.split_plan(cap, 1, 1, 16, row_bytes)
+            assert c * row_bytes <= fd.MAX_TILE_BYTES
+    assert fd.split_plan(4096, 8, 4, 16, 256, chunk=64) == (64, 64)
+    for bad in (8, 24, 512):
+        with pytest.raises(ValueError):
+            fd.split_plan(4096, 8, 4, 16, 256, chunk=bad)
+    with pytest.raises(ValueError):                # f32 D=128: 128 KB
+        fd.split_plan(4096, 8, 4, 16, 512, chunk=256)
+    with pytest.raises(ValueError):                # the grid's z limit
+        fd.split_plan(10**7, 1, 1, 16, 256, chunk=32)
+
+
+def _dense_case(g, lengths, d=32, hkv=2, s=None, seed=3):
+    rng = np.random.default_rng(seed)
+    b = len(lengths)
+    s = s or max(lengths)
+    q = rng.standard_normal((b, hkv * g, d)).astype(np.float32)
+    k = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+    for i, n in enumerate(lengths):
+        k[i, n:] = v[i, n:] = GARBAGE
+    return q, k, v, np.asarray(lengths, np.int32)
+
+
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_ref_matches_dense_plain_and_pallas(g, dtype):
+    chunk = 16
+    q, k, v, lengths = _dense_case(g, _edges(chunk), s=64)
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(a, dtype) for a in (q, k, v))
+    lt = torch.from_numpy(lengths)
+    got = ref.flash_decode_split_ref(qt, kt, vt, lt, chunk)
+    assert got.dtype == qt.dtype
+    torch.testing.assert_close(got.float(),
+                               ref.flash_decode_ref(qt, kt, vt, lt).float(),
+                               **_tol(dtype))
+    want = flash_decode(qj, kj, vj, jnp.asarray(lengths), block_s=16,
+                        interpret=True)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **_tol(dtype))
+    assert not got[0].any()          # the 0-length lane is exactly 0
+
+
+@pytest.mark.parametrize("chunk", [16, 32])
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_ref_matches_paged_plain_and_pallas(g, dtype, chunk):
+    q, kp, vp, tables, lengths = _paged_case(g, dtype, lengths=_edges(chunk),
+                                             nblk=-(-(3 * chunk + 5) // 4))
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(a, dtype) for a in (q, kp, vp))
+    tt, lt = torch.from_numpy(tables), torch.from_numpy(lengths)
+    got = ref.paged_flash_decode_split_ref(qt, kt, vt, tt, lt, chunk)
+    torch.testing.assert_close(
+        got.float(), ref.paged_flash_decode_ref(qt, kt, vt, tt, lt).float(),
+        **_tol(dtype))
+    want = paged_flash_decode(qj, kj, vj, jnp.asarray(tables),
+                              jnp.asarray(lengths), interpret=True)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **_tol(dtype))
+    assert not got[0].any()
+
+
+def test_split_partials_of_empty_chunks_are_empty():
+    chunk = 16
+    q, k, v, lengths = (torch.from_numpy(a) for a in
+                        _dense_case(4, _edges(chunk), s=80))
+    acc, m, l = ref.decode_partials_ref(q, k, v, lengths, chunk)
+    assert acc.shape == (6, 2, 5, 4, 32) and m.shape == l.shape == (6, 2, 5, 4)
+    used = torch.arange(5)[None, :] * chunk < lengths[:, None].long()
+    assert (l[~used[:, None, :, None].expand_as(l)] == 0).all()
+    assert (m[~used[:, None, :, None].expand_as(m)] == ref.NEG).all()
+    assert (l[used[:, None, :, None].expand_as(l)] >= 1).all()
+    # a chunk's own softmax: its max position contributes exactly 1
+    lane, c = 5, 3                   # 53 = 3 * 16 + 5: the last chunk
+    s = torch.einsum("gd,pd->gp", q[lane, :4] / 32 ** 0.5,
+                     k[lane, 48:53, 0])
+    torch.testing.assert_close(m[lane, 0, c], s.amax(-1))
+    torch.testing.assert_close(l[lane, 0, c],
+                               torch.exp(s - s.amax(-1, True)).sum(-1))
+
+
+def test_wrappers_read_nothing_back_to_the_host():
+    """The split comes from shapes alone, so a call never synchronises
+    and stays capturable in a CUDA graph."""
+    import inspect
+    src = inspect.getsource(fd)
+    for call in (".item(", ".cpu(", ".tolist(", ".numpy(", "synchronize"):
+        assert call not in src
 
 
 # ---------------------------------------------------------------------------
