@@ -52,6 +52,7 @@ without a CUDA device.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -298,8 +299,27 @@ def phase_kernels(fd, ref):
     return rows
 
 
+def _device_ms(fn, iters: int = 10) -> dict:
+    """Mean device time of each kernel ``fn`` launches, by name, from
+    ``torch.profiler`` over ``iters`` calls, the L2 flushed before each."""
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        name = re.search(r"decode_\w+", e.key)
+        if name:
+            out[name.group(0)] = e.self_device_time_total / e.count / 1e3
+    return out
+
+
 def phase_sweep(fd, ref, smi):
-    """Time both kernels at both timed shapes for every C in fd.CHUNKS."""
+    """Time both kernels at both timed shapes for every C in fd.CHUNKS,
+    with each launch's device time from the profiler."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     shapes = {"chip_smoke": (LENGTHS, max(LENGTHS)),
               "serve": (SERVE_LENGTHS, SERVE_CAP)}
@@ -307,11 +327,14 @@ def phase_sweep(fd, ref, smi):
     for label, (lens, cap) in shapes.items():
         x = _fd_inputs(gen, lens, cap)
         for c in sorted(fd.CHUNKS):
-            for name, row in _fd_case(fd, ref, x, c).items():
+            rows = _fd_case(fd, ref, x, c)
+            for name, _, kern, *_ in _fd_calls(fd, ref, x, c):
+                row = rows[name]
                 out.append({"shape": label, "kernel": name, **row["plan"],
                             **{k: row[k] for k in ("ms", "bound_ms",
                                                    "library_ms",
-                                                   "max_abs_err")}})
+                                                   "max_abs_err")},
+                            "device_ms": _device_ms(kern)})
     planned = {label: fd.split_plan(cap, len(lens), HKV, PAGE, D * 2)[0]
                for label, (lens, cap) in shapes.items()}
     print("[sweep] " + json.dumps({"planned_C": planned, "card": smi,

@@ -32,22 +32,36 @@
 //     cp.async, K and V in two commit groups, so V is in flight while the
 //     scores are computed; rows are padded by 16 bytes so that threads on
 //     neighbouring rows hit different banks;
-//   * the paged kernel reads the page ids of its C/page table entries
-//     itself and addresses the pool in its native (P+1, page, Hkv, D)
-//     layout: no copy of the pool is made;
-//   * scores: a thread owns whole (position, head) pairs, each a D-long
-//     dot product out of shared memory (no shuffle chain per score); the
-//     chunk's max and sum come from one reduction per head; P.V: a thread
-//     owns (head, 16-byte slice of d) outputs;
+//   * the paged kernel reads the page ids of its chunk (C/page table
+//     entries) itself, all at once into shared memory, and addresses the
+//     pool in its native (P+1, page, Hkv, D) layout: no copy of the pool
+//     is made;
+//   * bf16 runs on the tensor cores (mma.sync m16n8k16, f32 accumulate):
+//     scores S^T[pos, g] = K[pos, :] . Q^T[:, g] with the chunk's
+//     positions as M, D as K and the group's heads as N = 8 (yi-6b has
+//     G = 8; fewer heads are zero-padded), then O^T[d, g] = V^T[d, pos] .
+//     P^T[pos, g] with V^T read through ldmatrix.trans and P rounded to
+//     bf16 (l sums the rounded P, so the weights stay consistent);
+//   * float32 keeps CUDA cores, for parity at 2e-5 (TF32 would not hold
+//     it): a thread owns whole (position, head) pairs, each a D-long dot
+//     product out of shared memory (no shuffle chain per score), and
+//     (head, 16-byte slice of d) outputs for P.V;
+//   * the chunk's max and sum come from one reduction per head (a warp
+//     per head);
 //   * each block writes its (acc[G][D], l[G], m[G]) in f32 to a scratch
 //     buffer; a second small kernel combines the ceil(len/C) partials of
-//     each (request, head): out = sum_i e_i acc_i / max(sum_i e_i l_i,
-//     1e-20), e_i = exp(m_i - max_i m_i).
-// Left on the table: two launches per call (a "last block combines"
-// design would make it one); the partials' round trip through L2; empty
-// blocks are still launched up to the cap; no TMA / wgmma (a chunk of
-// 32-256 rows does not fill their 64-row tiles at G <= 8).
+//     each (request, head) in one pass: out = sum_i e_i acc_i /
+//     max(sum_i e_i l_i, 1e-20), e_i = exp(m_i - max_i m_i).
+// Left on the table (the call is still ~5-8x its bound on the H100, see
+// PERF.md): two launches per call, and the combine is a few us of
+// dependent L2 reads (a "last block combines" design would make it one
+// launch); the partials' round trip through L2; empty blocks are still
+// launched up to the cap and hold their shared memory while they read
+// lengths[b]; no TMA / wgmma (the serve's 32-position chunks do not fill
+// their 64-row tiles).
 #include <math.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -124,7 +138,8 @@ struct Args {
 };
 
 // Shared memory of one block: K and V rows of the chunk (each padded by
-// 16 bytes), the group's pre-scaled q rows and the chunk's scores.
+// 16 bytes), the group's pre-scaled q rows, the chunk's scores and
+// (paged) the chunk's page ids.
 template <typename Tr, int D>
 struct Smem {
   static constexpr int kRow = D * static_cast<int>(sizeof(typename Tr::raw))
@@ -132,9 +147,12 @@ struct Smem {
   static constexpr int kVec = 16 / static_cast<int>(sizeof(typename Tr::raw));
   static constexpr int kPieces = D / kVec;   // 16-byte pieces per row
   static __host__ __device__ int score_stride(int chunk) { return chunk + 4; }
-  static __host__ __device__ int bytes(int chunk) {
+  static __host__ __device__ int page_ids(int chunk) {
     return 2 * chunk * kRow + kMaxGroup * D * 4 +
            kMaxGroup * score_stride(chunk) * 4;
+  }
+  static __host__ __device__ int bytes(int chunk) {
+    return page_ids(chunk) + (chunk + 1) * 4;
   }
 };
 
@@ -143,34 +161,60 @@ __device__ __forceinline__ int clamp_len(const Args& a, int b) {
   return n < 0 ? 0 : (n > a.cap ? a.cap : n);
 }
 
+// Paged: the page ids of the chunk's rows [start, start + nvalid), all
+// read at once into pages[0..], so no row's copy waits on its own table
+// read.  Ends in a barrier.
+template <bool PAGED>
+__device__ __forceinline__ void load_page_ids(const Args& a, int b,
+                                              int start, int nvalid,
+                                              int* pages) {
+  if (!PAGED) return;
+  const int first = start / a.page;
+  const int n = (start + nvalid - 1) / a.page - first + 1;
+  const int* trow = a.tables + b * a.t_sb + first;
+  for (int i = threadIdx.x; i < n; i += kThreads) pages[i] = trow[i];
+  __syncthreads();
+}
+
 // Copy rows [start, start + nvalid) of head h into dst (chunk rows,
-// padded); rows past nvalid are zero-filled.
+// padded); rows past nvalid are zero-filled.  A thread keeps one 16-byte
+// piece of every kStep-th row, so a paged row's (page, offset) is carried
+// from one of its rows to the next instead of divided out each time.
 template <typename Tr, int D, bool PAGED>
 __device__ __forceinline__ void stage_rows(const Args& a, const void* base,
+                                           const int* pages,
                                            unsigned char* dst, int b, int h,
                                            int start, int nvalid) {
   using raw = typename Tr::raw;
   using S = Smem<Tr, D>;
-  const raw* src0 = static_cast<const raw*>(base);
-  const int* trow = PAGED ? a.tables + b * a.t_sb : nullptr;
-  for (int i = threadIdx.x; i < a.chunk * S::kPieces; i += kThreads) {
-    const int r = i / S::kPieces;
-    const int c = i - r * S::kPieces;
+  constexpr int kStep = kThreads / S::kPieces;
+  static_assert(kThreads % S::kPieces == 0, "a piece per thread per row");
+  const int c = threadIdx.x % S::kPieces;
+  int r = threadIdx.x / S::kPieces;
+  const raw* src0 = static_cast<const raw*>(base) + h * a.kv_sh +
+                    c * S::kVec;
+  int blk = 0, off = 0;   // the row's entry in pages[] and offset in it
+  long long page_base = 0;
+  if (PAGED) {
+    blk = (start + r) / a.page - start / a.page;
+    off = (start + r) % a.page;
+    if (r < nvalid) page_base = pages[blk] * a.kv_s0;
+  }
+  for (; r < a.chunk; r += kStep) {
     const bool ok = r < nvalid;
     const raw* src = src0;
     if (ok) {
-      const int pos = start + r;
-      long long off;
-      if (PAGED) {
-        const int blk = pos / a.page;
-        off = static_cast<long long>(trow[blk]) * a.kv_s0 +
-              static_cast<long long>(pos - blk * a.page) * a.kv_s1;
-      } else {
-        off = b * a.kv_s0 + static_cast<long long>(pos) * a.kv_s1;
-      }
-      src = src0 + off + h * a.kv_sh + c * S::kVec;
+      src += PAGED ? page_base + static_cast<long long>(off) * a.kv_s1
+                   : b * a.kv_s0 + static_cast<long long>(start + r) * a.kv_s1;
     }
     cp_async16(dst + r * S::kRow + c * 16, src, ok);
+    if (PAGED && (off += kStep) >= a.page) {
+      do {
+        off -= a.page;
+        ++blk;
+      } while (off >= a.page);
+      if (r + kStep < nvalid) page_base = pages[blk] * a.kv_s0;
+    }
   }
 }
 
@@ -206,11 +250,13 @@ decode_partial_kernel(const Args a) {
   unsigned char* sv = sk + C * S::kRow;
   float* sq = reinterpret_cast<float*>(sv + C * S::kRow);
   float* ss = sq + kMaxGroup * D;
+  int* pages = reinterpret_cast<int*>(smem + S::page_ids(C));
   const int sst = S::score_stride(C);
 
-  stage_rows<Tr, D, PAGED>(a, a.k, sk, b, h, start, nvalid);
+  load_page_ids<PAGED>(a, b, start, nvalid, pages);
+  stage_rows<Tr, D, PAGED>(a, a.k, pages, sk, b, h, start, nvalid);
   cp_async_commit();
-  stage_rows<Tr, D, PAGED>(a, a.v, sv, b, h, start, nvalid);
+  stage_rows<Tr, D, PAGED>(a, a.v, pages, sv, b, h, start, nvalid);
   cp_async_commit();
 
   // the group's G query rows, pre-scaled, while K and V are in flight
@@ -289,47 +335,300 @@ decode_partial_kernel(const Args a) {
   }
 }
 
-// grid (B, Hq), D threads: out[b, hq, d] from the ceil(len / C) partials
-// of (b, hq / G).
+// ---- bf16 on the tensor cores (mma.sync m16n8k16, f32 accumulate) ----
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x2(unsigned (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+// c (16x8, f32) += a (16x16, bf16, row) * b (16x8, bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Shared memory of the bf16 tensor-core block: K and V rows (padded by
+// 16 bytes), the group's q rows in bf16 (8 rows, zero past G), the
+// chunk's f32 scores and its probabilities in bf16 (8 rows each), and
+// (paged) the chunk's page ids.
+template <int D>
+struct MmaSmem {
+  static constexpr int kRow = 2 * D + 16;
+  static constexpr int kPieces = D / 8;
+  static __host__ __device__ int score_stride(int chunk) { return chunk + 4; }
+  static __host__ __device__ int p_row(int chunk) { return 2 * chunk + 16; }
+  static __host__ __device__ int page_ids(int chunk) {
+    return (2 * chunk + kMaxGroup) * kRow +
+           kMaxGroup * (score_stride(chunk) * 4 + p_row(chunk));
+  }
+  static __host__ __device__ int bytes(int chunk) {
+    return page_ids(chunk) + (chunk + 1) * 4;
+  }
+};
+
+// grid (B, Hkv, n_split), kThreads threads, MmaSmem::bytes(chunk)
+// dynamic shared memory: the partial of one chunk of one group, bf16.
+// Scores S^T[pos, g] = K[pos, :] . Q^T[:, g] (M = positions, N = the
+// group's heads padded to 8, K = D); O^T[d, g] = V^T[d, pos] . P^T[pos, g]
+// (M = D, N = heads, K = positions; V^T through ldmatrix.trans).
+template <int D, bool PAGED>
+__global__ void __launch_bounds__(kThreads)
+decode_partial_mma_kernel(const Args a) {
+  using S = MmaSmem<D>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b = blockIdx.x;
+  const int h = blockIdx.y;
+  const int split = blockIdx.z;
+  const int G = a.group;
+  const int C = a.chunk;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long part =
+      (static_cast<long long>(b) * gridDim.y + h) * a.n_split + split;
+  const int len = clamp_len(a, b);
+  const int start = split * C;
+  if (start >= len) {                  // empty chunk: l = 0
+    if (threadIdx.x < G) {
+      a.m[part * G + threadIdx.x] = kNeg;
+      a.l[part * G + threadIdx.x] = 0.f;
+    }
+    return;
+  }
+  const int nvalid = min(C, len - start);
+  const int ntile = (nvalid + 15) / 16;   // 16-position tiles holding data
+
+  unsigned char* sk = smem;
+  unsigned char* sv = sk + C * S::kRow;
+  unsigned char* sq = sv + C * S::kRow;
+  float* ss = reinterpret_cast<float*>(sq + kMaxGroup * S::kRow);
+  unsigned char* sp = reinterpret_cast<unsigned char*>(
+      ss + kMaxGroup * S::score_stride(C));
+  int* pages = reinterpret_cast<int*>(smem + S::page_ids(C));
+  const int sst = S::score_stride(C);
+  const int spr = S::p_row(C);
+
+  // q rows (zero past G) join K's commit group; V is the second group
+  const uint16_t* qp = static_cast<const uint16_t*>(a.q) + b * a.q_sb +
+                       static_cast<long long>(h) * G * a.q_sh;
+  for (int i = threadIdx.x; i < kMaxGroup * S::kPieces; i += kThreads) {
+    const int g = i / S::kPieces;
+    const int c = i - g * S::kPieces;
+    cp_async16(sq + g * S::kRow + c * 16,
+               g < G ? qp + g * a.q_sh + c * 8 : qp, g < G);
+  }
+  load_page_ids<PAGED>(a, b, start, nvalid, pages);
+  stage_rows<BF16, D, PAGED>(a, a.k, pages, sk, b, h, start, nvalid);
+  cp_async_commit();
+  stage_rows<BF16, D, PAGED>(a, a.v, pages, sv, b, h, start, nvalid);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+
+  // scores: warp w takes the 16-position tiles w, w + kWarps, ...
+  {
+    unsigned qf[D / 16][2];            // B fragments of all of D
+#pragma unroll
+    for (int k0 = 0; k0 < D; k0 += 32) {
+      unsigned r[4];
+      ldmatrix_x4(r, sq + (lane & 7) * S::kRow + (k0 + (lane >> 3) * 8) * 2);
+      qf[k0 / 16][0] = r[0];
+      qf[k0 / 16][1] = r[1];
+      if (k0 + 16 < D) {
+        qf[k0 / 16 + 1][0] = r[2];
+        qf[k0 / 16 + 1][1] = r[3];
+      }
+    }
+    for (int mt = warp; mt < ntile; mt += kWarps) {
+      float c[4] = {0.f, 0.f, 0.f, 0.f};
+      const unsigned char* arow = sk + (mt * 16 + (lane & 15)) * S::kRow +
+                                  (lane >> 4) * 16;
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        unsigned af[4];
+        ldmatrix_x4(af, arow + ks * 32);
+        mma_bf16(c, af, qf[ks][0], qf[ks][1]);
+      }
+      const int p = mt * 16 + (lane >> 2);
+      const int g = (lane & 3) * 2;
+      ss[g * sst + p] = c[0] * a.scale;
+      ss[(g + 1) * sst + p] = c[1] * a.scale;
+      ss[g * sst + p + 8] = c[2] * a.scale;
+      ss[(g + 1) * sst + p + 8] = c[3] * a.scale;
+    }
+  }
+  __syncthreads();
+
+  // the chunk's max and sum per head, one warp per head; P in bf16, zero
+  // past nvalid and for the padding heads, so the P.V tiles add nothing
+  for (int g = warp; g < kMaxGroup; g += kWarps) {
+    const float* row = ss + g * sst;
+    uint16_t* prow = reinterpret_cast<uint16_t*>(sp + g * spr);
+    if (g >= G) {
+      for (int p = lane; p < ntile * 16; p += 32) prow[p] = 0;
+      continue;
+    }
+    float mx = kNeg;
+    for (int p = lane; p < nvalid; p += 32) mx = fmaxf(mx, row[p]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int p = lane; p < ntile * 16; p += 32) {
+      uint16_t e = 0;
+      if (p < nvalid) {
+        e = BF16::store(expf(row[p] - mx));
+        sum += BF16::load(e);          // l of the rounded P that P.V uses
+      }
+      prow[p] = e;
+    }
+    sum = warp_sum(sum);
+    if (lane == 0) {
+      a.m[part * G + g] = mx;
+      a.l[part * G + g] = sum;
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // P.V: warp w takes the 16-wide slices of d w, w + kWarps, ...
+  for (int dt = warp; dt < D / 16; dt += kWarps) {
+    float c[4] = {0.f, 0.f, 0.f, 0.f};
+    const unsigned char* vrow = sv + ((lane & 7) + (lane >> 4) * 8) * S::kRow +
+                                (dt * 16 + ((lane >> 3) & 1) * 8) * 2;
+    const unsigned char* prow = sp + (lane & 7) * spr +
+                                ((lane >> 3) & 1) * 16;
+    for (int k0 = 0; k0 < ntile * 16; k0 += 16) {
+      unsigned pf[2], vf[4];
+      ldmatrix_x2(pf, prow + k0 * 2);
+      ldmatrix_x4_trans(vf, vrow + k0 * S::kRow);
+      mma_bf16(c, vf, pf[0], pf[1]);
+    }
+    const int d = dt * 16 + (lane >> 2);
+    const int g = (lane & 3) * 2;
+    float* dst = a.acc + part * G * D;
+    if (g < G) {
+      dst[g * D + d] = c[0];
+      dst[g * D + d + 8] = c[2];
+    }
+    if (g + 1 < G) {
+      dst[(g + 1) * D + d] = c[1];
+      dst[(g + 1) * D + d + 8] = c[3];
+    }
+  }
+}
+
+// grid (B, Hq), kCombineWays * D threads: out[b, hq, d] from the
+// ceil(len / C) partials of (b, hq / G).  Thread (j, d) walks the
+// partials i = j mod kCombineWays in one pass with its own running max
+// (every load of the pass is independent of the others), and the
+// kCombineWays running (max, l, acc) are merged once in shared memory:
+// out = sum_j e_j acc_j / max(sum_j e_j l_j, 1e-20), e_j = exp(m_j - max m).
+constexpr int kCombineWays = 4;
+
 template <typename Tr, int D>
-__global__ void __launch_bounds__(D) decode_combine_kernel(const Args a) {
+__global__ void __launch_bounds__(kCombineWays * D)
+decode_combine_kernel(const Args a) {
+  __shared__ float sm[kCombineWays], sl[kCombineWays];
+  __shared__ float sacc[kCombineWays][D];
   const int b = blockIdx.x;
   const int hq = blockIdx.y;
-  const int d = threadIdx.x;
+  const int j = threadIdx.x / D;
+  const int d = threadIdx.x - j * D;
   const int G = a.group;
   const int h = hq / G;
-  const int g = hq - h * G;
   const int n = (clamp_len(a, b) + a.chunk - 1) / a.chunk;
+  // (m, l) of partial i of this head at [i * G]; its acc at [i * G * D]
   const long long base =
-      (static_cast<long long>(b) * (a.hq / G) + h) * a.n_split;
-  float mmax = kNeg;
-  for (int i = 0; i < n; ++i) mmax = fmaxf(mmax, a.m[(base + i) * G + g]);
+      (static_cast<long long>(b) * (a.hq / G) + h) * a.n_split * G + hq -
+      h * G;
+  const float* m = a.m + base;
+  const float* l = a.l + base;
+  const float* acc = a.acc + base * D + d;
+  float mx = kNeg, ls = 0.f, as = 0.f;
+#pragma unroll 4
+  for (int i = j; i < n; i += kCombineWays) {
+    const float mi = m[i * G];
+    const float li = l[i * G];
+    const float ai = acc[static_cast<long long>(i) * G * D];
+    const float mn = fmaxf(mx, mi);
+    const float c = expf(mx - mn);
+    const float e = expf(mi - mn);
+    ls = fmaf(ls, c, li * e);
+    as = fmaf(as, c, ai * e);
+    mx = mn;
+  }
+  sacc[j][d] = as;
+  if (d == 0) {
+    sm[j] = mx;
+    sl[j] = ls;
+  }
+  __syncthreads();
+  if (j) return;
+  float mmax = sm[0];
+#pragma unroll
+  for (int w = 1; w < kCombineWays; ++w) mmax = fmaxf(mmax, sm[w]);
   float lsum = 0.f, asum = 0.f;
-  for (int i = 0; i < n; ++i) {
-    const long long j = (base + i) * G + g;
-    const float e = expf(a.m[j] - mmax);
-    lsum = fmaf(a.l[j], e, lsum);
-    asum = fmaf(a.acc[j * D + d], e, asum);
+#pragma unroll
+  for (int w = 0; w < kCombineWays; ++w) {
+    const float e = expf(sm[w] - mmax);
+    lsum = fmaf(sl[w], e, lsum);
+    asum = fmaf(sacc[w][d], e, asum);
   }
   static_cast<typename Tr::raw*>(a.out)[(static_cast<long long>(b) * a.hq +
                                          hq) * D + d] =
       Tr::store(asum / fmaxf(lsum, 1e-20f));
 }
 
+// bf16 runs the tensor-core partial kernel, f32 the CUDA-core one
+template <typename Tr, int D, bool PAGED>
+constexpr auto partial_kernel() {
+  if constexpr (std::is_same_v<Tr, BF16>)
+    return decode_partial_mma_kernel<D, PAGED>;
+  else
+    return decode_partial_kernel<Tr, D, PAGED>;
+}
+
+template <typename Tr, int D>
+int partial_smem(int chunk) {
+  if constexpr (std::is_same_v<Tr, BF16>) return MmaSmem<D>::bytes(chunk);
+  else return Smem<Tr, D>::bytes(chunk);
+}
+
 template <typename Tr, int D, bool PAGED>
 int launch(const Args& a, int batch, int hkv, cudaStream_t stream) {
-  const int smem = Smem<Tr, D>::bytes(a.chunk);
+  const int smem = partial_smem<Tr, D>(a.chunk);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = partial_kernel<Tr, D, PAGED>();
   // above 48 KB a block's dynamic shared memory needs the opt-in, once
   static const cudaError_t opt_in = cudaFuncSetAttribute(
-      decode_partial_kernel<Tr, D, PAGED>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
-  decode_partial_kernel<Tr, D, PAGED>
-      <<<dim3(batch, hkv, a.n_split), kThreads, smem, stream>>>(a);
+  kernel<<<dim3(batch, hkv, a.n_split), kThreads, smem, stream>>>(a);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  decode_combine_kernel<Tr, D><<<dim3(batch, a.hq), D, 0, stream>>>(a);
+  decode_combine_kernel<Tr, D>
+      <<<dim3(batch, a.hq), kCombineWays * D, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
