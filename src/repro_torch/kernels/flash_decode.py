@@ -14,7 +14,6 @@ counts the call in :data:`LAUNCHES`.
 from __future__ import annotations
 
 import ctypes
-import math
 from typing import Dict, Optional, Tuple
 
 import torch

@@ -53,13 +53,17 @@ def paged_flash_decode_ref(q: torch.Tensor, k_pool: torch.Tensor,
                            lengths: torch.Tensor) -> torch.Tensor:
     """q: (B, Hq, D); pools: (P+1, page, Hkv, D); tables: (B, nblk) page
     ids (unmapped -> scratch page P); lengths: (B,) -> (B, Hq, D)."""
-    b = q.shape[0]
-    nblk = tables.shape[1]
-    ps = k_pool.shape[1]
+    return flash_decode_ref(q, *_gather_pages(k_pool, v_pool, tables),
+                            lengths)
+
+
+def _gather_pages(k_pool: torch.Tensor, v_pool: torch.Tensor,
+                  tables: torch.Tensor):
+    """Each request's pages in table order: (B, nblk * page, Hkv, D)."""
+    b, nblk = tables.shape
     idx = tables.long()
-    k = k_pool[idx].reshape(b, nblk * ps, *k_pool.shape[2:])
-    v = v_pool[idx].reshape(b, nblk * ps, *v_pool.shape[2:])
-    return flash_decode_ref(q, k, v, lengths)
+    return tuple(p[idx].reshape(b, nblk * p.shape[1], *p.shape[2:])
+                 for p in (k_pool, v_pool))
 
 
 def decode_partials_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -127,11 +131,8 @@ def paged_flash_decode_split_ref(q: torch.Tensor, k_pool: torch.Tensor,
                                  chunk: int) -> torch.Tensor:
     """The same two passes through a block table (positions, and so the
     chunks, are those of the gathered ``nblk * page`` context)."""
-    b, nblk = tables.shape
-    idx = tables.long()
-    k = k_pool[idx].reshape(b, nblk * k_pool.shape[1], *k_pool.shape[2:])
-    v = v_pool[idx].reshape(b, nblk * v_pool.shape[1], *v_pool.shape[2:])
-    return flash_decode_split_ref(q, k, v, lengths, chunk)
+    return flash_decode_split_ref(
+        q, *_gather_pages(k_pool, v_pool, tables), lengths, chunk)
 
 
 def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
