@@ -4,7 +4,9 @@
     python3 chip_smoke.py            # the smoke run below
     python3 chip_smoke.py --sweep    # build, then time both flash-decode
                                      # kernels at both phase-2 shapes for
-                                     # every chunk C in fd.CHUNKS
+                                     # every chunk C in fd.CHUNKS, and the
+                                     # decode GEMM at its three bf16 shapes
+                                     # for each K split of GEMM_SPLITS
 
 Phases, one line each; any failure raises and exits non-zero:
 
@@ -28,9 +30,14 @@ Phases, one line each; any failure raises and exits non-zero:
                state carry wkv6(T1+T2) == wkv6(T2) . wkv6(T1) and the
                new state written over the old one in place;
              * the decode GEMM at rwkv6-7b's decode products, M=4, bf16:
-               (N, K) = (4096, 4096), (14336, 4096) IS, (4096, 14336) OS,
-               and a ragged float32 (13, 257, 129) (tests/test_kernels.py
-               tolerances).
+               (N, K) = (14336, 4096) IS, (4096, 14336) and (4096, 4096)
+               OS, then (16, 14336, 4096) IS, a ragged bf16 case of each
+               dataflow (N % 8 != 0, K % 16 != 0) and a ragged float32
+               (13, 257, 129) (tests/test_kernels.py tolerances), each
+               also against the plain rendering of its K split and
+               checked bitwise repeatable over two calls and two CUDA
+               graph replays; each case's split plan (bk, n_split,
+               blocks) and achieved TB/s.
 3. parity  — full-width yi-6b and rwkv6-7b at 2 layers in float32 (TF32
              off): each engine with its kernels against the same engine
              on the plain path, teacher-forced on the plain run's tokens;
@@ -80,6 +87,9 @@ WKV_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
 GEMM_TOL = {torch.float32: dict(rtol=5e-3, atol=1e-3),
             torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 WKV_H, WKV_HS = 64, 64          # rwkv6-7b: d 4096 / head size 64
+# rwkv6-7b's decode products at a batch of 4: (M, N, K), IS then OS twice
+GEMM_SHAPES = [(4, 14336, 4096), (4, 4096, 14336), (4, 4096, 4096)]
+GEMM_SPLITS = (1, 2, 3, 4, 5, 6, 8, 12, 16, 17, 18, 24, 32, 48, 64)
 
 
 def card() -> str:
@@ -299,9 +309,10 @@ def phase_kernels(fd, ref):
     return rows
 
 
-def _device_ms(fn, iters: int = 10) -> dict:
-    """Mean device time of each kernel ``fn`` launches, by name, from
-    ``torch.profiler`` over ``iters`` calls, the L2 flushed before each."""
+def _device_ms(fn, iters: int = 10, pattern: str = r"decode_\w+") -> dict:
+    """Mean device time of each kernel ``fn`` launches whose name matches
+    ``pattern``, by that match, from ``torch.profiler`` over ``iters``
+    calls, the L2 flushed before each."""
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
     acts = [torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -311,7 +322,7 @@ def _device_ms(fn, iters: int = 10) -> dict:
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
-        name = re.search(r"decode_\w+", e.key)
+        name = re.search(pattern, e.key)
         if name:
             out[name.group(0)] = e.self_device_time_total / e.count / 1e3
     return out
@@ -339,6 +350,32 @@ def phase_sweep(fd, ref, smi):
                for label, (lens, cap) in shapes.items()}
     print("[sweep] " + json.dumps({"planned_C": planned, "card": smi,
                                    "cases": out}))
+
+
+def phase_sweep_gemm(sg, ref, smi):
+    """Time the decode GEMM at each split count of GEMM_SPLITS (and the
+    plan's) at its three bf16 shapes, with the kernel's device time from
+    the profiler; the OS chunk may cover all of K here."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    bf16 = torch.bfloat16
+    out = []
+    for m, n, k in GEMM_SHAPES:
+        planned = sg.split_k_plan(m, n, k, bf16)
+        plans = {}
+        mp = sg.choose_mapping(m, n, k, bf16)
+        if mp.dataflow == "OS":
+            mp = sg.GemmMapping("OS", mp.block_m, sg.BLOCK_N, -(-k // 16) * 16)
+        for split in sorted({*GEMM_SPLITS, planned[1]}):
+            plans.setdefault(sg.split_k_plan(m, n, k, bf16, split, mp), split)
+        for plan, split in plans.items():
+            row = _gemm_case(sg, ref, gen, m, n, k, bf16, split=split,
+                             profile=True)
+            out.append({"split": split, "planned": plan == planned,
+                        **{key: row[key] for key in (
+                            "shape", "dataflow", "plan", "ms", "device_ms",
+                            "bound_ms", "library_ms", "achieved_tb_per_s",
+                            "max_abs_err")}})
+    print("[sweep] " + json.dumps({"gemm": out, "card": smi}))
 
 
 def _wkv_inputs(gen, b, t, dtype):
@@ -378,22 +415,74 @@ def _wkv_case(wk, ref, gen, b, t, dtype):
             "serial_steps": t}
 
 
-def _gemm_case(sg, ref, gen, m, n, k, dtype):
+def _repeatable(name, fn):
+    """Two calls and two replays of a CUDA graph holding a third give the
+    same bits (the split-K tile counters are back at 0 after each call,
+    and the partials are summed in split order)."""
+    first = fn()
+    same = torch.equal(fn(), first)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        same = same and torch.equal(out, first)
+    del graph
+    if not same:
+        raise AssertionError(f"{name}: outputs differ between calls")
+    return True
+
+
+def _gemm_inputs(gen, m, n, k, dtype, b_cols=None):
+    """a (M, K) and b (K, N); with ``b_cols`` b is the first N columns of
+    a (K, b_cols) buffer (rows 16-byte aligned, N ragged)."""
     a = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
-    b = torch.randn(k, n, generator=gen, device="cuda").to(dtype)
+    b = torch.randn(k, b_cols or n, generator=gen, device="cuda").to(dtype)
+    return a, b[:, :n]
+
+
+def _gemm_case(sg, ref, gen, m, n, k, dtype, b_cols=None, split=None,
+               profile=False):
+    """The decode GEMM against its plain version (and against the plain
+    rendering of its split), bitwise repeatable; its row: the split plan,
+    times, bound and achieved TB/s, and with ``profile`` the kernel's
+    device time from the profiler."""
+    a, b = _gemm_inputs(gen, m, n, k, dtype, b_cols)
     mp = sg.choose_mapping(m, n, k, dtype)
-    err = _check(f"decode_gemm {m}x{n}x{k}", sg.snake_decode_gemm(a, b),
-                 ref.decode_gemm_ref(a, b), GEMM_TOL[dtype])
+    if split is not None and mp.dataflow == "OS":
+        mp = sg.GemmMapping("OS", mp.block_m, sg.BLOCK_N, -(-k // 16) * 16)
+    bk, n_split = sg.split_k_plan(m, n, k, dtype, split, mp)
+    name = f"decode_gemm {m}x{n}x{k} {dtype} split {split}"
+
+    def kern():
+        return sg.snake_decode_gemm(a, b, mp, split)
+
+    got = kern()
+    err = max(_check(name, got, ref.decode_gemm_ref(a, b), GEMM_TOL[dtype]),
+              _check(name + " (split plain)", got,
+                     ref.decode_gemm_split_ref(a, b, bk), GEMM_TOL[dtype]))
+    _repeatable(name, kern)
+    tiles = -(-n // sg.BLOCK_N) * -(-m // sg.row_tile(dtype))
+    row = {"shape": {"M": m, "N": n, "K": k,
+                     "b_row_stride": b.stride(0)},
+           "dtype": str(dtype).replace("torch.", ""),
+           "dataflow": mp.dataflow, "max_abs_err": err,
+           "bitwise_repeatable": True,
+           "plan": {"bk": bk, "n_split": n_split,
+                    "blocks": tiles * n_split}}
+    if profile:
+        row["device_ms"] = _device_ms(kern, pattern=r"snake_gemm_kernel")
     esize = a.element_size()
+    nbytes = (m * k + k * n + m * n) * esize
     rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
-    bound, by = _bound((m * k + k * n + m * n) * esize, 2 * m * n * k, rate)
-    return {"shape": {"M": m, "N": n, "K": k},
-            "dtype": str(dtype).replace("torch.", ""),
-            "dataflow": mp.dataflow, "max_abs_err": err,
-            "ms": time_ms(lambda: sg.snake_decode_gemm(a, b)),
+    bound, by = _bound(nbytes, 2 * m * n * k, rate)
+    ms = time_ms(kern)
+    return {**row, "ms": ms,
             "plain_ms": time_ms(lambda: ref.decode_gemm_ref(a, b)),
             "bound_ms": bound, "bound_by": by,
-            "library_ms": time_ms(lambda: torch.matmul(a, b))}
+            "library_ms": time_ms(lambda: torch.matmul(a, b)),
+            "achieved_tb_per_s": nbytes / ms / 1e9}
 
 
 def _row(name, source, replaces, head, cases):
@@ -426,8 +515,13 @@ def phase_kernels_rwkv(wk, sg, ref):
                 _check("wkv6 carry state", s2, s_full, WKV_TOL[f32]),
                 _check("wkv6 in-place y", y_io, y, WKV_TOL[f32]),
                 _check("wkv6 in-place state", s_io, s_full, WKV_TOL[f32]))
-    gemm = [_gemm_case(sg, ref, gen, 4, n, kk, bf16)
-            for n, kk in ((14336, 4096), (4096, 14336), (4096, 4096))]
+    gemm = [_gemm_case(sg, ref, gen, m, n, kk, bf16)
+            for m, n, kk in GEMM_SHAPES + [(16, 14336, 4096)]]
+    # ragged bf16 (N % 8 != 0, K % 16 != 0): IS on a 16-byte aligned view
+    # (cp.async zero-fills past N), OS contiguous (rows off 16 bytes, so
+    # element loads)
+    gemm.append(_gemm_case(sg, ref, gen, 5, 1001, 333, bf16, b_cols=1024))
+    gemm.append(_gemm_case(sg, ref, gen, 7, 1001, 3003, bf16))
     gemm.append(_gemm_case(sg, ref, gen, 13, 257, 129, f32))
     flows = {c["dataflow"] for c in gemm}
     if flows != {"IS", "OS"}:
@@ -645,6 +739,7 @@ def main() -> None:
     phase_build(build, smi)
     if sys.argv[1:] == ["--sweep"]:
         phase_sweep(fd, ref, smi)
+        phase_sweep_gemm(sg, ref, smi)
         return
     if sys.argv[1:]:
         sys.exit(f"chip_smoke: unknown arguments {sys.argv[1:]} (only "

@@ -23,6 +23,18 @@ def decode_gemm_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.float() @ b.float()).to(a.dtype)
 
 
+def decode_gemm_split_ref(a: torch.Tensor, b: torch.Tensor,
+                          bk: int) -> torch.Tensor:
+    """The split-K kernel's function: the float32 product of each chunk
+    of ``bk`` rows of K, summed in split order, in a's dtype (the same
+    function as :func:`decode_gemm_ref`)."""
+    af, bf = a.float(), b.float()
+    out = af[:, :0] @ bf[:0]
+    for k0 in range(0, a.shape[1], bk):
+        out = out + af[:, k0:k0 + bk] @ bf[k0:k0 + bk]
+    return out.to(a.dtype)
+
+
 def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor) -> torch.Tensor:
     """q: (B, Hq, D); k/v: (B, S, Hkv, D); lengths: (B,) -> (B, Hq, D).

@@ -476,6 +476,106 @@ def test_mapping_blocks_fit_the_block_budget():
                 else 0 < mp.block_k <= sg.MAX_BLOCK_K
 
 
+GEMM_PLAN_SHAPES = GEMM_SHAPES + [(4, 4096, 4096), (4, 14336, 4096),
+                                  (4, 4096, 14336), (16, 14336, 4096),
+                                  (8, 28672, 8192), (5, 1001, 333)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n,k", GEMM_PLAN_SHAPES)
+def test_split_k_plan_covers_k(m, n, k, dtype):
+    """The chunks cover K exactly: every one but the last is bk rows, a
+    multiple of 16, and the last is not empty; the same for every split
+    count the mapping allows."""
+    cap = sg.choose_mapping(m, n, k, dtype).block_k
+    most = -(-k // sg.K_STEP)
+    for split in sorted({None, 1, 2, 3, 7, most // 2 or 1, most}, key=str):
+        if split is not None and -(-k // split) > -(-cap // 16) * 16:
+            continue                        # beyond the OS chunk cap
+        bk, n_split = sg.split_k_plan(m, n, k, dtype, split)
+        assert bk % 16 == 0 and bk > 0
+        assert (n_split - 1) * bk < k <= n_split * bk
+        if split is not None:
+            assert n_split <= split
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n,k", GEMM_PLAN_SHAPES)
+def test_split_k_plan_fills_the_card(m, n, k, dtype):
+    """MIN_BLOCKS blocks wherever K and one wave of resident blocks
+    allow, never more than one wave unless the chunk cap forces it, and
+    the planned tile fits one block's shared memory."""
+    mp = sg.choose_mapping(m, n, k, dtype)
+    bk, n_split = sg.split_k_plan(m, n, k, dtype)
+    tiles = -(-n // sg.BLOCK_N) * -(-m // sg.row_tile(dtype))
+    cap = -(-mp.block_k // 16) * 16
+    least = -(-k // cap)
+    assert tiles * n_split <= sg.resident_blocks(mp, dtype, bk) \
+        or n_split == least
+    if tiles * n_split < sg.MIN_BLOCKS and bk > sg.K_STEP:
+        # the next plan with more splits would not fit one wave
+        split = n_split + 1
+        while sg.split_k_plan(m, n, k, dtype, split)[1] == n_split:
+            split += 1
+        bk2, n2 = sg.split_k_plan(m, n, k, dtype, split)
+        assert tiles * n2 > sg.resident_blocks(mp, dtype, bk2)
+    assert bk <= cap
+    assert mp.smem_bytes(dtype, bk) <= mp.smem_bytes(dtype) \
+        <= sg.SMEM_BUDGET
+
+
+def test_split_k_plan_at_the_decode_shapes():
+    """rwkv6-7b's decode products at a batch of 4, bf16: 128-column
+    tiles, K dealt evenly over the fewest splits giving 2 x 132 blocks,
+    no more than one wave holds."""
+    bf16 = torch.bfloat16
+    assert sg.split_k_plan(4, 4096, 14336, bf16) == (1792, 8)   # 256
+    assert sg.split_k_plan(4, 4096, 4096, bf16) == (512, 8)     # 256
+    # 2 splits would be 224 blocks of 136 KB: 1 a SM, 132 at once
+    assert sg.split_k_plan(4, 14336, 4096, bf16) == (4096, 1)   # 112
+    whole = sg.GemmMapping("OS", 16, sg.BLOCK_N, 14336)
+    assert sg.split_k_plan(4, 4096, 14336, bf16, 1, whole) == (14336, 1)
+
+
+@pytest.mark.parametrize("split,block_k", [
+    (0, None), (-1, None), (897, None),         # outside [1, ceil(K/16)]
+    (1, None), (6, None),                       # chunks above OS's 2048
+    (2, 4096)])                                 # above a caller's cap
+def test_split_k_plan_refuses_bad_overrides(split, block_k):
+    mp = block_k and sg.GemmMapping("OS", 16, sg.BLOCK_N, block_k)
+    with pytest.raises(ValueError, match="split"):
+        sg.split_k_plan(4, 4096, 14336, torch.bfloat16, split, mp)
+
+
+@pytest.mark.parametrize("dtype", GEMM_DTYPES)
+@pytest.mark.parametrize("m,n,k", GEMM_SHAPES)
+def test_decode_gemm_split_ref_matches_plain_and_pallas(m, n, k, dtype):
+    """The plain rendering of the split (chunk partials summed in split
+    order) is the same function as the unsplit product and the Pallas
+    kernel in interpret mode, at 1, 2, 3 and the planned split count."""
+    (aj, at), (bj, bt) = (_pair(x, dtype) for x in _gemm_inputs(m, n, k))
+    want = np.asarray(snake_decode_gemm(aj, bj, interpret=True), np.float32)
+    plain = ref.decode_gemm_ref(at, bt).float().numpy()
+    planned = sg.split_k_plan(m, n, k, at.dtype)[1]
+    for split in sorted({1, 2, 3, planned}):
+        bk = (-(-k // split) + 15) // 16 * 16
+        got = ref.decode_gemm_split_ref(at, bt, bk)
+        assert got.dtype == at.dtype and got.shape == (m, n)
+        np.testing.assert_allclose(got.float().numpy(), plain,
+                                   **_gemm_tol(dtype))
+        np.testing.assert_allclose(got.float().numpy(), want,
+                                   **_gemm_tol(dtype))
+
+
+def test_gemm_wrapper_reads_nothing_back_to_the_host():
+    """The split comes from shapes alone, so a call never synchronises
+    and stays capturable in a CUDA graph."""
+    import inspect
+    src = inspect.getsource(sg)
+    for call in (".item(", ".cpu(", ".tolist(", ".numpy(", "synchronize"):
+        assert call not in src
+
+
 def test_new_wrappers_take_the_plain_path_on_cpu():
     wk.reset_launches()
     sg.reset_launches()
@@ -529,14 +629,16 @@ def test_wkv6_check_args_accepts_model_layouts():
     wk.check_args(*(t.bfloat16() for t in arrs[:5]), states[0])
 
 
-@pytest.mark.parametrize("case", ["shape", "dtype", "strided", "mapping"])
+@pytest.mark.parametrize("case", ["shape", "dtype", "strided", "mapping",
+                                  "os_block_k"])
 def test_gemm_check_args_refuses(case):
     a, b = (torch.from_numpy(x) for x in _gemm_inputs(4, 64, 32))
     mp = sg.choose_mapping(4, 64, 32, torch.float32)
     args = {"shape": (a, b[:16], mp),
             "dtype": (a.half(), b.half(), mp),
             "strided": (a, b.t().contiguous().t(), mp),
-            "mapping": (a, b, sg.GemmMapping("IS", 8, sg.BLOCK_N, 16))}
+            "mapping": (a, b, sg.GemmMapping("IS", 8, sg.BLOCK_N, 16)),
+            "os_block_k": (a, b, sg.GemmMapping("OS", 8, sg.BLOCK_N, 24))}
     with pytest.raises(ValueError):
         sg.check_args(*args[case])
 
@@ -598,3 +700,97 @@ def test_cuda_gemm_matches_plain(m, n, k, dtype, dataflow):
     got = sg.snake_decode_gemm(a, b, mp)
     torch.testing.assert_close(got.float(), ref.decode_gemm_ref(a, b).float(),
                                **_gemm_tol(dtype))
+
+
+def _split_cases(m, n, k, dt, dataflow):
+    """The mapping of ``dataflow`` for (m, n, k) with OS allowed to walk
+    all of K, and every distinct plan of the split counts 1 to ceil(K /
+    16); None where IS does not fit one block."""
+    bm = sg.choose_mapping(m, n, k, dt).block_m
+    mp = sg.GemmMapping(dataflow, bm, sg.BLOCK_N,
+                        k if dataflow == "IS" else -(-k // 16) * 16)
+    if mp.smem_bytes(dt) > sg.SMEM_BUDGET:
+        return mp, None
+    plans = {}
+    for split in range(1, -(-k // 16) + 1):
+        plans.setdefault(sg.split_k_plan(m, n, k, dt, split, mp), split)
+    return mp, plans
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dataflow", ["IS", "OS"])
+@pytest.mark.parametrize("dtype", GEMM_DTYPES)
+@pytest.mark.parametrize("m,n,k", GEMM_SHAPES)
+def test_cuda_gemm_every_split_matches_plain(m, n, k, dtype, dataflow):
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    a, b = (torch.from_numpy(x).cuda().to(dt) for x in _gemm_inputs(m, n, k))
+    mp, plans = _split_cases(m, n, k, dt, dataflow)
+    if plans is None:                   # A does not fit one IS block
+        with pytest.raises(ValueError):
+            sg.snake_decode_gemm(a, b, mp)
+        return
+    want = ref.decode_gemm_ref(a, b).float()
+    for (bk, n_split), split in plans.items():
+        got = sg.snake_decode_gemm(a, b, mp, split)
+        torch.testing.assert_close(
+            got.float(), ref.decode_gemm_split_ref(a, b, bk).float(),
+            **_gemm_tol(dtype), msg=lambda e: f"bk {bk}: {e}")
+        torch.testing.assert_close(got.float(), want, **_gemm_tol(dtype))
+
+
+def _ragged_gemm_inputs(case):
+    """bf16 a (M, K) and b (K, N) with N % 8 != 0 and K % 16 != 0:
+    contiguous (rows not 16-byte aligned), a 16-byte aligned view of a
+    wider B, and a B whose first element is 2 bytes past 16."""
+    m, n, k = {"is": (5, 1001, 333), "os": (7, 1001, 3003)}[case[:2]]
+    a, b = (torch.from_numpy(x).cuda().bfloat16()
+            for x in _gemm_inputs(m, n, k))
+    if case.endswith("view"):
+        wide = torch.zeros(k, 1024, dtype=torch.bfloat16, device="cuda")
+        wide[:, :n] = b
+        b = wide[:, :n]
+    elif case.endswith("offset"):
+        flat = torch.zeros(k * n + 1, dtype=torch.bfloat16, device="cuda")
+        flat[1:] = b.reshape(-1)
+        b = flat[1:].view(k, n)
+    return a, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["is", "is_view", "is_offset", "os",
+                                  "os_view", "os_offset"])
+def test_cuda_gemm_ragged_bf16_matches_plain(case):
+    _need_cuda()
+    a, b = _ragged_gemm_inputs(case)
+    (m, k), n = a.shape, b.shape[1]
+    mp = sg.choose_mapping(m, n, k, a.dtype)
+    assert mp.dataflow == case[:2].upper()
+    want = ref.decode_gemm_ref(a, b).float()
+    for split in (None, 1 if mp.dataflow == "IS" else 2, 5):
+        got = sg.snake_decode_gemm(a, b, split=split)
+        torch.testing.assert_close(got.float(), want, **_gemm_tol("bfloat16"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k,split", [
+    (4, 14336, 4096, 3), (4, 4096, 14336, None), (4, 4096, 4096, None),
+    (13, 257, 129, None)])
+def test_cuda_gemm_is_bitwise_repeatable(m, n, k, split):
+    """Two calls and two CUDA-graph replays give the same bits: the tile
+    counters are back at 0 after each call and the partials are summed
+    in split order whichever block arrives last."""
+    _need_cuda()
+    a, b = (torch.from_numpy(x).cuda().bfloat16()
+            for x in _gemm_inputs(m, n, k))
+    assert sg.split_k_plan(m, n, k, a.dtype, split)[1] > 1
+    first = sg.snake_decode_gemm(a, b, split=split)
+    assert torch.equal(sg.snake_decode_gemm(a, b, split=split), first)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = sg.snake_decode_gemm(a, b, split=split)
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, first)
