@@ -9,7 +9,8 @@
 Runs on the CUDA card by default (``--device cpu`` runs the plain
 PyTorch path on the host); the reduced config is the default and
 ``--full`` serves the published widths.  The ported architectures are
-yi-6b (dense) and rwkv6-7b (ssm); the others are refused by name.
+yi-6b (dense) and rwkv6-7b (ssm); the reference's other ids, its extra
+Table 1 models included, are refused with an error naming their slice.
 ``--pallas`` routes decode attention through the flash-decode CUDA
 kernel (the block-table kernel with ``--paged``) and, for rwkv6-7b, the
 recurrence of prefill and decode through the WKV6 CUDA kernel;
@@ -40,15 +41,27 @@ UNPORTED = {
     "placement": (None, "placement and priced page moves"),
     "codesign": (False, "co-design pricing"),
     "fuse_steps": (1, "the fused decode tick"),
+    "placement_regions": (None, "placement and priced page moves"),
+    "codesign_rows": (None, "co-design pricing"),
+    "reconfig_cost": (None, "co-design pricing"),
     "replicas": (1, "router and tiers"),
+    "router_policy": ("round_robin", "router and tiers"),
     "tiers": (None, "router and tiers"),
+    "groups": (1, "router and tiers"),
+    "group_skew": (1.0, "router and tiers"),
     "trace_out": (None, "Perfetto export"),
 }
 
 
+# the reference router's dispatch policies (serving/router.py)
+ROUTER_POLICIES = ("round_robin", "least_loaded", "session_affinity",
+                   "prefix_affinity")
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="repro_torch.launch.serve")
-    ap.add_argument("--arch", choices=registry.ARCH_IDS, default="yi-6b")
+    ap.add_argument("--arch", default="yi-6b",
+                    choices=registry.ARCH_IDS + registry.EXTRA_ARCH_IDS)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain PyTorch path)")
     ap.add_argument("--rate", type=float, default=4.0)
@@ -81,10 +94,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prefix-sharing", action="store_true")
     ap.add_argument("--shared-prefix", type=int, default=0)
     ap.add_argument("--placement", default=None)
+    ap.add_argument("--placement-regions", type=int, default=None)
     ap.add_argument("--codesign", action="store_true")
+    ap.add_argument("--codesign-rows", type=int, default=None,
+                    choices=[8, 16, 32, 64])
+    ap.add_argument("--reconfig-cost", type=float, default=None)
     ap.add_argument("--fuse-steps", type=int, default=1)
     ap.add_argument("--replicas", type=int, default=1)
+    ap.add_argument("--router-policy", default="round_robin",
+                    choices=ROUTER_POLICIES)
     ap.add_argument("--tiers", type=str, default=None)
+    ap.add_argument("--groups", type=int, default=1)
+    ap.add_argument("--group-skew", type=float, default=1.0)
     ap.add_argument("--trace-out", type=str, default=None)
     return ap
 
@@ -96,7 +117,10 @@ def main(argv: Optional[List[str]] = None) -> dict:
         if getattr(args, dest) != unused:
             ap.error(f"--{dest.replace('_', '-')} is not ported yet "
                      f"({feature} arrives with a later slice)")
-    entry = registry.get(args.arch, reduced=not args.full)
+    try:
+        entry = registry.get(args.arch, reduced=not args.full)
+    except NotImplementedError as exc:   # an architecture not ported yet
+        ap.error(str(exc))
     ecfg = EngineConfig(max_batch=args.max_batch,
                         max_seq=args.prompt_len + args.max_new + 2,
                         max_new_tokens=args.max_new,

@@ -584,6 +584,10 @@ class PagedServingEngine(ServingEngine):
         return logits
 
     def _gauges(self) -> dict:
+        # a family with no sequence leaf (rwkv6) holds no pages: the
+        # reference samples free_pages only where pages exist
+        if not self.paged.has_seq:
+            return super()._gauges()
         return {**super()._gauges(),
                 "free_pages": self.paged.alloc.free_pages}
 

@@ -147,22 +147,26 @@ def _reference(name, arch="yi-6b"):
     over, trace_kw = (RWKV_CASES if arch == "rwkv6-7b" else CASES)[name]
     eng = JE.make_engine(JR.get(arch, reduced=True),
                          JE.EngineConfig(**_ecfg(over)))
+    tracer = jtracer.Tracer()
+    eng.set_tracer(tracer)
     rec = _record_logits(eng)
     metrics = eng.run_trace(_trace(jsched.make_trace, trace_kw))
-    return eng, rec, metrics
+    return eng, rec, metrics, tracer
 
 
 def _port(over, trace_kw, params, arch="yi-6b"):
     eng = TE.make_engine(TR.get(arch, reduced=True),
                          TE.EngineConfig(device="cpu", **_ecfg(over)),
                          params=params)
+    tracer = ttracer.Tracer()
+    eng.set_tracer(tracer)
     rec = _record_logits(eng)
     metrics = eng.run_trace(_trace(tsched.make_trace, trace_kw))
-    return eng, rec, metrics
+    return eng, rec, metrics, tracer
 
 
 def _assert_streams(ref, port):
-    (jeng, jrec, _), (teng, trec, _) = ref, port
+    (jeng, jrec, *_), (teng, trec, *_) = ref, port
     jby = {r.rid: r for r in jeng.completed}
     tby = {r.rid: r for r in teng.completed}
     assert jby.keys() == tby.keys()
@@ -346,3 +350,27 @@ def test_rwkv_paged_engine_reports_slots_not_pages(rwkv_weights):
     eng.run_trace(_trace(tsched.make_trace, RWKV_CASES["paged"][1]))
     kinds = {e.kind for e in tracer.events}
     assert "decode_step" in kinds and not kinds & {"grow", "defrag"}
+
+
+def _events(tracer):
+    """Each traced event as (kind, slot, rid, args), with the args that
+    hold a time (``*_s``: wall or modeled seconds) left out."""
+    return [(e.kind, e.slot, e.rid,
+             {k: v for k, v in e.args.items() if not k.endswith("_s")})
+            for e in tracer.events]
+
+
+@pytest.mark.parametrize("arch,name",
+                         [("yi-6b", n) for n in sorted(CASES)]
+                         + [("rwkv6-7b", n) for n in sorted(RWKV_CASES)])
+def test_traced_events_match_reference(arch, name, weights, rwkv_weights):
+    """Both packages trace the same events in the same order: kinds,
+    slots, request ids and every untimed arg (the per-tick gauges of a
+    family without pages included)."""
+    over, trace_kw = (RWKV_CASES if arch == "rwkv6-7b" else CASES)[name]
+    params = rwkv_weights if arch == "rwkv6-7b" else weights
+    want = _events(_reference(name, arch)[3])
+    got = _events(_port(over, trace_kw, params, arch)[3])
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g == w, f"event {i}: port {g} != reference {w}"

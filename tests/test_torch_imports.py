@@ -108,3 +108,61 @@ def test_profile_step_runs_rwkv6_on_cpu(capsys):
     assert out["cache_bytes_per_step"] == 2 * (2 * 2 * 4) * (
         2 * 128 + 4 * 32 * 32)
     assert '"arch": "rwkv6-7b"' in capsys.readouterr().out
+
+
+def _reference_flags():
+    """Every option string of the reference's serve parser, read from its
+    source (its parser is built inside ``main``)."""
+    tree = ast.parse((ROOT / "src" / "repro" / "launch" / "serve.py")
+                     .read_text())
+    return sorted({a.value for node in ast.walk(tree)
+                   if isinstance(node, ast.Call)
+                   and getattr(node.func, "attr", "") == "add_argument"
+                   for a in node.args if isinstance(a, ast.Constant)
+                   and str(a.value).startswith("--")})
+
+
+def _non_default(action):
+    """Arguments that give ``action`` a value other than its default."""
+    if action.nargs == 0:
+        return []
+    if action.choices:
+        return [str(next(c for c in action.choices if c != action.default))]
+    if action.type is int:
+        return ["2"]
+    if action.type is float:
+        return ["0.5"]
+    return ["x.json"]
+
+
+@pytest.mark.parametrize("flag", _reference_flags())
+def test_cli_knows_every_reference_flag(flag, capsys):
+    """Each flag of the reference's CLI is the port's: ported, or refused
+    with an error that names it."""
+    ap = serve.build_parser()
+    action = ap._option_string_actions.get(flag)
+    assert action is not None, f"{flag} is unknown to the port's parser"
+    if action.dest not in serve.UNPORTED:
+        return
+    with pytest.raises(SystemExit) as exc:
+        serve.main(["--device", "cpu", flag, *_non_default(action)])
+    assert exc.value.code == 2
+    assert f"{flag} is not ported yet" in capsys.readouterr().err
+
+
+def test_cli_names_the_slice_of_every_reference_arch(capsys):
+    from repro.models import registry as jregistry
+    ids = jregistry.ARCH_IDS + jregistry.EXTRA_ARCH_IDS
+    choices = serve.build_parser()._option_string_actions["--arch"].choices
+    assert set(ids) <= set(choices)
+    for arch in ids:
+        if arch in ("yi-6b", "rwkv6-7b"):
+            registry.get(arch, reduced=True)
+            continue
+        with pytest.raises(SystemExit) as exc:
+            serve.main(["--device", "cpu", "--arch", arch])
+        assert exc.value.code == 2
+        err = capsys.readouterr().err
+        assert f"{arch!r} is not ported yet" in err
+        if arch in jregistry.EXTRA_ARCH_IDS:
+            assert "queue 1, item 3" in err
