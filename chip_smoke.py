@@ -87,6 +87,10 @@ WKV_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
 GEMM_TOL = {torch.float32: dict(rtol=5e-3, atol=1e-3),
             torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 WKV_H, WKV_HS = 64, 64          # rwkv6-7b: d 4096 / head size 64
+# whole-prompt prefills (B, T): a short prompt, the profiled context and
+# PR 12's timed shape
+WKV_PREFILLS = ((1, 128), (1, 768), (1, 1024))
+WKV_SWEEP_T = (1, 8, 32, 128, 512, 1024)
 # rwkv6-7b's decode products at a batch of 4: (M, N, K), IS then OS twice
 GEMM_SHAPES = [(4, 14336, 4096), (4, 4096, 14336), (4, 4096, 4096)]
 GEMM_SPLITS = (1, 2, 3, 4, 5, 6, 8, 12, 16, 17, 18, 24, 32, 48, 64)
@@ -378,6 +382,41 @@ def phase_sweep_gemm(sg, ref, smi):
     print("[sweep] " + json.dumps({"gemm": out, "card": smi}))
 
 
+def phase_sweep_wkv(wk, ref, smi):
+    """Time WKV6 at rwkv6-7b's prefill width (B=1, H=64, hs=64, float32,
+    as the model passes it) for each T of WKV_SWEEP_T on the serial
+    design and on the chunked one at every C, with each launch's device
+    time from the profiler; print the crossover T (the smallest T from
+    which the best chunked C beats the serial design at every longer T)."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out, best = [], {}
+    for t in WKV_SWEEP_T:
+        args = _wkv_inputs(gen, 1, t, torch.float32)
+        for chunk in (0, *wk.CHUNKS):
+            row = _wkv_case(wk, ref, gen, 1, t, torch.float32, chunk, args,
+                            timed=False)
+
+            def kern():
+                return wk.wkv6(*args, chunk=chunk)
+
+            row.update(t=t, ms=time_ms(kern),
+                       device_ms=_device_ms(kern, pattern=r"wkv6_\w+"),
+                       bound_ms=_wkv_bound(1, t, 4)[0])
+            out.append(row)
+            key = "serial" if chunk == 0 else "chunked"
+            if row["ms"] < best.get((t, key), (float("inf"),))[0]:
+                best[(t, key)] = (row["ms"], chunk)
+    wins = [best[(t, "chunked")][0] < best[(t, "serial")][0]
+            for t in WKV_SWEEP_T]
+    cross = next((t for i, t in enumerate(WKV_SWEEP_T) if all(wins[i:])),
+                 None)
+    print("[sweep] " + json.dumps({
+        "wkv6": out, "crossover_T": cross,
+        "best_C": {t: best[(t, "chunked")][1] for t in WKV_SWEEP_T},
+        "planned": {"C": wk.PLANNED_CHUNK, "min_T": wk.CHUNKED_MIN_T},
+        "card": smi}))
+
+
 def _wkv_inputs(gen, b, t, dtype):
     """rwkv6-7b-shaped WKV6 inputs: r/k/v ~ N(0,1), decay in (0.4, 0.9),
     small bonus and state (the distributions of tests/test_kernels.py)."""
@@ -393,26 +432,46 @@ def _wkv_inputs(gen, b, t, dtype):
     return r, k, v, w, u, s0
 
 
-def _wkv_case(wk, ref, gen, b, t, dtype):
-    args = _wkv_inputs(gen, b, t, dtype)
-    y, s_t = wk.wkv6(*args)
-    yr, sr = ref.wkv6_ref(*args)
-    tol = WKV_TOL[dtype]
-    err = max(_check("wkv6 y", y, yr, tol), _check("wkv6 state", s_t, sr,
-                                                    tol))
-    esize = args[0].element_size()
+def _wkv_bound(b, t, esize):
+    """Inputs read once, y and the state written once; 5 hs^2 flops per
+    (b, h, t): y = r.S + v (r.(u*k)), S <- w*S + k v^T."""
     n = b * t * WKV_H * WKV_HS
     nbytes = 5 * n * esize + WKV_H * WKV_HS * esize \
         + 2 * b * WKV_H * WKV_HS * WKV_HS * 4
-    # 5 hs^2 flops per (b, h, t): y = r.S + v (r.(u*k)), S <- w*S + k v^T
-    bound, by = _bound(nbytes, 5 * n * WKV_HS, F32_FLOP_PER_S)
+    return _bound(nbytes, 5 * n * WKV_HS, F32_FLOP_PER_S)
+
+
+def _wkv_case(wk, ref, gen, b, t, dtype, chunk=None, args=None,
+              timed=True):
+    """WKV6 at (b, t) against the plain recurrence (and a chunked call
+    against the plain rendering of its chunks too); its row: the plan,
+    times and bound, with ``timed``."""
+    args = args or _wkv_inputs(gen, b, t, dtype)
+    plan = wk.chunk_plan(b, t, WKV_H, WKV_HS, dtype, chunk)
+    y, s_t = wk.wkv6(*args, chunk=chunk)
+    tol = WKV_TOL[dtype]
+    name = f"wkv6 {plan.design} C={plan.chunk} B={b} T={t} {dtype}"
+    plains = [ref.wkv6_ref(*args)]
+    if plan.design == "chunked":
+        plains.append(ref.wkv6_chunked_ref(*args, chunk=plan.chunk))
+    err = max(max(_check(name + " y", y, yr, tol),
+                  _check(name + " state", s_t, sr, tol))
+              for yr, sr in plains)
+    if not (torch.isfinite(y).all() and torch.isfinite(s_t).all()):
+        raise AssertionError(f"{name}: non-finite output")
+    plan_row = {"design": plan.design, "C": plan.chunk, "cols": plan.cols,
+                "blocks": plan.blocks, "chunks": plan.chunks}
+    if not timed:
+        return {"max_abs_err": err, "plan": plan_row}
+    bound, by = _wkv_bound(b, t, args[0].element_size())
     return {"shape": {"B": b, "T": t, "H": WKV_H, "hs": WKV_HS},
             "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
-            "ms": time_ms(lambda: wk.wkv6(*args)),
+            "plan": plan_row,
+            "ms": time_ms(lambda: wk.wkv6(*args, chunk=chunk)),
             "plain_ms": time_ms(lambda: ref.wkv6_ref(*args), iters=3),
             "bound_ms": bound, "bound_by": by, "library_ms": None,
-            # the sweep over T is serial: T dependent steps per (b, h)
-            "serial_steps": t}
+            # dependent steps per (b, h): T serial, or one per chunk
+            "serial_steps": plan.chunks or t}
 
 
 def _repeatable(name, fn):
@@ -500,8 +559,16 @@ def phase_kernels_rwkv(wk, sg, ref):
     gen = torch.Generator(device="cuda").manual_seed(1)
     f32, bf16 = torch.float32, torch.bfloat16
     wkv = [_wkv_case(wk, ref, gen, b, t, dt)
-           for b, t in ((4, 1), (1, 1024)) for dt in (f32, bf16)]
-    # state carry: one sweep over T1 + T2 equals T2 after T1
+           for b, t in ((4, 1),) + WKV_PREFILLS for dt in (f32, bf16)]
+    # decays as the model forms them, exp(-exp(x)) for x in [-8, 5]
+    # (exact zeros past x ~ 4.5), on the planned design
+    r, k, v, _, u, s0 = _wkv_inputs(gen, 1, 1024, f32)
+    x = torch.rand(r.shape, generator=gen, device="cuda") * 13.0 - 8.0
+    w = torch.exp(-torch.exp(x))
+    extreme = _wkv_case(wk, ref, gen, 1, 1024, f32,
+                        args=(r, k, v, w, u, s0), timed=False)
+    extreme["zero_decays"] = int((w == 0).sum())
+    # state carry (chunked): one sweep over T1 + T2 equals T2 after T1
     r, k, v, w, u, s0 = _wkv_inputs(gen, 1, 1024, f32)
     y, s_full = wk.wkv6(r, k, v, w, u, s0)
     t1 = 400
@@ -527,8 +594,14 @@ def phase_kernels_rwkv(wk, sg, ref):
     if flows != {"IS", "OS"}:
         raise AssertionError(f"decode GEMM dataflows run: {flows}")
     src = "src/repro_torch/kernels/csrc/"
+    serial = [c for c in wkv if c["plan"]["design"] == "serial"]
+    chunked = [c for c in wkv if c["plan"]["design"] == "chunked"]
     rows = [_row("wkv6", src + "wkv6.cu", "src/repro/kernels/wkv6.py:49",
-                 wkv[0], wkv)]
+                 serial[0], serial),
+            _row("wkv6_chunked", src + "wkv6.cu",
+                 "src/repro/kernels/wkv6.py:49",
+                 next(c for c in chunked if c["shape"]["T"] == 1024
+                      and c["dtype"] == "float32"), chunked)]
     for flow, line in (("IS", 90), ("OS", 97)):
         cases = [c for c in gemm if c["dataflow"] == flow]
         rows.append(_row(f"snake_decode_gemm_{flow.lower()}",
@@ -536,6 +609,7 @@ def phase_kernels_rwkv(wk, sg, ref):
                          f"src/repro/kernels/snake_gemm.py:{line}",
                          cases[0], cases))
     print("[kernels] " + json.dumps({"wkv6_state_carry_max_abs_err": carry,
+                                     "wkv6_extreme_decays": extreme,
                                      "kernels": rows}))
     return rows
 
@@ -633,8 +707,9 @@ def _serve(entry, params, ecfg, lens, make_trace, kmods, kernel, smi):
     """Serve the 4-request trace after a 1-request warm-up; check that
     every request finished its budget with finite logits and that the
     launch counts are the main path's: ``kernel`` once per layer per
-    decode step (the WKV6 kernel also once per layer per prefill), every
-    other kernel never.  Returns ``kernel``'s count."""
+    decode step (the WKV6 kernel also once per layer per prefill, there
+    on the chunked design), every other kernel never.  Returns the
+    counts and the metrics."""
     from repro_torch.serving.engine import EngineConfig, make_engine
     cfg = entry.config
     new = ecfg["max_new_tokens"]
@@ -661,10 +736,13 @@ def _serve(entry, params, ecfg, lens, make_trace, kmods, kernel, smi):
     if not bool(seen["finite"]):
         raise AssertionError("non-finite logits in a decode step")
     runs = seen["steps"] + (len(prefills) if kernel == "wkv6" else 0)
-    want = runs * cfg.num_layers
-    others = {k: v for k, v in counts.items() if k != kernel}
-    if counts[kernel] != want or any(others.values()):
-        raise AssertionError(f"launches {counts}, want {kernel}={want}")
+    want = {kernel: runs * cfg.num_layers}
+    if kernel == "wkv6":
+        # every prompt (>= 256 tokens) takes the chunked design, every
+        # decode step (T = 1) the serial one
+        want["wkv6_chunked"] = len(prefills) * cfg.num_layers
+    if counts != {k: want.get(k, 0) for k in counts}:
+        raise AssertionError(f"launches {counts}, want {want}")
     keep = ("requests", "decoded_tokens", "tokens_per_s", "tbt_mean_s",
             "tbt_p99_s", "ttft_mean_s", "preemptions", "defrag_runs",
             "kv_peak_tokens", "wall_s")
@@ -674,7 +752,7 @@ def _serve(entry, params, ecfg, lens, make_trace, kmods, kernel, smi):
           f"whole-prompt prefills, {seen['steps']} decode steps, launches "
           f"{counts}; "
           f"{json.dumps({k: metrics[k] for k in keep})} on {smi}")
-    return counts[kernel], metrics
+    return counts, metrics
 
 
 def _init_full(registry, arch):
@@ -706,15 +784,17 @@ def phase_serve(registry, make_trace, kmods, smi):
     entry, params = _init_full(registry, "yi-6b")
     for paged, kernel in ((True, "paged_flash_decode"),
                           (False, "flash_decode")):
-        launches[kernel], _ = _serve(entry, params, dict(base, paged=paged),
-                                     lens, make_trace, kmods, kernel, smi)
+        counts, _ = _serve(entry, params, dict(base, paged=paged), lens,
+                           make_trace, kmods, kernel, smi)
+        launches[kernel] = counts[kernel]
     del params
     torch.cuda.empty_cache()
     # rwkv6 prefills whole prompts (prefill_chunk is for attention
     # families) and its state holds no pages
     entry, params = _init_full(registry, "rwkv6-7b")
-    launches["wkv6"], metrics = _serve(entry, params, dict(base, paged=True),
-                                       lens, make_trace, kmods, "wkv6", smi)
+    counts, metrics = _serve(entry, params, dict(base, paged=True), lens,
+                             make_trace, kmods, "wkv6", smi)
+    launches.update(wkv6=counts["wkv6"], wkv6_chunked=counts["wkv6_chunked"])
     if metrics["kv_peak_tokens"] != 0:
         raise AssertionError(f"rwkv6 paged KV peak "
                              f"{metrics['kv_peak_tokens']} != 0")
@@ -740,6 +820,7 @@ def main() -> None:
     if sys.argv[1:] == ["--sweep"]:
         phase_sweep(fd, ref, smi)
         phase_sweep_gemm(sg, ref, smi)
+        phase_sweep_wkv(wk, ref, smi)
         return
     if sys.argv[1:]:
         sys.exit(f"chip_smoke: unknown arguments {sys.argv[1:]} (only "

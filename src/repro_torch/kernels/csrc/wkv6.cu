@@ -8,45 +8,71 @@
 // r/k/v/w: (B, T, H, hs) read in place through their strides (no
 // transposed copies); u: (H, hs); state in and out: (B, H, hs, hs)
 // float32; y: (B, T, H, hs) contiguous in the inputs' dtype (float32 or
-// bfloat16).
+// bfloat16).  The state in and out may be the same buffer (the model
+// advances its state in place).
 //
 // Bound on the H100: each (b, h, t) reads 4 hs inputs and writes hs
-// outputs, and the function needs ~5 hs^2 flops: y_t[j] = sum_i r_t[i]
+// outputs, and the function needs 5 hs^2 flops: y_t[j] = sum_i r_t[i]
 // S[i][j] + v_t[j] * sum_i r_t[i] u[i] k_t[i] is 2 hs^2 (plus O(hs)), the
-// update a multiply and an FMA per entry, 3 hs^2.  So a long sweep is
-// bound by float32 operations (67 TFLOP/s), a T=1 decode step by the
-// state's bytes (read and written once); the sweep over T is serial, a
-// third limit.  The loop below spends 7 flops per entry (it forms
-// u[i] k_t[i] v_t[j] for every (i, j)), 2/7 over the need.  What the
-// design does:
-//   * one block per (b, h); column j of the state is held in registers
-//     for the whole sweep by kSplit threads, each owning hs / kSplit of
-//     its rows, so the state crosses device memory once in and once out
-//     (the Pallas kernel keeps it in VMEM), the serial chain per step is
-//     hs / kSplit FMAs long, and a block has kSplit * hs threads;
-//   * column j needs only r, k, w (shared by all columns) and its own
-//     v_t[j]: the block stages kChunk steps of r, k, w, v in shared memory,
-//     one barrier per chunk, and each thread sweeps them alone, reading
-//     r/k/w/u four at a time as broadcast float4 loads (each thread's row
-//     segment padded by 4 floats, so the kSplit segments a warp reads
-//     fall in distinct banks); y_t[j] is summed over the kSplit threads
-//     with two shuffles;
-//   * the state in and out may be the same buffer: each thread reads its
-//     part of a column before it writes it, and no other thread touches
-//     it.
-// Known limit (speed is later work): the sweep over T stays serial; a
-// chunk-parallel form would turn long prefills into matrix products.
+// update a multiply and an FMA per entry, 3 hs^2.  A T=1 decode step is
+// bound by the state's bytes (read and written once), a long prefill by
+// float32 operations (67 TFLOP/s).  Two designs, picked by the wrapper
+// from shapes alone (kernels/wkv6.py, chunk_plan):
+//
+// Serial (short T, decode): one block per (b, h); column j of the state
+// is held in registers for the whole sweep by kSplit threads, each owning
+// hs / kSplit of its rows, so the state crosses device memory once in and
+// once out.  The block stages kChunk steps of r, k, w, v in shared memory
+// per barrier and computes sum_i r_t[i] u[i] k_t[i] once per step; each
+// thread then spends the function's 5 flops per state entry and step.
+// The sweep over T is a dependent chain, so time grows with T whatever
+// the card's width.
+//
+// Chunked (long T, prefill): T is cut into chunks of C steps.  Within a
+// chunk entering with state S0 (products over empty ranges are 1):
+//     rhat_t = r_t * prod_{tau < t} w_tau
+//     ktil_s = k_s * prod_{s < tau < C} w_tau
+//     A[t][s] = sum_i r_t[i] k_s[i] prod_{s < tau < t} w_tau[i]  (s < t)
+//     A[t][t] = sum_i r_t[i] u[i] k_t[i]
+//     y_t     = rhat_t S0 + sum_{s <= t} A[t][s] v_s
+//     S_C     = diag(prod_tau w_tau) S0 + sum_s ktil_s v_s^T
+// so the work of a chunk is dense products and only the walk across
+// chunks is serial.  One block per (b, h, 16 columns of the state), so
+// B * H * hs / 16 blocks (256 at rwkv6-7b's prefill, B=1, H=64); each
+// owns its columns of the state in registers for the whole sweep (in and
+// out once; state_out == state0 stays safe).  Chunk c+1's r/k/w rows
+// and v columns are staged by 16-byte cp.async into the second of two
+// buffers while chunk c is computed from the first; the column-tile
+// blocks of a head read the same r/k/w rows, which stay in L2.  The
+// decay factors are never divided: every one is a product of w over a
+// contiguous range, at most 1, formed by running products.  So nothing
+// overflows, a decay of exactly 0 gives exact zeros (no log, no NaN), and
+// a product that underflows is one whose true value is below float32's
+// smallest normal.  A is recomputed by each column-tile block of a head
+// (C/2 hs multiply-adds per step); all products are float32 FMAs (no
+// TF32).
 #include "common.cuh"
 
 namespace {
 
+constexpr int kMaxSmem = 232448;   // a block's shared memory on sm_90
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// ---------------------------------------------------------------------------
+// Serial design
+// ---------------------------------------------------------------------------
 constexpr int kChunk = 16;   // time steps staged per barrier
 constexpr int kSplit = 4;    // threads sharing one state column
 constexpr int kPad = 4;      // floats after each thread's row segment
 
 template <typename Tr, int HS>
 __global__ void __launch_bounds__(HS * kSplit)
-wkv6_kernel(const typename Tr::raw* __restrict__ r,
+wkv6_serial(const typename Tr::raw* __restrict__ r,
             const typename Tr::raw* __restrict__ k,
             const typename Tr::raw* __restrict__ v,
             const typename Tr::raw* __restrict__ w,
@@ -61,6 +87,7 @@ wkv6_kernel(const typename Tr::raw* __restrict__ r,
   __shared__ __align__(16) float sw[kChunk][ROW];
   __shared__ __align__(16) float su[ROW];
   __shared__ float sv[kChunk][HS];
+  __shared__ float sruk[kChunk];             // sum_i r_t[i] u[i] k_t[i]
 
   const int bh = blockIdx.x;
   const int b = bh / H;
@@ -68,6 +95,7 @@ wkv6_kernel(const typename Tr::raw* __restrict__ r,
   const int j = threadIdx.x / kSplit;        // state column
   const int p = threadIdx.x % kSplit;        // its row segment
   const int i0 = p * RP;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   const long long state_off =
       static_cast<long long>(bh) * HS * HS + static_cast<long long>(i0) * HS + j;
@@ -97,69 +125,410 @@ wkv6_kernel(const typename Tr::raw* __restrict__ r,
       sv[c][i] = Tr::load(v[off]);
     }
     __syncthreads();
+    for (int c = warp; c < n; c += NT / 32) {
+      float acc = 0.f;
+      for (int i = lane; i < HS; i += 32) {
+        const int pi = i + (i / RP) * kPad;
+        acc = fmaf(sr[c][pi] * su[pi], sk[c][pi], acc);
+      }
+      acc = warp_sum(acc);
+      if (lane == 0) sruk[c] = acc;
+    }
+    __syncthreads();
     for (int c = 0; c < n; ++c) {
       const float vj = sv[c][j];
       float y4[4] = {0.f, 0.f, 0.f, 0.f};
       const float4* r4 = reinterpret_cast<const float4*>(sr[c] + seg);
       const float4* k4 = reinterpret_cast<const float4*>(sk[c] + seg);
       const float4* w4 = reinterpret_cast<const float4*>(sw[c] + seg);
-      const float4* u4 = reinterpret_cast<const float4*>(su + seg);
 #pragma unroll
       for (int q = 0; q < RP / 4; ++q) {
-        const float4 rr = r4[q], kk = k4[q], ww = w4[q], uu = u4[q];
+        const float4 rr = r4[q], kk = k4[q], ww = w4[q];
         const float rq[4] = {rr.x, rr.y, rr.z, rr.w};
         const float kq[4] = {kk.x, kk.y, kk.z, kk.w};
         const float wq[4] = {ww.x, ww.y, ww.z, ww.w};
-        const float uq[4] = {uu.x, uu.y, uu.z, uu.w};
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
+        for (int e = 0; e < 4; ++e) {   // 5 flops: FMA, multiply, FMA
           const int i = 4 * q + e;
-          const float kv = kq[e] * vj;
-          y4[e] = fmaf(rq[e], fmaf(uq[e], kv, S[i]), y4[e]);
-          S[i] = fmaf(wq[e], S[i], kv);
+          y4[e] = fmaf(rq[e], S[i], y4[e]);
+          S[i] = fmaf(wq[e], S[i], kq[e] * vj);
         }
       }
       float yj = (y4[0] + y4[1]) + (y4[2] + y4[3]);
 #pragma unroll
       for (int o = 1; o < kSplit; o <<= 1)
         yj += __shfl_xor_sync(0xffffffffu, yj, o);
-      if (p == 0) y[y_off + (t0 + c) * y_st] = Tr::store(yj);
+      if (p == 0) y[y_off + (t0 + c) * y_st] = Tr::store(fmaf(vj, sruk[c], yj));
     }
   }
 #pragma unroll
   for (int e = 0; e < RP; ++e) sT[state_off + e * HS] = S[e];
 }
 
-template <typename Tr>
-int launch(const void* r, const void* k, const void* v, const void* w,
-           const void* u, const float* s0, void* y, float* sT, int B, int T,
-           int H, int hs, long long sb, long long st, long long sh,
-           cudaStream_t stream) {
+// ---------------------------------------------------------------------------
+// Chunked design
+// ---------------------------------------------------------------------------
+constexpr int kThreads = 128;
+constexpr int kCols = 16;                      // state columns per block
+constexpr int kColPairs = kCols / 2;           // a thread owns 2 columns
+constexpr int kRowGroups = kThreads / kColPairs;
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// 4 (2) consecutive stored elements as float4 (float2); p aligned to them
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const uint16_t* p) {
+  const uint2 x = *reinterpret_cast<const uint2*>(p);
+  return make_float4(BF16::load(x.x & 0xffffu), BF16::load(x.x >> 16),
+                     BF16::load(x.y & 0xffffu), BF16::load(x.y >> 16));
+}
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const uint16_t* p) {
+  const unsigned x = *reinterpret_cast<const unsigned*>(p);
+  return make_float2(BF16::load(x & 0xffffu), BF16::load(x >> 16));
+}
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
+}
+
+// Dynamic shared memory of one block: two stages of raw inputs, then
+// float32 rhat, ktil (rows padded by 4 floats), A (rows padded by 1), the
+// state tile S0, the chunk's total decay and u.  kernels/wkv6.py's
+// smem_bytes mirrors this.
+template <typename Tr, int HS, int C>
+struct Layout {
   using raw = typename Tr::raw;
-  const auto* rp = static_cast<const raw*>(r);
-  const auto* kp = static_cast<const raw*>(k);
-  const auto* vp = static_cast<const raw*>(v);
-  const auto* wp = static_cast<const raw*>(w);
-  const auto* up = static_cast<const raw*>(u);
-  auto* yp = static_cast<raw*>(y);
-  const dim3 grid(B * H);
-  switch (hs) {
-    case 32:
-      wkv6_kernel<Tr, 32><<<grid, 32 * kSplit, 0, stream>>>(
-          rp, kp, vp, wp, up, s0, yp, sT, H, T, sb, st, sh);
-      break;
-    case 64:
-      wkv6_kernel<Tr, 64><<<grid, 64 * kSplit, 0, stream>>>(
-          rp, kp, vp, wp, up, s0, yp, sT, H, T, sb, st, sh);
-      break;
-    case 128:
-      wkv6_kernel<Tr, 128><<<grid, 128 * kSplit, 0, stream>>>(
-          rp, kp, vp, wp, up, s0, yp, sT, H, T, sb, st, sh);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  static constexpr int kIn = C * HS;                 // one of r/k/w
+  static constexpr int kStage = 3 * kIn + C * kCols;  // + v's columns
+  static constexpr int kRawBytes = 2 * kStage * static_cast<int>(sizeof(raw));
+  static constexpr int kRow = HS + 4;
+  static constexpr int kRhat = 0;
+  static constexpr int kKtil = C * kRow;
+  static constexpr int kA = 2 * C * kRow;
+  static constexpr int kS = kA + C * (C + 1);
+  static constexpr int kW = kS + HS * kCols;
+  static constexpr int kU = kW + HS;
+  static constexpr int kBytes = kRawBytes + (kU + HS) * 4;
+};
+
+struct ChunkArgs {
+  const void *r, *k, *v, *w, *u;
+  const float* s0;
+  void* y;
+  float* sT;
+  int H, T;
+  long long sb, st, sh;
+  int vec;   // 16-byte aligned rows: cp.async; else element copies
+};
+
+// Chunk rows [t0, t0 + n) of r, k, w (whole rows) and of v (the block's
+// columns) into one stage buffer.
+template <typename Tr, int HS, int C>
+__device__ __forceinline__ void stage_chunk(typename Tr::raw* dst,
+                                            const ChunkArgs& a,
+                                            long long in_off, int col0,
+                                            int t0, int n) {
+  using raw = typename Tr::raw;
+  constexpr int kPiece = 16 / static_cast<int>(sizeof(raw));  // elements
+  constexpr int kRowPieces = HS / kPiece;
+  constexpr int kVPieces = kCols / kPiece;
+  const int in_pieces = n * kRowPieces;
+  const int total = 3 * in_pieces + n * kVPieces;
+  for (int idx = threadIdx.x; idx < total; idx += kThreads) {
+    const raw* src;
+    raw* d;
+    if (idx < 3 * in_pieces) {
+      const int which = idx / in_pieces;
+      const int rem = idx - which * in_pieces;
+      const int row = rem / kRowPieces;
+      const int pc = rem - row * kRowPieces;
+      const raw* base = static_cast<const raw*>(
+          which == 0 ? a.r : (which == 1 ? a.k : a.w));
+      src = base + in_off + (t0 + row) * a.st + pc * kPiece;
+      d = dst + which * C * HS + row * HS + pc * kPiece;
+    } else {
+      const int rem = idx - 3 * in_pieces;
+      const int row = rem / kVPieces;
+      const int pc = rem - row * kVPieces;
+      src = static_cast<const raw*>(a.v) + in_off + (t0 + row) * a.st +
+            col0 + pc * kPiece;
+      d = dst + 3 * C * HS + row * kCols + pc * kPiece;
+    }
+    if (a.vec) {
+      cp_async16(d, src);
+    } else {
+#pragma unroll
+      for (int e = 0; e < kPiece; ++e) d[e] = src[e];
+    }
   }
+}
+
+template <typename Tr, int HS, int C>
+__global__ void __launch_bounds__(kThreads) wkv6_chunked(ChunkArgs a) {
+  using raw = typename Tr::raw;
+  using L = Layout<Tr, HS, C>;
+  constexpr int RT = HS / kRowGroups;    // state rows per thread
+  constexpr int TT = C / kRowGroups;     // output steps per thread
+  constexpr int G = kThreads / C;        // threads sharing one row of A
+  constexpr int RG = HS / G;             // i range of each of them
+  constexpr int kRow = L::kRow;
+  static_assert(RT >= 2 && TT >= 1 && RG % 4 == 0, "tile shapes");
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  raw* stages = reinterpret_cast<raw*>(smem);
+  float* f = reinterpret_cast<float*>(smem + L::kRawBytes);
+  float* rhat = f + L::kRhat;
+  float* ktil = f + L::kKtil;
+  float* sA = f + L::kA;
+  float* sS = f + L::kS;
+  float* sW = f + L::kW;
+  float* sU = f + L::kU;
+
+  constexpr int kTiles = HS / kCols;
+  const int bh = blockIdx.x / kTiles;
+  const int col0 = (blockIdx.x - bh * kTiles) * kCols;
+  const int b = bh / a.H;
+  const int h = bh - b * a.H;
+  const int tid = threadIdx.x;
+  const int cp = tid % kColPairs;        // columns col0 + 2 cp, + 1
+  const int rg = tid / kColPairs;        // state rows rg * RT .. + RT
+
+  const long long in_off = b * a.sb + h * a.sh;
+  const int T = a.T;
+  const int n_chunks = (T + C - 1) / C;
+  if (n_chunks > 0)
+    stage_chunk<Tr, HS, C>(stages, a, in_off, col0, 0, T < C ? T : C);
+  cp_async_commit();
+
+  float S[RT][2];
+  const long long s_off = static_cast<long long>(bh) * HS * HS +
+                          static_cast<long long>(rg * RT) * HS + col0 + 2 * cp;
+#pragma unroll
+  for (int e = 0; e < RT; ++e) {
+    const float2 x = load2(a.s0 + s_off + e * HS);
+    S[e][0] = x.x;
+    S[e][1] = x.y;
+  }
+  for (int i = tid; i < HS; i += kThreads)
+    sU[i] = Tr::load(static_cast<const raw*>(a.u)[h * HS + i]);
+
+  for (int c = 0; c < n_chunks; ++c) {
+    const int t0 = c * C;
+    const int n = T - t0 < C ? T - t0 : C;
+    const raw* cur = stages + (c & 1) * L::kStage;
+    const raw* cr = cur;
+    const raw* ck = cur + L::kIn;
+    const raw* cw = cur + 2 * L::kIn;
+    const raw* cv = cur + 3 * L::kIn;
+    cp_async_wait_all();
+    // chunk c is in; chunk c-1 is consumed, so its buffer and the float32
+    // arrays may be overwritten
+    __syncthreads();
+    if (c + 1 < n_chunks) {
+      const int n1 = T - t0 - C < C ? T - t0 - C : C;
+      stage_chunk<Tr, HS, C>(stages + ((c + 1) & 1) * L::kStage, a, in_off,
+                             col0, t0 + C, n1);
+    }
+    cp_async_commit();
+
+    // decay products along the chunk, one thread per (i, direction)
+    for (int idx = tid; idx < 2 * HS; idx += kThreads) {
+      const int i = idx < HS ? idx : idx - HS;
+      float pr = 1.f;
+      if (idx < HS) {
+        for (int t = 0; t < n; ++t) {
+          rhat[t * kRow + i] = Tr::load(cr[t * HS + i]) * pr;
+          pr *= Tr::load(cw[t * HS + i]);
+        }
+        sW[i] = pr;
+      } else {
+        for (int t = n - 1; t >= 0; --t) {
+          ktil[t * kRow + i] = Tr::load(ck[t * HS + i]) * pr;
+          pr *= Tr::load(cw[t * HS + i]);
+        }
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < RT; ++e)
+      *reinterpret_cast<float2*>(sS + (rg * RT + e) * kCols + 2 * cp) =
+          make_float2(S[e][0], S[e][1]);
+
+    // A: thread (t, g) sums rows [g RG, (g+1) RG) of every A[t][s], s <= t,
+    // walking s down from t-1 with q = r_t * prod_{s < tau < t} w_tau
+    {
+      const int t = tid / G;
+      const int g = tid - t * G;
+      float acc[C];
+#pragma unroll
+      for (int s = 0; s < C; ++s) acc[s] = 0.f;
+      float diag = 0.f;
+      if (t < n) {
+        for (int i0 = g * RG; i0 < (g + 1) * RG; i0 += 4) {
+          float4 q = load4(cr + t * HS + i0);
+          diag = dot4(make_float4(q.x * sU[i0], q.y * sU[i0 + 1],
+                                  q.z * sU[i0 + 2], q.w * sU[i0 + 3]),
+                      load4(ck + t * HS + i0), diag);
+#pragma unroll
+          for (int s = C - 1; s >= 0; --s) {
+            if (s < t) {
+              acc[s] = dot4(q, load4(ck + s * HS + i0), acc[s]);
+              const float4 ws = load4(cw + s * HS + i0);
+              q = make_float4(q.x * ws.x, q.y * ws.y, q.z * ws.z, q.w * ws.w);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int o = 1; o < G; o <<= 1) {
+#pragma unroll
+        for (int s = 0; s < C; ++s)
+          acc[s] += __shfl_xor_sync(0xffffffffu, acc[s], o);
+        diag += __shfl_xor_sync(0xffffffffu, diag, o);
+      }
+      if (g == 0 && t < n) {
+#pragma unroll
+        for (int s = 0; s < C; ++s) sA[t * (C + 1) + s] = s == t ? diag : acc[s];
+      }
+    }
+    __syncthreads();
+
+    // y[t][cols] = rhat_t S0 + sum_{s <= t} A[t][s] v_s, for steps
+    // t = rg + 16 q
+    {
+      float yacc[TT][2];
+#pragma unroll
+      for (int q = 0; q < TT; ++q) yacc[q][0] = yacc[q][1] = 0.f;
+      for (int i = 0; i < HS; i += 4) {
+        float2 sv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sv[e] = *reinterpret_cast<const float2*>(sS + (i + e) * kCols + 2 * cp);
+#pragma unroll
+        for (int q = 0; q < TT; ++q) {
+          const float4 rh = *reinterpret_cast<const float4*>(
+              rhat + (rg + q * kRowGroups) * kRow + i);
+          yacc[q][0] = dot4(rh, make_float4(sv[0].x, sv[1].x, sv[2].x, sv[3].x),
+                            yacc[q][0]);
+          yacc[q][1] = dot4(rh, make_float4(sv[0].y, sv[1].y, sv[2].y, sv[3].y),
+                            yacc[q][1]);
+        }
+      }
+      for (int s = 0; s < n; ++s) {
+        const float2 vv = load2(cv + s * kCols + 2 * cp);
+#pragma unroll
+        for (int q = 0; q < TT; ++q) {
+          const float as = sA[(rg + q * kRowGroups) * (C + 1) + s];
+          yacc[q][0] = fmaf(as, vv.x, yacc[q][0]);
+          yacc[q][1] = fmaf(as, vv.y, yacc[q][1]);
+        }
+      }
+      raw* y = static_cast<raw*>(a.y);
+#pragma unroll
+      for (int q = 0; q < TT; ++q) {
+        const int t = rg + q * kRowGroups;
+        if (t < n) {
+          const long long off =
+              ((static_cast<long long>(b) * T + t0 + t) * a.H + h) * HS +
+              col0 + 2 * cp;
+          y[off] = Tr::store(yacc[q][0]);
+          y[off + 1] = Tr::store(yacc[q][1]);
+        }
+      }
+    }
+
+    // S <- diag(prod w) S + sum_s ktil_s v_s^T, in registers
+#pragma unroll
+    for (int e = 0; e < RT; ++e) {
+      const float wt = sW[rg * RT + e];
+      S[e][0] *= wt;
+      S[e][1] *= wt;
+    }
+    for (int s = 0; s < n; ++s) {
+      const float2 vv = load2(cv + s * kCols + 2 * cp);
+      const float* kt = ktil + s * kRow + rg * RT;
+#pragma unroll
+      for (int e = 0; e < RT; ++e) {
+        S[e][0] = fmaf(kt[e], vv.x, S[e][0]);
+        S[e][1] = fmaf(kt[e], vv.y, S[e][1]);
+      }
+    }
+  }
+  cp_async_wait_all();
+#pragma unroll
+  for (int e = 0; e < RT; ++e)
+    *reinterpret_cast<float2*>(a.sT + s_off + e * HS) =
+        make_float2(S[e][0], S[e][1]);
+}
+
+// ---------------------------------------------------------------------------
+// Launch
+// ---------------------------------------------------------------------------
+template <typename Tr, int HS>
+int launch_serial(const ChunkArgs& a, int B, cudaStream_t stream) {
+  using raw = typename Tr::raw;
+  wkv6_serial<Tr, HS><<<B * a.H, HS * kSplit, 0, stream>>>(
+      static_cast<const raw*>(a.r), static_cast<const raw*>(a.k),
+      static_cast<const raw*>(a.v), static_cast<const raw*>(a.w),
+      static_cast<const raw*>(a.u), a.s0, static_cast<raw*>(a.y), a.sT, a.H,
+      a.T, a.sb, a.st, a.sh);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Tr, int HS, int C>
+int launch_chunked(const ChunkArgs& a, int B, cudaStream_t stream) {
+  using L = Layout<Tr, HS, C>;
+  if constexpr (L::kBytes > kMaxSmem) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    const auto kernel = wkv6_chunked<Tr, HS, C>;
+    if constexpr (L::kBytes > 48 * 1024) {
+      // above 48 KB a block's dynamic shared memory needs the opt-in, once
+      static const cudaError_t opt_in = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+      if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+    }
+    kernel<<<B * a.H * (HS / kCols), kThreads, L::kBytes, stream>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+}
+
+template <typename Tr, int HS>
+int launch_hs(const ChunkArgs& a, int B, int chunk, cudaStream_t s) {
+  switch (chunk) {
+    case 0: return launch_serial<Tr, HS>(a, B, s);
+    case 16: return launch_chunked<Tr, HS, 16>(a, B, s);
+    case 32: return launch_chunked<Tr, HS, 32>(a, B, s);
+    case 64: return launch_chunked<Tr, HS, 64>(a, B, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename Tr>
+int launch(const ChunkArgs& a, int B, int hs, int chunk, cudaStream_t s) {
+  switch (hs) {
+    case 32: return launch_hs<Tr, 32>(a, B, chunk, s);
+    case 64: return launch_hs<Tr, 64>(a, B, chunk, s);
+    case 128: return launch_hs<Tr, 128>(a, B, chunk, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
@@ -169,18 +538,21 @@ extern "C" {
 // dtype: 0 float32, 1 bfloat16 (r, k, v, w, u and y); state float32.
 // sb/st/sh: the element strides of r/k/v/w over B, T and H (the last dim
 // is contiguous).  s0 and sT may alias (the model advances its state in
-// place).  Returns the launch's
-// cudaError_t (0 on success).
+// place).  chunk: 0 the serial design, else the chunked design with C =
+// chunk (16, 32 or 64).  Returns the launch's cudaError_t (0 on success).
 int repro_wkv6(const void* r, const void* k, const void* v, const void* w,
                const void* u, const float* s0, void* y, float* sT, int dtype,
                int B, int T, int H, int hs, long long sb, long long st,
-               long long sh, void* stream) {
+               long long sh, int chunk, void* stream) {
   if (B < 1 || H < 1 || T < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long es = dtype == 0 ? 4 : 2;
+  const bool vec = aligned16(r) && aligned16(k) && aligned16(v) &&
+                   aligned16(w) && (sb * es) % 16 == 0 &&
+                   (st * es) % 16 == 0 && (sh * es) % 16 == 0;
+  const ChunkArgs a{r, k, v, w, u, s0, y, sT, H, T, sb, st, sh, vec ? 1 : 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<F32>(r, k, v, w, u, s0, y, sT, B, T, H, hs, sb, st, sh, s);
-  if (dtype == 1)
-    return launch<BF16>(r, k, v, w, u, s0, y, sT, B, T, H, hs, sb, st, sh, s);
+  if (dtype == 0) return launch<F32>(a, B, hs, chunk, s);
+  if (dtype == 1) return launch<BF16>(a, B, hs, chunk, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

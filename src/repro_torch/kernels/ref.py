@@ -172,3 +172,46 @@ def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if state_out is not None:
         s = state_out.copy_(s)
     return y.to(dtype), s
+
+
+def wkv6_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     w: torch.Tensor, u: torch.Tensor, state0: torch.Tensor,
+                     state_out: Optional[torch.Tensor] = None,
+                     chunk: int = 16):
+    """The chunked WKV6 kernel's algorithm in float32 (the same function
+    as :func:`wkv6_ref`; tests only).  Per chunk of ``chunk`` steps
+    entering with state S0, every decay factor a product of w over a
+    contiguous range (never a quotient, so nothing overflows and w = 0
+    gives zeros):
+        rhat_t = r_t * prod_{tau < t} w_tau
+        ktil_s = k_s * prod_{s < tau < n} w_tau
+        A[t][s] = sum_i r_t[i] k_s[i] prod_{s < tau < t} w_tau[i]  (s < t)
+        A[t][t] = sum_i r_t[i] u[i] k_t[i]
+        y = rhat S0 + A v;  S <- diag(prod_tau w_tau) S0 + ktil^T v
+    """
+    dtype = r.dtype
+    r, k, v, w = (x.float().transpose(1, 2) for x in (r, k, v, w))
+    uf = u.float()[None]                               # (1, H, hs)
+    s = state0.float()
+    ys = []
+    for t0 in range(0, r.shape[2], chunk):
+        rc, kc, vc, wc = (x[:, :, t0:t0 + chunk] for x in (r, k, v, w))
+        n = rc.shape[2]
+        ones = torch.ones_like(wc[:, :, :1])
+        pre = torch.cumprod(torch.cat([ones, wc[:, :, :-1]], 2), 2)
+        suf = torch.cumprod(torch.cat([ones, wc[:, :, 1:].flip(2)], 2),
+                            2).flip(2)
+        a = torch.zeros(*rc.shape[:2], n, n, device=rc.device)
+        for t in range(n):
+            # q_s = r_t * prod_{s < tau < t} w_tau for s = t-1 .. 0
+            q = rc[:, :, t, None] * torch.cumprod(
+                torch.cat([ones, wc[:, :, 1:t].flip(2)], 2), 2).flip(2)
+            a[:, :, t, :t] = (q[:, :, :t] * kc[:, :, :t]).sum(-1)
+            a[:, :, t, t] = (rc[:, :, t] * uf * kc[:, :, t]).sum(-1)
+        ys.append((rc * pre) @ s + a @ vc)
+        s = (pre[:, :, -1] * wc[:, :, -1])[..., None] * s \
+            + (kc * suf).transpose(2, 3) @ vc
+    y = (torch.cat(ys, 2) if ys else r).transpose(1, 2)
+    if state_out is not None:
+        s = state_out.copy_(s)
+    return y.to(dtype), s

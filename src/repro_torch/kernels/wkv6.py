@@ -2,31 +2,83 @@
 ``csrc/wkv6.cu`` (port of ``repro.kernels.wkv6``).
 
 :func:`wkv6` takes CUDA tensors only (``kernels.ops`` routes CPU tensors
-to ``kernels.ref.wkv6_ref``).  It validates its inputs, allocates ``y``
-(and the final state unless ``state_out`` is given), launches on the
-current stream, raises if the launch failed, and counts the launch in
-:data:`LAUNCHES`.  ``r/k/v/w`` are read
-in their ``(B, T, H, hs)`` layout through their strides: unlike the TPU
-wrapper, nothing is transposed or copied.
+to ``kernels.ref.wkv6_ref``).  It validates its inputs, picks the design
+with :func:`chunk_plan` (the serial sweep for short T, the chunk-parallel
+form for long T; from shapes alone, so a call never reads the device and
+stays capturable in a CUDA graph), allocates ``y`` (and the final state
+unless ``state_out`` is given), launches on the current stream, raises
+if the launch failed, and counts the launch in :data:`LAUNCHES`.
+``r/k/v/w`` are read in their ``(B, T, H, hs)`` layout through their
+strides: unlike the TPU wrapper, nothing is transposed or copied.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 
-#: kernel launches since the last :func:`reset_launches`
-LAUNCHES: Dict[str, int] = {"wkv6": 0}
+#: kernel launches since the last :func:`reset_launches`: every call
+#: under "wkv6", the chunked design's also under "wkv6_chunked"
+LAUNCHES: Dict[str, int] = {"wkv6": 0, "wkv6_chunked": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_SIZES = (32, 64, 128)
+#: chunk lengths C the chunked design is built for
+CHUNKS = (16, 32, 64)
+#: state columns of one chunked block (``kCols`` in csrc/wkv6.cu)
+COLS = 16
+#: the planned C, and the shortest T that takes the chunked design
+#: (chip_smoke.py --sweep)
+PLANNED_CHUNK = 16
+CHUNKED_MIN_T = 16
+MAX_SMEM = 232448            # a block's shared memory on sm_90
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {"repro_wkv6": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _L, _L, _L, _P]}
+                            _I, _L, _L, _L, _I, _P]}
+
+
+class WkvPlan(NamedTuple):
+    design: str          # "serial" or "chunked"
+    chunk: int           # C (0 for the serial design)
+    cols: int            # state columns a block owns
+    blocks: int          # blocks launched
+    chunks: int          # chunks of C steps covering T (0 if serial)
+
+
+def smem_bytes(hs: int, chunk: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one chunked block (``Layout`` in
+    csrc/wkv6.cu): two stages of raw r/k/w rows and v columns, then
+    float32 rhat, ktil, A, the state tile, the chunk's decay and u."""
+    esize = torch.tensor([], dtype=dtype).element_size()
+    raw = 2 * (3 * chunk * hs + chunk * COLS) * esize
+    floats = 2 * chunk * (hs + 4) + chunk * (chunk + 1) + hs * COLS + 2 * hs
+    return raw + 4 * floats
+
+
+def chunk_plan(b: int, t: int, h: int, hs: int, dtype: torch.dtype,
+               chunk: Optional[int] = None) -> WkvPlan:
+    """The design of a call at these shapes.  ``chunk=None`` plans: the
+    chunked design with C = PLANNED_CHUNK for T >= CHUNKED_MIN_T, else
+    the serial one.  An override (timing sweeps, tests) is 0 for the
+    serial design or a C of CHUNKS whose blocks fit in shared memory;
+    anything else raises ``ValueError``."""
+    if chunk is None:
+        chunk = PLANNED_CHUNK if t >= CHUNKED_MIN_T else 0
+    if chunk == 0:
+        return WkvPlan("serial", 0, hs, b * h, 0)
+    if chunk not in CHUNKS:
+        raise ValueError(f"chunk {chunk}: want 0 (serial) or one of "
+                         f"{CHUNKS}")
+    if smem_bytes(hs, chunk, dtype) > MAX_SMEM:
+        raise ValueError(f"chunk {chunk} at hs {hs} needs "
+                         f"{smem_bytes(hs, chunk, dtype)} bytes of shared "
+                         f"memory a block, over {MAX_SMEM}")
+    return WkvPlan("chunked", chunk, COLS, b * h * hs // COLS,
+                   -(-t // chunk))
 
 
 def reset_launches() -> None:
@@ -66,26 +118,30 @@ def check_args(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          w: torch.Tensor, u: torch.Tensor, state0: torch.Tensor,
-         state_out: Optional[torch.Tensor] = None
-         ) -> Tuple[torch.Tensor, torch.Tensor]:
+         state_out: Optional[torch.Tensor] = None,
+         chunk: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """r/k/v/w: (B, T, H, hs); u: (H, hs); state0: (B, H, hs, hs) float32.
 
     Returns (y: (B, T, H, hs) in r's dtype, state_T: (B, H, hs, hs)
     float32).  ``state_T`` is written into ``state_out`` when it is given
     (it may be ``state0`` itself: the kernel reads each part of the state
-    before it writes it), else into a new tensor.
+    before it writes it), else into a new tensor.  ``chunk`` overrides
+    the plan (see :func:`chunk_plan`).
     """
     check_args(r, k, v, w, u, state0)
     s_t = torch.empty_like(state0) if state_out is None else state_out
     check_args(r, k, v, w, u, s_t)
     build.require_cuda(r, k, v, w, u, state0, s_t)
     b, t, h, hs = r.shape
+    plan = chunk_plan(b, t, h, hs, r.dtype, chunk)
     y = torch.empty((b, t, h, hs), dtype=r.dtype, device=r.device)
     build.launch(build.library("wkv6", _ARGTYPES), "repro_wkv6",
                  r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                  u.data_ptr(), state0.data_ptr(), y.data_ptr(),
                  s_t.data_ptr(), _DTYPE_CODE[r.dtype], b, t, h, hs,
-                 r.stride(0), r.stride(1), r.stride(2),
+                 r.stride(0), r.stride(1), r.stride(2), plan.chunk,
                  torch.cuda.current_stream(r.device).cuda_stream)
     LAUNCHES["wkv6"] += 1
+    if plan.design == "chunked":
+        LAUNCHES["wkv6_chunked"] += 1
     return y, s_t

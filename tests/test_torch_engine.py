@@ -292,7 +292,7 @@ def test_rwkv_engine_matches_reference(name, rwkv_weights):
     # whole-prompt prefill: one recorded prefill logits row per request
     # and no chunk state left behind
     assert port[0]._prefilling is None and not port[0]._chunkable()
-    assert wk.LAUNCHES == {"wkv6": 0}
+    assert wk.LAUNCHES == {"wkv6": 0, "wkv6_chunked": 0}
     assert fd.LAUNCHES == {"flash_decode": 0, "paged_flash_decode": 0}
 
 

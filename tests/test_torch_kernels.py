@@ -404,6 +404,116 @@ def test_wkv6_scan_writes_state_out_on_cpu():
     torch.testing.assert_close(out, want_s, rtol=0, atol=0)
 
 
+def _chunk_lengths(c):
+    return sorted({1, c - 1, c, c + 1, 33})
+
+
+WKV_CHUNK_CASES = [(c, t, hs) for c in (4, 16) for t in _chunk_lengths(c)
+                   for hs in (32, 64, 128)]
+
+
+@pytest.mark.parametrize("chunk,t,hs", WKV_CHUNK_CASES)
+def test_wkv6_chunked_ref_matches_plain_and_pallas(chunk, t, hs):
+    """The chunked algorithm is the recurrence: against ref.wkv6_ref and
+    the Pallas kernel in interpret mode, over whole chunks and a ragged
+    tail."""
+    arrs = _wkv_inputs(1, t, 2, hs, seed=t + hs)
+    y, s_t = ref.wkv6_chunked_ref(*(torch.from_numpy(a) for a in arrs),
+                                  chunk=chunk)
+    yr, sr = ref.wkv6_ref(*(torch.from_numpy(a) for a in arrs))
+    torch.testing.assert_close(y, yr, **WKV_TOL)
+    torch.testing.assert_close(s_t, sr, **WKV_TOL)
+    yw, sw = pallas_wkv6(*(jnp.asarray(a) for a in arrs), interpret=True)
+    np.testing.assert_allclose(y.numpy(), np.asarray(yw), **WKV_TOL)
+    np.testing.assert_allclose(s_t.numpy(), np.asarray(sw), **WKV_TOL)
+
+
+def _extreme_decays(kind, b, t, h, hs, seed=0):
+    """Decays the chunked form must survive: exact zeros, 1e-30, 1e-3 and
+    0.9999 mixed; or exp(-exp(x)) for x in [-8, 5] as the model forms it
+    (x past ~4.5 underflows to exactly 0 in float32)."""
+    rng = np.random.default_rng(seed)
+    if kind == "mixed":
+        vals = np.array([0.0, 1e-30, 1e-3, 0.9999], np.float32)
+        return vals[rng.integers(0, 4, (b, t, h, hs))]
+    x = rng.uniform(-8.0, 5.0, (b, t, h, hs)).astype(np.float32)
+    return np.exp(-np.exp(x))
+
+
+@pytest.mark.parametrize("kind", ["mixed", "model"])
+@pytest.mark.parametrize("chunk", [4, 16])
+@pytest.mark.parametrize("hs", [32, 64])
+def test_wkv6_chunked_ref_survives_extreme_decays(kind, chunk, hs):
+    r, k, v, _, u, s0 = _wkv_inputs(2, 33, 2, hs, seed=5)
+    w = _extreme_decays(kind, 2, 33, 2, hs)
+    assert (w == 0).any()
+    arrs = (r, k, v, w, u, s0)
+    y, s_t = ref.wkv6_chunked_ref(*(torch.from_numpy(a) for a in arrs),
+                                  chunk=chunk)
+    assert torch.isfinite(y).all() and torch.isfinite(s_t).all()
+    yr, sr = ref.wkv6_ref(*(torch.from_numpy(a) for a in arrs))
+    torch.testing.assert_close(y, yr, **WKV_TOL)
+    torch.testing.assert_close(s_t, sr, **WKV_TOL)
+    yw, sw = pallas_wkv6(*(jnp.asarray(a) for a in arrs), interpret=True)
+    np.testing.assert_allclose(y.numpy(), np.asarray(yw), **WKV_TOL)
+    np.testing.assert_allclose(s_t.numpy(), np.asarray(sw), **WKV_TOL)
+
+
+@pytest.mark.parametrize("chunk", [4, 16])
+def test_wkv6_chunked_ref_state_carry_composes(chunk):
+    _wkv_composes(lambda *a: ref.wkv6_chunked_ref(*a, chunk=chunk))
+
+
+@pytest.mark.parametrize("chunk", wk.CHUNKS)
+@pytest.mark.parametrize("t", [1, 2, 15, 16, 17, 63, 64, 65, 768, 1024])
+def test_wkv6_chunk_plan_covers_t(t, chunk):
+    """Whole chunks and a ragged tail: chunks - 1 full chunks of C steps,
+    then 1..C steps."""
+    plan = wk.chunk_plan(1, t, 64, 64, torch.float32, chunk)
+    assert plan.design == "chunked" and plan.chunk == chunk
+    assert plan.cols == wk.COLS and plan.blocks == 64 * 64 // wk.COLS
+    assert (plan.chunks - 1) * chunk < t <= plan.chunks * chunk
+
+
+def test_wkv6_chunk_plan_by_shape():
+    """Decode (T=1) takes the serial design; T from the threshold on the
+    planned C; rwkv6-7b's prefill launches B * H * hs / 16 blocks."""
+    f32 = torch.float32
+    assert wk.chunk_plan(4, 1, 64, 64, f32) == ("serial", 0, 64, 256, 0)
+    assert wk.chunk_plan(4, wk.CHUNKED_MIN_T - 1, 64, 64,
+                         f32).design == "serial"
+    for t in (wk.CHUNKED_MIN_T, 768, 1024):
+        plan = wk.chunk_plan(1, t, 64, 64, f32)
+        assert plan.design == "chunked" and plan.chunk == wk.PLANNED_CHUNK
+        assert plan.blocks == 256
+    for hs in wk.HEAD_SIZES:
+        for dt in (f32, torch.bfloat16):
+            assert wk.smem_bytes(hs, wk.PLANNED_CHUNK, dt) <= wk.MAX_SMEM
+    assert wk.chunk_plan(1, 9, 2, 32, f32, 0).design == "serial"
+
+
+@pytest.mark.parametrize("chunk,hs,dtype", [
+    (8, 64, torch.float32), (128, 64, torch.float32),
+    (-16, 64, torch.float32), (64, 128, torch.float32)])
+def test_wkv6_chunk_plan_refuses_bad_overrides(chunk, hs, dtype):
+    with pytest.raises(ValueError):
+        wk.chunk_plan(1, 100, 2, hs, dtype, chunk)
+
+
+def test_wkv6_chunk_plan_fits_bf16_at_the_largest_c():
+    """Raw bf16 stages are half the size: C = 64 fits at hs = 128."""
+    assert wk.chunk_plan(1, 100, 2, 128, torch.bfloat16, 64).chunk == 64
+
+
+def test_wkv6_wrapper_reads_nothing_back_to_the_host():
+    """The design comes from shapes alone, so a call never synchronises
+    and stays capturable in a CUDA graph."""
+    import inspect
+    src = inspect.getsource(wk)
+    for call in (".item(", ".cpu(", ".tolist(", ".numpy(", "synchronize"):
+        assert call not in src
+
+
 # ---------------------------------------------------------------------------
 # SNAKE decode GEMM
 # ---------------------------------------------------------------------------
@@ -587,7 +697,7 @@ def test_new_wrappers_take_the_plain_path_on_cpu():
     a, b = (torch.from_numpy(x) for x in _gemm_inputs(4, 64, 32))
     torch.testing.assert_close(ops.decode_gemm(a, b),
                                ref.decode_gemm_ref(a, b), rtol=0, atol=0)
-    assert wk.LAUNCHES == {"wkv6": 0}
+    assert wk.LAUNCHES == {"wkv6": 0, "wkv6_chunked": 0}
     assert sg.LAUNCHES == {"snake_decode_gemm_is": 0,
                            "snake_decode_gemm_os": 0}
     with pytest.raises(ValueError):
@@ -650,7 +760,7 @@ def test_new_cuda_wrappers_refuse_cpu_tensors():
     a, b = (torch.from_numpy(x) for x in _gemm_inputs(4, 64, 32))
     with pytest.raises(ValueError, match="CUDA"):
         sg.snake_decode_gemm(a, b)
-    assert wk.LAUNCHES["wkv6"] == 0
+    assert wk.LAUNCHES == {"wkv6": 0, "wkv6_chunked": 0}
     assert not any(sg.LAUNCHES.values())
 
 
@@ -678,6 +788,101 @@ def test_cuda_wkv6_matches_plain(b, t, h, hs, dtype):
 def test_cuda_wkv6_state_carry_composes():
     _need_cuda()
     _wkv_composes(wk.wkv6, device="cuda")
+
+
+WKV_CUDA_CHUNK_CASES = [
+    (c, t, hs, dt) for c in wk.CHUNKS for t in (c - 1, c + 1, 3 * c + 5)
+    for hs in wk.HEAD_SIZES for dt in ("float32", "bfloat16")
+    if wk.smem_bytes(hs, c, getattr(torch, dt)) <= wk.MAX_SMEM]
+
+
+def _wkv_cuda(arrs, dtype="float32"):
+    """numpy inputs on the card, r/k/v/w/u in ``dtype``, state float32."""
+    ts = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in arrs]
+    return [x.to(getattr(torch, dtype)) for x in ts[:5]] + ts[5:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk,t,hs,dtype", WKV_CUDA_CHUNK_CASES)
+def test_cuda_wkv6_chunked_matches_plain(chunk, t, hs, dtype):
+    """The chunked kernel at every C, over ragged T, against the plain
+    recurrence and the plain rendering of the chunked algorithm."""
+    _need_cuda()
+    args = _wkv_cuda(_wkv_inputs(2, t, 3, hs, seed=t), dtype)
+    y, s_t = wk.wkv6(*args, chunk=chunk)
+    tol = WKV_TOL if dtype == "float32" else dict(rtol=2e-2, atol=2e-2)
+    for yr, sr in (ref.wkv6_ref(*args),
+                   ref.wkv6_chunked_ref(*args, chunk=chunk)):
+        torch.testing.assert_close(y.float(), yr.float(), **tol)
+        torch.testing.assert_close(s_t, sr, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mixed", "model"])
+@pytest.mark.parametrize("chunk", wk.CHUNKS)
+def test_cuda_wkv6_chunked_survives_extreme_decays(kind, chunk):
+    _need_cuda()
+    r, k, v, _, u, s0 = _wkv_inputs(2, 3 * chunk + 5, 2, 64, seed=9)
+    w = _extreme_decays(kind, *r.shape)
+    args = _wkv_cuda((r, k, v, w, u, s0))
+    y, s_t = wk.wkv6(*args, chunk=chunk)
+    assert torch.isfinite(y).all() and torch.isfinite(s_t).all()
+    yr, sr = ref.wkv6_ref(*args)
+    torch.testing.assert_close(y, yr, **WKV_TOL)
+    torch.testing.assert_close(s_t, sr, **WKV_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", wk.CHUNKS)
+def test_cuda_wkv6_chunked_state_carry_composes(chunk):
+    """T1 + T2 == T2 after T1, and state_out is state0, on the chunked
+    design (T = 24 cuts into 10 + 14)."""
+    _need_cuda()
+    _wkv_composes(lambda *a: wk.wkv6(*a, chunk=chunk), device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [0, *wk.CHUNKS])
+def test_cuda_wkv6_graph_replay_is_bitwise(chunk):
+    """A CUDA-graph replay of a call gives the bits of a direct call."""
+    _need_cuda()
+    args = _wkv_cuda(_wkv_inputs(1, 200, 4, 64, seed=4))
+    y, s_t = wk.wkv6(*args, chunk=chunk)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y_g, s_g = wk.wkv6(*args, chunk=chunk)
+    y_g.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y_g, y) and torch.equal(s_g, s_t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [0, 16])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_wkv6_rows_off_16_bytes(chunk, dtype):
+    """Rows whose start is not 16-byte aligned are staged element by
+    element (no cp.async)."""
+    _need_cuda()
+    arrs = _wkv_inputs(2, 37, 3, 32, seed=2)
+    wide = [np.concatenate([np.zeros_like(a[..., :1]), a], -1)
+            for a in arrs[:4]]
+    args = _wkv_cuda(wide + list(arrs[4:]), dtype)
+    args[:4] = [x[..., 1:] for x in args[:4]]
+    y, s_t = wk.wkv6(*args, chunk=chunk)
+    yr, sr = ref.wkv6_ref(*args)
+    tol = WKV_TOL if dtype == "float32" else dict(rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(y.float(), yr.float(), **tol)
+    torch.testing.assert_close(s_t, sr, **tol)
+
+
+@pytest.mark.cuda
+def test_cuda_wkv6_counts_each_design():
+    _need_cuda()
+    wk.reset_launches()
+    wk.wkv6(*_wkv_cuda(_wkv_inputs(2, 1, 2, 64)))
+    wk.wkv6(*_wkv_cuda(_wkv_inputs(2, wk.CHUNKED_MIN_T, 2, 64)))
+    assert wk.LAUNCHES == {"wkv6": 2, "wkv6_chunked": 1}
 
 
 @pytest.mark.cuda
