@@ -4,9 +4,12 @@
     python3 chip_smoke.py            # the smoke run below
     python3 chip_smoke.py --sweep    # build, then time both flash-decode
                                      # kernels at both phase-2 shapes for
-                                     # every chunk C in fd.CHUNKS, and the
+                                     # every chunk C in fd.CHUNKS, the
                                      # decode GEMM at its three bf16 shapes
-                                     # for each K split of GEMM_SPLITS
+                                     # for each K split of GEMM_SPLITS, and
+                                     # WKV6 on both designs (serial, and
+                                     # chunked at every C of wk.CHUNKS) for
+                                     # T in WKV_SWEEP_T, with the crossover
 
 Phases, one line each; any failure raises and exits non-zero:
 
@@ -24,11 +27,16 @@ Phases, one line each; any failure raises and exits non-zero:
                holding valid positions) of each timed case; then every
                instantiation (f32 / bf16 x D 32/64/128 x G 1/4/8) on
                lengths at the chunk edges, f32 within 2e-5;
-             * WKV6 at rwkv6-7b shapes (H=64, hs=64): decode B=4, T=1 and
-               prefill B=1, T=1024, in float32 (tolerance 1e-4, as
-               tests/test_kernels.py) and bf16 inputs (2e-2), plus the
-               state carry wkv6(T1+T2) == wkv6(T2) . wkv6(T1) and the
-               new state written over the old one in place;
+             * WKV6 at rwkv6-7b shapes (H=64, hs=64): decode B=4, T=1 (the
+               serial design) and whole-prompt prefills B=1, T=128, 768
+               and 1024 (the chunked design), each with its plan (design,
+               C, blocks, chunks), in float32 (tolerance 1e-4, as
+               tests/test_kernels.py) and bf16 inputs (2e-2), a chunked
+               call also against the plain rendering of its chunks; decays
+               as the model forms them, exp(-exp(x)) for x in [-8, 5]
+               (exact zeros included) on the chunked design; the state
+               carry wkv6(T1+T2) == wkv6(T2) . wkv6(T1) and the new state
+               written over the old one in place, on the chunked design;
              * the decode GEMM at rwkv6-7b's decode products, M=4, bf16:
                (N, K) = (14336, 4096) IS, (4096, 14336) and (4096, 4096)
                OS, then (16, 14336, 4096) IS, a ragged bf16 case of each
@@ -47,8 +55,10 @@ Phases, one line each; any failure raises and exits non-zero:
              32 new tokens each through ``Scheduler.run_trace``: yi-6b on
              the paged engine (chunked prefill 128, paged kernel), then on
              the dense engine (dense kernel); then rwkv6-7b on the paged
-             engine with the WKV6 kernel.  Every launch counter is set to
-             0 just before each run and read just after it; the decode
+             engine with the WKV6 kernel (every prefill on the chunked
+             design, every decode step on the serial one).  Every launch
+             counter is set to 0 just before each run and read just after
+             it; the decode
              GEMM is not wired into any model (as in the reference), so
              its count on these runs is 0.
 
@@ -459,7 +469,7 @@ def _wkv_case(wk, ref, gen, b, t, dtype, chunk=None, args=None,
               for yr, sr in plains)
     if not (torch.isfinite(y).all() and torch.isfinite(s_t).all()):
         raise AssertionError(f"{name}: non-finite output")
-    plan_row = {"design": plan.design, "C": plan.chunk, "cols": plan.cols,
+    plan_row = {"design": plan.design, "C": plan.chunk,
                 "blocks": plan.blocks, "chunks": plan.chunks}
     if not timed:
         return {"max_abs_err": err, "plan": plan_row}

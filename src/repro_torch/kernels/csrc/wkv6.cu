@@ -29,28 +29,40 @@
 // the card's width.
 //
 // Chunked (long T, prefill): T is cut into chunks of C steps.  Within a
-// chunk entering with state S0 (products over empty ranges are 1):
+// chunk entering with state S_in (products over empty ranges are 1):
 //     rhat_t = r_t * prod_{tau < t} w_tau
-//     ktil_s = k_s * prod_{s < tau < C} w_tau
+//     ktil_s = k_s * prod_{s < tau < n} w_tau
 //     A[t][s] = sum_i r_t[i] k_s[i] prod_{s < tau < t} w_tau[i]  (s < t)
 //     A[t][t] = sum_i r_t[i] u[i] k_t[i]
-//     y_t     = rhat_t S0 + sum_{s <= t} A[t][s] v_s
-//     S_C     = diag(prod_tau w_tau) S0 + sum_s ktil_s v_s^T
+//     y_t     = rhat_t S_in + sum_{s <= t} A[t][s] v_s
+//     S_out   = diag(prod_tau w_tau) S_in + sum_s ktil_s v_s^T
 // so the work of a chunk is dense products and only the walk across
-// chunks is serial.  One block per (b, h, 16 columns of the state), so
-// B * H * hs / 16 blocks (256 at rwkv6-7b's prefill, B=1, H=64); each
-// owns its columns of the state in registers for the whole sweep (in and
-// out once; state_out == state0 stays safe).  Chunk c+1's r/k/w rows
-// and v columns are staged by 16-byte cp.async into the second of two
-// buffers while chunk c is computed from the first; the column-tile
-// blocks of a head read the same r/k/w rows, which stay in L2.  The
-// decay factors are never divided: every one is a product of w over a
-// contiguous range, at most 1, formed by running products.  So nothing
-// overflows, a decay of exactly 0 gives exact zeros (no log, no NaN), and
-// a product that underflows is one whose true value is below float32's
-// smallest normal.  A is recomputed by each column-tile block of a head
-// (C/2 hs multiply-adds per step); all products are float32 FMAs (no
-// TF32).
+// chunks is serial.  Three launches on the stream, nothing read back:
+//   1. chunk states: one block per (b, h, chunk) forms dS_c = sum_s
+//      ktil_s v_s^T and W_c = prod_s w_s into float32 scratch;
+//   2. scan: one thread per state entry walks the chunks, S <- W_c S +
+//      dS_c, writing the state entering each chunk to scratch and the
+//      last state out (it reads its entry of state0 first, so
+//      state_out may alias state0);
+//   3. chunk outputs: one block per (b, h, chunk) forms A and y from
+//      the state entering its chunk.
+// Launches 1 and 3 have B * H * ceil(T / C) blocks (2,048 at rwkv6-7b's
+// prefill, B=1, H=64, T=1024, C=32): the card fills, where one block per
+// (b, h, column tile) walking the chunks in order (the first chunked
+// design) left ~2 blocks an SM latency-bound at ~5 us a chunk.  What
+// bounds it now is device memory: r/k/w/v are read twice (launches 1 and
+// 3) and the chunk states cross it four times (dS written and read, the
+// entering states written and read), ~4 ceil(T / C) hs^2 floats per (b,
+// h).  The decay products are cut at sub-blocks of 16 steps, so no chain
+// of running products is longer than 16 and A's sub-blocks below the
+// diagonal are plain products.
+// Rows are staged by 16-byte cp.async (element copies where a row is
+// not 16-byte aligned).  The decay factors are never divided: each is a
+// product of w over a contiguous range, at most 1, formed by running
+// products.  So nothing overflows, a decay of exactly 0 gives exact
+// zeros (no log, no NaN), and a product that underflows is one whose
+// true value is below float32's smallest normal.  All products are
+// float32 FMAs (no TF32).
 #include "common.cuh"
 
 namespace {
@@ -166,22 +178,15 @@ wkv6_serial(const typename Tr::raw* __restrict__ r,
 }
 
 // ---------------------------------------------------------------------------
-// Chunked design
+// Chunked design: three launches (chunk states, scan, chunk outputs)
 // ---------------------------------------------------------------------------
-constexpr int kThreads = 128;
-constexpr int kCols = 16;                      // state columns per block
-constexpr int kColPairs = kCols / 2;           // a thread owns 2 columns
-constexpr int kRowGroups = kThreads / kColPairs;
-
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(src));
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
 __device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n" ::);
   asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
@@ -194,284 +199,409 @@ __device__ __forceinline__ float4 load4(const uint16_t* p) {
   return make_float4(BF16::load(x.x & 0xffffu), BF16::load(x.x >> 16),
                      BF16::load(x.y & 0xffffu), BF16::load(x.y >> 16));
 }
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 load2(const uint16_t* p) {
-  const unsigned x = *reinterpret_cast<const unsigned*>(p);
-  return make_float2(BF16::load(x & 0xffffu), BF16::load(x >> 16));
-}
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
 }
-
-// Dynamic shared memory of one block: two stages of raw inputs, then
-// float32 rhat, ktil (rows padded by 4 floats), A (rows padded by 1), the
-// state tile S0, the chunk's total decay and u.  kernels/wkv6.py's
-// smem_bytes mirrors this.
-template <typename Tr, int HS, int C>
-struct Layout {
-  using raw = typename Tr::raw;
-  static constexpr int kIn = C * HS;                 // one of r/k/w
-  static constexpr int kStage = 3 * kIn + C * kCols;  // + v's columns
-  static constexpr int kRawBytes = 2 * kStage * static_cast<int>(sizeof(raw));
-  static constexpr int kRow = HS + 4;
-  static constexpr int kRhat = 0;
-  static constexpr int kKtil = C * kRow;
-  static constexpr int kA = 2 * C * kRow;
-  static constexpr int kS = kA + C * (C + 1);
-  static constexpr int kW = kS + HS * kCols;
-  static constexpr int kU = kW + HS;
-  static constexpr int kBytes = kRawBytes + (kU + HS) * 4;
-};
+__device__ __forceinline__ void fma2x4(float (&acc)[2][4], float2 a,
+                                       float4 b) {
+  const float av[2] = {a.x, a.y};
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    acc[e][0] = fmaf(av[e], b.x, acc[e][0]);
+    acc[e][1] = fmaf(av[e], b.y, acc[e][1]);
+    acc[e][2] = fmaf(av[e], b.z, acc[e][2]);
+    acc[e][3] = fmaf(av[e], b.w, acc[e][3]);
+  }
+}
+__device__ __forceinline__ void fma4x4(float (&acc)[4][4], float4 a,
+                                       float4 b) {
+  const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    acc[e][0] = fmaf(av[e], b.x, acc[e][0]);
+    acc[e][1] = fmaf(av[e], b.y, acc[e][1]);
+    acc[e][2] = fmaf(av[e], b.z, acc[e][2]);
+    acc[e][3] = fmaf(av[e], b.w, acc[e][3]);
+  }
+}
 
 struct ChunkArgs {
   const void *r, *k, *v, *w, *u;
   const float* s0;
   void* y;
   float* sT;
-  int H, T;
+  float* dS;    // (B*H, n_chunks, HS, HS): each chunk's state contribution
+  float* Sin;   // (B*H, n_chunks, HS, HS): the state entering each chunk
+  float* W;     // (B*H, n_chunks, HS): each chunk's decay
+  int H, T, n_chunks;
   long long sb, st, sh;
   int vec;   // 16-byte aligned rows: cp.async; else element copies
 };
 
-// Chunk rows [t0, t0 + n) of r, k, w (whole rows) and of v (the block's
-// columns) into one stage buffer.
-template <typename Tr, int HS, int C>
-__device__ __forceinline__ void stage_chunk(typename Tr::raw* dst,
-                                            const ChunkArgs& a,
-                                            long long in_off, int col0,
-                                            int t0, int n) {
+// A staged row, padded by 16 bytes so that the same 16 bytes of 8
+// consecutive rows fall in distinct banks.
+template <typename Tr, int HS>
+__host__ __device__ constexpr int row_len() {
+  return HS + 16 / static_cast<int>(sizeof(typename Tr::raw));
+}
+
+// Rows [t0, t0 + n) of ``n_in`` of the inputs ``src`` into consecutive
+// [C][row_len] arrays of ``dst``.
+template <typename Tr, int HS, int C, int NT>
+__device__ __forceinline__ void stage_rows(typename Tr::raw* dst,
+                                           const ChunkArgs& a,
+                                           const void* const (&src)[4],
+                                           int n_in, long long in_off,
+                                           int t0, int n) {
   using raw = typename Tr::raw;
   constexpr int kPiece = 16 / static_cast<int>(sizeof(raw));  // elements
   constexpr int kRowPieces = HS / kPiece;
-  constexpr int kVPieces = kCols / kPiece;
-  const int in_pieces = n * kRowPieces;
-  const int total = 3 * in_pieces + n * kVPieces;
-  for (int idx = threadIdx.x; idx < total; idx += kThreads) {
-    const raw* src;
-    raw* d;
-    if (idx < 3 * in_pieces) {
-      const int which = idx / in_pieces;
-      const int rem = idx - which * in_pieces;
-      const int row = rem / kRowPieces;
-      const int pc = rem - row * kRowPieces;
-      const raw* base = static_cast<const raw*>(
-          which == 0 ? a.r : (which == 1 ? a.k : a.w));
-      src = base + in_off + (t0 + row) * a.st + pc * kPiece;
-      d = dst + which * C * HS + row * HS + pc * kPiece;
-    } else {
-      const int rem = idx - 3 * in_pieces;
-      const int row = rem / kVPieces;
-      const int pc = rem - row * kVPieces;
-      src = static_cast<const raw*>(a.v) + in_off + (t0 + row) * a.st +
-            col0 + pc * kPiece;
-      d = dst + 3 * C * HS + row * kCols + pc * kPiece;
-    }
+  const int total = n_in * C * kRowPieces;
+  for (int idx = threadIdx.x; idx < total; idx += NT) {
+    const int which = idx / (C * kRowPieces);      // constant divisors
+    const int rem = idx - which * (C * kRowPieces);
+    const int row = rem / kRowPieces;
+    const int pc = rem - row * kRowPieces;
+    if (row >= n) continue;
+    const raw* s = static_cast<const raw*>(src[which]) + in_off +
+                   (t0 + row) * a.st + pc * kPiece;
+    raw* d = dst + (which * C + row) * row_len<Tr, HS>() + pc * kPiece;
     if (a.vec) {
-      cp_async16(d, src);
+      cp_async16(d, s);
     } else {
 #pragma unroll
-      for (int e = 0; e < kPiece; ++e) d[e] = src[e];
+      for (int e = 0; e < kPiece; ++e) d[e] = s[e];
     }
   }
 }
 
-template <typename Tr, int HS, int C>
-__global__ void __launch_bounds__(kThreads) wkv6_chunked(ChunkArgs a) {
-  using raw = typename Tr::raw;
-  using L = Layout<Tr, HS, C>;
-  constexpr int RT = HS / kRowGroups;    // state rows per thread
-  constexpr int TT = C / kRowGroups;     // output steps per thread
-  constexpr int G = kThreads / C;        // threads sharing one row of A
-  constexpr int RG = HS / G;             // i range of each of them
-  constexpr int kRow = L::kRow;
-  static_assert(RT >= 2 && TT >= 1 && RG % 4 == 0, "tile shapes");
+// Decay products are cut at sub-blocks of kSub steps: each thread owns
+// one (row i, sub-block q), so a chain of running products is at most
+// kSub long, and a product over a longer range is the sub-block's part
+// times whole sub-blocks' totals (each factor at most 1).
+constexpr int kSub = 16;
 
+// Launch 1, one block per (b, h, chunk): the chunk's contribution to the
+// state, dS = sum_s ktil_s v_s^T with ktil_s = k_s prod_{s < tau} w_tau,
+// and its decay W = prod_s w_s.
+template <int HS> struct StateTile {
+  static constexpr int TI = HS < 64 ? 2 : HS / 16;   // rows per thread
+  static constexpr int NT = (HS / TI) * (HS / 4);    // 4 columns each
+};
+
+template <typename Tr, int HS, int C>
+__global__ void __launch_bounds__(StateTile<HS>::NT)
+wkv6_chunk_state(ChunkArgs a) {
+  using raw = typename Tr::raw;
+  constexpr int TI = StateTile<HS>::TI;
+  constexpr int NT = StateTile<HS>::NT;
+  constexpr int NSB = C / kSub;
+  constexpr int RS = row_len<Tr, HS>();
   extern __shared__ __align__(16) unsigned char smem[];
-  raw* stages = reinterpret_cast<raw*>(smem);
-  float* f = reinterpret_cast<float*>(smem + L::kRawBytes);
-  float* rhat = f + L::kRhat;
-  float* ktil = f + L::kKtil;
-  float* sA = f + L::kA;
+  raw* sk = reinterpret_cast<raw*>(smem);            // k, w, v: [C][RS]
+  const raw* sw = sk + C * RS;
+  const raw* sv = sk + 2 * C * RS;
+  float* ktil = reinterpret_cast<float*>(smem + 3 * C * RS * sizeof(raw));
+  float* wsub = ktil + C * HS;                       // [NSB][HS]
+
+  const int bh = blockIdx.x / a.n_chunks;
+  const int c = blockIdx.x - bh * a.n_chunks;
+  const int b = bh / a.H, h = bh - b * a.H;
+  const int t0 = c * C;
+  const int n = a.T - t0 < C ? a.T - t0 : C;
+  const void* const src[4] = {a.k, a.w, a.v, a.v};
+  stage_rows<Tr, HS, C, NT>(sk, a, src, 3, b * a.sb + h * a.sh, t0, n);
+  cp_async_wait_all();
+  __syncthreads();
+
+  // suffix products inside each sub-block, then times the later
+  // sub-blocks' totals
+  for (int idx = threadIdx.x; idx < NSB * HS; idx += NT) {
+    const int q = idx / HS, i = idx - q * HS;
+    const int e = n < (q + 1) * kSub ? n : (q + 1) * kSub;
+    float p = 1.f;
+    for (int s = e - 1; s >= q * kSub; --s) {
+      ktil[s * HS + i] = Tr::load(sk[s * RS + i]) * p;
+      p *= Tr::load(sw[s * RS + i]);
+    }
+    wsub[q * HS + i] = p;
+  }
+  __syncthreads();
+  const long long cs = static_cast<long long>(bh) * a.n_chunks + c;
+  for (int idx = threadIdx.x; idx < NSB * HS; idx += NT) {
+    const int q = idx / HS, i = idx - q * HS;
+    const int e = n < (q + 1) * kSub ? n : (q + 1) * kSub;
+    float later = 1.f;
+    for (int q2 = q + 1; q2 < NSB; ++q2) later *= wsub[q2 * HS + i];
+    for (int s = q * kSub; s < e; ++s) ktil[s * HS + i] *= later;
+    if (q == 0) a.W[cs * HS + i] = later * wsub[i];
+  }
+  __syncthreads();
+
+  const int j0 = (threadIdx.x % (HS / 4)) * 4;
+  const int i0 = (threadIdx.x / (HS / 4)) * TI;
+  float acc[TI][4];
+#pragma unroll
+  for (int e = 0; e < TI; ++e) acc[e][0] = acc[e][1] = acc[e][2] = acc[e][3] = 0.f;
+  for (int s = 0; s < n; ++s) {
+    const float4 vv = load4(sv + s * RS + j0);
+#pragma unroll
+    for (int e2 = 0; e2 < TI; e2 += 2) {
+      const float2 kk =
+          *reinterpret_cast<const float2*>(ktil + s * HS + i0 + e2);
+      acc[e2][0] = fmaf(kk.x, vv.x, acc[e2][0]);
+      acc[e2][1] = fmaf(kk.x, vv.y, acc[e2][1]);
+      acc[e2][2] = fmaf(kk.x, vv.z, acc[e2][2]);
+      acc[e2][3] = fmaf(kk.x, vv.w, acc[e2][3]);
+      acc[e2 + 1][0] = fmaf(kk.y, vv.x, acc[e2 + 1][0]);
+      acc[e2 + 1][1] = fmaf(kk.y, vv.y, acc[e2 + 1][1]);
+      acc[e2 + 1][2] = fmaf(kk.y, vv.z, acc[e2 + 1][2]);
+      acc[e2 + 1][3] = fmaf(kk.y, vv.w, acc[e2 + 1][3]);
+    }
+  }
+  float* out = a.dS + cs * HS * HS + static_cast<long long>(i0) * HS + j0;
+#pragma unroll
+  for (int e = 0; e < TI; ++e)
+    *reinterpret_cast<float4*>(out + e * HS) =
+        make_float4(acc[e][0], acc[e][1], acc[e][2], acc[e][3]);
+}
+
+// Launch 2, one thread per state entry of a (b, h): walk the chunks in
+// order, S <- W_c[i] S + dS_c, writing the state that enters chunk c to
+// Sin_c and the last one out.  Reads s0 before it writes sT (same entry,
+// same thread), so they may alias.
+constexpr int kScanThreads = 256;
+
+template <int HS>
+__global__ void __launch_bounds__(kScanThreads) wkv6_chunk_scan(ChunkArgs a) {
+  const int bh = blockIdx.x;
+  const int e = blockIdx.y * kScanThreads + threadIdx.x;
+  const int i = e / HS;
+  const long long base = static_cast<long long>(bh) * HS * HS + e;
+  float S = a.s0[base];
+  constexpr long long kStride = static_cast<long long>(HS) * HS;
+  const long long off = static_cast<long long>(bh) * a.n_chunks * kStride + e;
+  const float* __restrict__ d = a.dS + off;
+  float* __restrict__ entering = a.Sin + off;
+  const float* __restrict__ wc =
+      a.W + static_cast<long long>(bh) * a.n_chunks * HS + i;
+#pragma unroll 8
+  for (int c = 0; c < a.n_chunks; ++c) {
+    entering[c * kStride] = S;
+    S = fmaf(wc[c * HS], S, d[c * kStride]);
+  }
+  a.sT[base] = S;
+}
+
+// Launch 3, one block per (b, h, chunk): the chunk's outputs from the
+// state entering it,
+//   y = rhat S_in + A v,  rhat_t = r_t prod_{tau < t} w_tau,
+//   A[t][s] = sum_i r_t[i] k_s[i] prod_{s < tau < t} w_tau[i] (s < t),
+//   A[t][t] = sum_i r_t[i] u[i] k_t[i].
+// With t in sub-block p and s in sub-block q, A[t][s] is, for q = p, a
+// walk down from t-1 with running products (at most kSub - 1 steps), and
+// for q < p a plain product of rtil_t = r_t prod_{16p <= tau < t} w_tau
+// with khat_s = k_s prod_{s < tau < 16p} w_tau (both factors at most 1).
+// Each thread owns a 2 x 4 tile of y.
+template <typename Tr, int HS, int C>
+struct OutLayout {
+  using raw = typename Tr::raw;
+  static constexpr int NSB = C / kSub;
+  static constexpr int NPAIR = NSB * (NSB - 1) / 2;  // sub-blocks q < p
+  static constexpr int NT = C * HS / 8;              // 2 x 4 tiles of y
+  static constexpr int kTP = C + 4;                  // padded t rows
+  static constexpr int RS = row_len<Tr, HS>();       // padded raw rows
+  static constexpr int FS = HS + 4;                  // padded float rows
+  static constexpr int kRaw = 4 * C * RS * static_cast<int>(sizeof(raw));
+  static constexpr int kS = 0;                       // float offsets
+  static constexpr int kRtil = kS + HS * HS;         // [C][FS]
+  static constexpr int kRhatT = kRtil + C * FS;      // [HS][kTP]
+  static constexpr int kKhat = kRhatT + HS * kTP;    // [NPAIR][kSub][FS]
+  static constexpr int kWsub = kKhat + NPAIR * kSub * FS;
+  static constexpr int kAT = kWsub + NSB * HS;       // [C][kTP]
+  static constexpr int kU = kAT + C * kTP;
+  static constexpr int kBytes = kRaw + (kU + HS) * 4;
+};
+
+template <typename Tr, int HS, int C>
+__global__ void __launch_bounds__(OutLayout<Tr, HS, C>::NT)
+wkv6_chunk_out(ChunkArgs a) {
+  using raw = typename Tr::raw;
+  using L = OutLayout<Tr, HS, C>;
+  constexpr int NT = L::NT;
+  constexpr int NSB = L::NSB;
+  constexpr int kTP = L::kTP;
+  constexpr int RS = L::RS;
+  constexpr int FS = L::FS;
+  static_assert(NT == 2 * NSB * HS && NT % 32 == 0, "tile shapes");
+  extern __shared__ __align__(16) unsigned char smem[];
+  raw* sr = reinterpret_cast<raw*>(smem);            // r, k, w, v: [C][RS]
+  const raw* sk = sr + C * RS;
+  const raw* sw = sr + 2 * C * RS;
+  const raw* sv = sr + 3 * C * RS;
+  float* f = reinterpret_cast<float*>(smem + L::kRaw);
   float* sS = f + L::kS;
-  float* sW = f + L::kW;
+  float* rtil = f + L::kRtil;
+  float* rhatT = f + L::kRhatT;
+  float* khat = f + L::kKhat;
+  float* wsub = f + L::kWsub;
+  float* AT = f + L::kAT;
   float* sU = f + L::kU;
 
-  constexpr int kTiles = HS / kCols;
-  const int bh = blockIdx.x / kTiles;
-  const int col0 = (blockIdx.x - bh * kTiles) * kCols;
-  const int b = bh / a.H;
-  const int h = bh - b * a.H;
+  const int bh = blockIdx.x / a.n_chunks;
+  const int c = blockIdx.x - bh * a.n_chunks;
+  const int b = bh / a.H, h = bh - b * a.H;
+  const int t0 = c * C;
+  const int n = a.T - t0 < C ? a.T - t0 : C;
   const int tid = threadIdx.x;
-  const int cp = tid % kColPairs;        // columns col0 + 2 cp, + 1
-  const int rg = tid / kColPairs;        // state rows rg * RT .. + RT
-
-  const long long in_off = b * a.sb + h * a.sh;
-  const int T = a.T;
-  const int n_chunks = (T + C - 1) / C;
-  if (n_chunks > 0)
-    stage_chunk<Tr, HS, C>(stages, a, in_off, col0, 0, T < C ? T : C);
-  cp_async_commit();
-
-  float S[RT][2];
-  const long long s_off = static_cast<long long>(bh) * HS * HS +
-                          static_cast<long long>(rg * RT) * HS + col0 + 2 * cp;
-#pragma unroll
-  for (int e = 0; e < RT; ++e) {
-    const float2 x = load2(a.s0 + s_off + e * HS);
-    S[e][0] = x.x;
-    S[e][1] = x.y;
-  }
-  for (int i = tid; i < HS; i += kThreads)
+  const void* const src[4] = {a.r, a.k, a.w, a.v};
+  stage_rows<Tr, HS, C, NT>(sr, a, src, 4, b * a.sb + h * a.sh, t0, n);
+  const float* s_in =
+      a.Sin + (static_cast<long long>(bh) * a.n_chunks + c) * HS * HS;
+  for (int idx = tid; idx < HS * HS / 4; idx += NT)
+    cp_async16(sS + 4 * idx, s_in + 4 * idx);
+  for (int i = tid; i < HS; i += NT)
     sU[i] = Tr::load(static_cast<const raw*>(a.u)[h * HS + i]);
+  cp_async_wait_all();
+  __syncthreads();
 
-  for (int c = 0; c < n_chunks; ++c) {
-    const int t0 = c * C;
-    const int n = T - t0 < C ? T - t0 : C;
-    const raw* cur = stages + (c & 1) * L::kStage;
-    const raw* cr = cur;
-    const raw* ck = cur + L::kIn;
-    const raw* cw = cur + 2 * L::kIn;
-    const raw* cv = cur + 3 * L::kIn;
-    cp_async_wait_all();
-    // chunk c is in; chunk c-1 is consumed, so its buffer and the float32
-    // arrays may be overwritten
-    __syncthreads();
-    if (c + 1 < n_chunks) {
-      const int n1 = T - t0 - C < C ? T - t0 - C : C;
-      stage_chunk<Tr, HS, C>(stages + ((c + 1) & 1) * L::kStage, a, in_off,
-                             col0, t0 + C, n1);
+  // thread (i, q): prefix products inside sub-block q
+  const int iq = tid % HS, q = tid / HS;
+  const int q0 = q * kSub;
+  const int qe = n < q0 + kSub ? n : q0 + kSub;
+  if (q < NSB) {
+    float p = 1.f;
+    for (int t = q0; t < qe; ++t) {
+      rtil[t * FS + iq] = Tr::load(sr[t * RS + iq]) * p;
+      p *= Tr::load(sw[t * RS + iq]);
     }
-    cp_async_commit();
-
-    // decay products along the chunk, one thread per (i, direction)
-    for (int idx = tid; idx < 2 * HS; idx += kThreads) {
-      const int i = idx < HS ? idx : idx - HS;
-      float pr = 1.f;
-      if (idx < HS) {
-        for (int t = 0; t < n; ++t) {
-          rhat[t * kRow + i] = Tr::load(cr[t * HS + i]) * pr;
-          pr *= Tr::load(cw[t * HS + i]);
-        }
-        sW[i] = pr;
-      } else {
-        for (int t = n - 1; t >= 0; --t) {
-          ktil[t * kRow + i] = Tr::load(ck[t * HS + i]) * pr;
-          pr *= Tr::load(cw[t * HS + i]);
-        }
+    wsub[q * HS + iq] = p;
+  }
+  __syncthreads();
+  // rhat = rtil times the earlier sub-blocks' totals; khat for every
+  // later sub-block p: suffix products inside q times the totals of the
+  // sub-blocks between q and p
+  if (q < NSB) {
+    float before = 1.f;
+    for (int q2 = 0; q2 < q; ++q2) before *= wsub[q2 * HS + iq];
+    for (int t = q0; t < qe; ++t)
+      rhatT[iq * kTP + t] = rtil[t * FS + iq] * before;
+    float p = 1.f;
+    for (int s = qe - 1; s >= q0; --s) {
+      const float ks = Tr::load(sk[s * RS + iq]) * p;
+      float between = 1.f;
+      for (int p2 = q + 1; p2 < NSB; ++p2) {
+        khat[((p2 * (p2 - 1) / 2 + q) * kSub + s - q0) * FS + iq] =
+            ks * between;
+        between *= wsub[p2 * HS + iq];
       }
+      p *= Tr::load(sw[s * RS + iq]);
     }
-#pragma unroll
-    for (int e = 0; e < RT; ++e)
-      *reinterpret_cast<float2*>(sS + (rg * RT + e) * kCols + 2 * cp) =
-          make_float2(S[e][0], S[e][1]);
+  }
+  __syncthreads();
 
-    // A: thread (t, g) sums rows [g RG, (g+1) RG) of every A[t][s], s <= t,
-    // walking s down from t-1 with q = r_t * prod_{s < tau < t} w_tau
-    {
-      const int t = tid / G;
-      const int g = tid - t * G;
-      float acc[C];
+  // A, diagonal sub-blocks: the 8 lanes (t, g) sum rows i = 4 g + 32 m ..
+  // + 3 of A[t][s], walking s down from t-1 to t's sub-block start with
+  // x = r_t * prod_{s < tau < t} w_tau; acc[j] holds A[t][t-1-j]
+  for (int t = tid / 8; t < C; t += NT / 8) {
+    const int g = tid % 8;
+    const int tq = t - t % kSub;
+    float acc[kSub - 1];
 #pragma unroll
-      for (int s = 0; s < C; ++s) acc[s] = 0.f;
-      float diag = 0.f;
-      if (t < n) {
-        for (int i0 = g * RG; i0 < (g + 1) * RG; i0 += 4) {
-          float4 q = load4(cr + t * HS + i0);
-          diag = dot4(make_float4(q.x * sU[i0], q.y * sU[i0 + 1],
-                                  q.z * sU[i0 + 2], q.w * sU[i0 + 3]),
-                      load4(ck + t * HS + i0), diag);
+    for (int j = 0; j < kSub - 1; ++j) acc[j] = 0.f;
+    float diag = 0.f;
+    if (t < n) {
 #pragma unroll
-          for (int s = C - 1; s >= 0; --s) {
-            if (s < t) {
-              acc[s] = dot4(q, load4(ck + s * HS + i0), acc[s]);
-              const float4 ws = load4(cw + s * HS + i0);
-              q = make_float4(q.x * ws.x, q.y * ws.y, q.z * ws.z, q.w * ws.w);
-            }
+      for (int i0 = 4 * g; i0 < HS; i0 += 32) {
+        float4 x = load4(sr + t * RS + i0);
+        diag = dot4(make_float4(x.x * sU[i0], x.y * sU[i0 + 1],
+                                x.z * sU[i0 + 2], x.w * sU[i0 + 3]),
+                    load4(sk + t * RS + i0), diag);
+#pragma unroll
+        for (int j = 0; j < kSub - 1; ++j) {
+          const int s = t - 1 - j;
+          if (s >= tq) {
+            acc[j] = dot4(x, load4(sk + s * RS + i0), acc[j]);
+            const float4 ws = load4(sw + s * RS + i0);
+            x = make_float4(x.x * ws.x, x.y * ws.y, x.z * ws.z, x.w * ws.w);
           }
         }
       }
-#pragma unroll
-      for (int o = 1; o < G; o <<= 1) {
-#pragma unroll
-        for (int s = 0; s < C; ++s)
-          acc[s] += __shfl_xor_sync(0xffffffffu, acc[s], o);
-        diag += __shfl_xor_sync(0xffffffffu, diag, o);
-      }
-      if (g == 0 && t < n) {
-#pragma unroll
-        for (int s = 0; s < C; ++s) sA[t * (C + 1) + s] = s == t ? diag : acc[s];
-      }
     }
-    __syncthreads();
-
-    // y[t][cols] = rhat_t S0 + sum_{s <= t} A[t][s] v_s, for steps
-    // t = rg + 16 q
-    {
-      float yacc[TT][2];
 #pragma unroll
-      for (int q = 0; q < TT; ++q) yacc[q][0] = yacc[q][1] = 0.f;
-      for (int i = 0; i < HS; i += 4) {
-        float2 sv[4];
+    for (int o = 1; o < 8; o <<= 1) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          sv[e] = *reinterpret_cast<const float2*>(sS + (i + e) * kCols + 2 * cp);
-#pragma unroll
-        for (int q = 0; q < TT; ++q) {
-          const float4 rh = *reinterpret_cast<const float4*>(
-              rhat + (rg + q * kRowGroups) * kRow + i);
-          yacc[q][0] = dot4(rh, make_float4(sv[0].x, sv[1].x, sv[2].x, sv[3].x),
-                            yacc[q][0]);
-          yacc[q][1] = dot4(rh, make_float4(sv[0].y, sv[1].y, sv[2].y, sv[3].y),
-                            yacc[q][1]);
-        }
-      }
-      for (int s = 0; s < n; ++s) {
-        const float2 vv = load2(cv + s * kCols + 2 * cp);
-#pragma unroll
-        for (int q = 0; q < TT; ++q) {
-          const float as = sA[(rg + q * kRowGroups) * (C + 1) + s];
-          yacc[q][0] = fmaf(as, vv.x, yacc[q][0]);
-          yacc[q][1] = fmaf(as, vv.y, yacc[q][1]);
-        }
-      }
-      raw* y = static_cast<raw*>(a.y);
-#pragma unroll
-      for (int q = 0; q < TT; ++q) {
-        const int t = rg + q * kRowGroups;
-        if (t < n) {
-          const long long off =
-              ((static_cast<long long>(b) * T + t0 + t) * a.H + h) * HS +
-              col0 + 2 * cp;
-          y[off] = Tr::store(yacc[q][0]);
-          y[off + 1] = Tr::store(yacc[q][1]);
-        }
-      }
+      for (int j = 0; j < kSub - 1; ++j)
+        acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], o);
+      diag += __shfl_xor_sync(0xffffffffu, diag, o);
     }
-
-    // S <- diag(prod w) S + sum_s ktil_s v_s^T, in registers
+    if (g == 0) {                        // A[t][s] over t's sub-block
+      AT[t * kTP + t] = diag;
 #pragma unroll
-    for (int e = 0; e < RT; ++e) {
-      const float wt = sW[rg * RT + e];
-      S[e][0] *= wt;
-      S[e][1] *= wt;
-    }
-    for (int s = 0; s < n; ++s) {
-      const float2 vv = load2(cv + s * kCols + 2 * cp);
-      const float* kt = ktil + s * kRow + rg * RT;
-#pragma unroll
-      for (int e = 0; e < RT; ++e) {
-        S[e][0] = fmaf(kt[e], vv.x, S[e][0]);
-        S[e][1] = fmaf(kt[e], vv.y, S[e][1]);
+      for (int j = 0; j < kSub - 1; ++j) {
+        if (t - 1 - j >= tq) AT[(t - 1 - j) * kTP + t] = acc[j];
+        if (t + 1 + j < tq + kSub) AT[(t + 1 + j) * kTP + t] = 0.f;
       }
     }
   }
-  cp_async_wait_all();
+  // A, sub-blocks q < p: 2 x 2 tiles of rtil_p . khat_(q,p)
+  for (int tile = tid; tile < L::NPAIR * (kSub / 2) * (kSub / 2);
+       tile += NT) {
+    const int pr = tile / ((kSub / 2) * (kSub / 2));
+    const int rem = tile - pr * ((kSub / 2) * (kSub / 2));
+    int p = 1;
+    while ((p + 1) * p / 2 <= pr) ++p;             // pair pr = (q, p)
+    const int qq = pr - p * (p - 1) / 2;
+    // rows t = ta, ta + 8 and s = sa, sa + 8: the 8 lanes of a phase
+    // share ta and read 8 consecutive khat rows (distinct banks)
+    const int ta = p * kSub + rem / 8;
+    const int sa = rem % 8;                        // row within khat
+    const float* r0 = rtil + ta * FS;
+    const float* k0 = khat + (pr * kSub + sa) * FS;
+    float a00 = 0.f, a01 = 0.f, a10 = 0.f, a11 = 0.f;
+#pragma unroll 4
+    for (int i = 0; i < HS; i += 4) {
+      const float4 x0 = *reinterpret_cast<const float4*>(r0 + i);
+      const float4 x1 = *reinterpret_cast<const float4*>(r0 + 8 * FS + i);
+      const float4 y0 = *reinterpret_cast<const float4*>(k0 + i);
+      const float4 y1 = *reinterpret_cast<const float4*>(k0 + 8 * FS + i);
+      a00 = dot4(x0, y0, a00);
+      a01 = dot4(x0, y1, a01);
+      a10 = dot4(x1, y0, a10);
+      a11 = dot4(x1, y1, a11);
+    }
+    const int s = qq * kSub + sa;
+    AT[s * kTP + ta] = a00;
+    AT[(s + 8) * kTP + ta] = a01;
+    AT[s * kTP + ta + 8] = a10;
+    AT[(s + 8) * kTP + ta + 8] = a11;
+  }
+  __syncthreads();
+
+  // y tile: steps tt, tt+1, columns j0 .. j0+3
+  const int j0 = (tid % (HS / 4)) * 4;
+  const int tt = (tid / (HS / 4)) * 2;
+  float acc[2][4];
 #pragma unroll
-  for (int e = 0; e < RT; ++e)
-    *reinterpret_cast<float2*>(a.sT + s_off + e * HS) =
-        make_float2(S[e][0], S[e][1]);
+  for (int e = 0; e < 2; ++e) acc[e][0] = acc[e][1] = acc[e][2] = acc[e][3] = 0.f;
+#pragma unroll 4
+  for (int i = 0; i < HS; ++i)
+    fma2x4(acc, *reinterpret_cast<const float2*>(rhatT + i * kTP + tt),
+           *reinterpret_cast<const float4*>(sS + i * HS + j0));
+  const int s_end = n < tt + 2 ? n : tt + 2;        // A[t][s] = 0 past t
+  for (int s = 0; s < s_end; ++s)
+    fma2x4(acc, *reinterpret_cast<const float2*>(AT + s * kTP + tt),
+           load4(sv + s * RS + j0));
+  raw* y = static_cast<raw*>(a.y);
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    if (tt + e < n) {
+      raw* out = y + ((static_cast<long long>(b) * a.T + t0 + tt + e) * a.H +
+                      h) * HS + j0;
+#pragma unroll
+      for (int x = 0; x < 4; ++x) out[x] = Tr::store(acc[e][x]);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -488,20 +618,42 @@ int launch_serial(const ChunkArgs& a, int B, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// above 48 KB a block's dynamic shared memory needs the opt-in, once
+template <typename K>
+cudaError_t opt_in(K kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
 template <typename Tr, int HS, int C>
 int launch_chunked(const ChunkArgs& a, int B, cudaStream_t stream) {
-  using L = Layout<Tr, HS, C>;
+  using L = OutLayout<Tr, HS, C>;
+  constexpr int kStateBytes =
+      3 * C * row_len<Tr, HS>() * static_cast<int>(sizeof(typename Tr::raw)) +
+      (C + C / kSub) * HS * 4;
   if constexpr (L::kBytes > kMaxSmem) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
-    const auto kernel = wkv6_chunked<Tr, HS, C>;
-    if constexpr (L::kBytes > 48 * 1024) {
-      // above 48 KB a block's dynamic shared memory needs the opt-in, once
-      static const cudaError_t opt_in = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
-      if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+    static const cudaError_t ok_state =
+        opt_in(wkv6_chunk_state<Tr, HS, C>, kStateBytes);
+    static const cudaError_t ok_out =
+        opt_in(wkv6_chunk_out<Tr, HS, C>, L::kBytes);
+    if (ok_state != cudaSuccess) return static_cast<int>(ok_state);
+    if (ok_out != cudaSuccess) return static_cast<int>(ok_out);
+    const int blocks = B * a.H * a.n_chunks;
+    if (blocks > 0) {
+      wkv6_chunk_state<Tr, HS, C>
+          <<<blocks, StateTile<HS>::NT, kStateBytes, stream>>>(a);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
     }
-    kernel<<<B * a.H * (HS / kCols), kThreads, L::kBytes, stream>>>(a);
+    wkv6_chunk_scan<HS>
+        <<<dim3(B * a.H, HS * HS / kScanThreads), kScanThreads, 0, stream>>>(a);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || blocks == 0) return static_cast<int>(err);
+    wkv6_chunk_out<Tr, HS, C><<<blocks, L::NT, L::kBytes, stream>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
 }
@@ -539,17 +691,24 @@ extern "C" {
 // sb/st/sh: the element strides of r/k/v/w over B, T and H (the last dim
 // is contiguous).  s0 and sT may alias (the model advances its state in
 // place).  chunk: 0 the serial design, else the chunked design with C =
-// chunk (16, 32 or 64).  Returns the launch's cudaError_t (0 on success).
+// chunk (16, 32 or 64), which needs ``scratch``: B*H*ceil(T/C)*(2*hs*hs
+// + hs) floats, 16-byte aligned.  Returns the first failed launch's
+// cudaError_t (0 on success).
 int repro_wkv6(const void* r, const void* k, const void* v, const void* w,
                const void* u, const float* s0, void* y, float* sT, int dtype,
                int B, int T, int H, int hs, long long sb, long long st,
-               long long sh, int chunk, void* stream) {
+               long long sh, int chunk, float* scratch, void* stream) {
   if (B < 1 || H < 1 || T < 0) return static_cast<int>(cudaErrorInvalidValue);
   const long long es = dtype == 0 ? 4 : 2;
   const bool vec = aligned16(r) && aligned16(k) && aligned16(v) &&
                    aligned16(w) && (sb * es) % 16 == 0 &&
                    (st * es) % 16 == 0 && (sh * es) % 16 == 0;
-  const ChunkArgs a{r, k, v, w, u, s0, y, sT, H, T, sb, st, sh, vec ? 1 : 0};
+  const int n_chunks = chunk > 0 ? (T + chunk - 1) / chunk : 0;
+  const long long states = static_cast<long long>(B) * H * n_chunks * hs * hs;
+  float* Sin = scratch ? scratch + states : nullptr;
+  float* W = scratch ? scratch + 2 * states : nullptr;
+  const ChunkArgs a{r, k, v, w, u, s0, y, sT, scratch, Sin, W, H, T,
+                    n_chunks, sb, st, sh, vec ? 1 : 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<F32>(a, B, hs, chunk, s);
   if (dtype == 1) return launch<BF16>(a, B, hs, chunk, s);

@@ -177,40 +177,68 @@ def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def wkv6_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      w: torch.Tensor, u: torch.Tensor, state0: torch.Tensor,
                      state_out: Optional[torch.Tensor] = None,
-                     chunk: int = 16):
+                     chunk: int = 16, sub: int = 16):
     """The chunked WKV6 kernel's algorithm in float32 (the same function
     as :func:`wkv6_ref`; tests only).  Per chunk of ``chunk`` steps
-    entering with state S0, every decay factor a product of w over a
-    contiguous range (never a quotient, so nothing overflows and w = 0
-    gives zeros):
+    entering with state S0:
         rhat_t = r_t * prod_{tau < t} w_tau
-        ktil_s = k_s * prod_{s < tau < n} w_tau
+        ktil_s = k_s * prod_{s < tau} w_tau
         A[t][s] = sum_i r_t[i] k_s[i] prod_{s < tau < t} w_tau[i]  (s < t)
         A[t][t] = sum_i r_t[i] u[i] k_t[i]
         y = rhat S0 + A v;  S <- diag(prod_tau w_tau) S0 + ktil^T v
+    Every decay factor is a product of w over a range, never a quotient,
+    cut as the kernel cuts it at sub-blocks of ``sub`` steps: running
+    products inside a sub-block times whole sub-blocks' totals; A[t][s]
+    inside t's sub-block walks down from t-1, and below it is rtil_t .
+    khat_s, rtil_t = r_t prod_{p0 <= tau < t} w_tau and khat_s = k_s
+    prod_{s < tau < p0} w_tau with p0 the start of t's sub-block.  So
+    nothing overflows and w = 0 gives zeros.
     """
     dtype = r.dtype
     r, k, v, w = (x.float().transpose(1, 2) for x in (r, k, v, w))
     uf = u.float()[None]                               # (1, H, hs)
     s = state0.float()
+    sb = min(sub, chunk)
     ys = []
     for t0 in range(0, r.shape[2], chunk):
         rc, kc, vc, wc = (x[:, :, t0:t0 + chunk] for x in (r, k, v, w))
         n = rc.shape[2]
-        ones = torch.ones_like(wc[:, :, :1])
-        pre = torch.cumprod(torch.cat([ones, wc[:, :, :-1]], 2), 2)
-        suf = torch.cumprod(torch.cat([ones, wc[:, :, 1:].flip(2)], 2),
-                            2).flip(2)
+        blocks = [slice(q0, min(q0 + sb, n)) for q0 in range(0, n, sb)]
+        rtil, ksig, tot = torch.empty_like(rc), torch.empty_like(kc), []
+        for sl in blocks:                  # products inside each sub-block
+            wq = wc[:, :, sl]
+            ones = torch.ones_like(wq[:, :, :1])
+            pre = torch.cumprod(torch.cat([ones, wq[:, :, :-1]], 2), 2)
+            suf = torch.cumprod(torch.cat([ones, wq[:, :, 1:].flip(2)], 2),
+                                2).flip(2)
+            rtil[:, :, sl] = rc[:, :, sl] * pre
+            ksig[:, :, sl] = kc[:, :, sl] * suf
+            tot.append(pre[:, :, -1] * wq[:, :, -1])
+        rhat, ktil = rtil.clone(), ksig.clone()
+        for q, sl in enumerate(blocks):
+            for q2 in range(len(blocks)):
+                if q2 < q:
+                    rhat[:, :, sl] *= tot[q2][:, :, None]
+                elif q2 > q:
+                    ktil[:, :, sl] *= tot[q2][:, :, None]
         a = torch.zeros(*rc.shape[:2], n, n, device=rc.device)
         for t in range(n):
-            # q_s = r_t * prod_{s < tau < t} w_tau for s = t-1 .. 0
-            q = rc[:, :, t, None] * torch.cumprod(
-                torch.cat([ones, wc[:, :, 1:t].flip(2)], 2), 2).flip(2)
-            a[:, :, t, :t] = (q[:, :, :t] * kc[:, :, :t]).sum(-1)
+            x = rc[:, :, t]
+            for j in range(t - 1, t - t % sb - 1, -1):
+                a[:, :, t, j] = (x * kc[:, :, j]).sum(-1)
+                x = x * wc[:, :, j]
             a[:, :, t, t] = (rc[:, :, t] * uf * kc[:, :, t]).sum(-1)
-        ys.append((rc * pre) @ s + a @ vc)
-        s = (pre[:, :, -1] * wc[:, :, -1])[..., None] * s \
-            + (kc * suf).transpose(2, 3) @ vc
+        for p, slp in enumerate(blocks):
+            between = torch.ones_like(tot[0])
+            for q in range(p - 1, -1, -1):
+                khat = ksig[:, :, blocks[q]] * between[:, :, None]
+                a[:, :, slp, blocks[q]] = rtil[:, :, slp] @ khat.transpose(2, 3)
+                between = between * tot[q]
+        wtot = torch.ones_like(tot[0])
+        for x in tot:
+            wtot = wtot * x
+        ys.append(rhat @ s + a @ vc)
+        s = wtot[..., None] * s + ktil.transpose(2, 3) @ vc
     y = (torch.cat(ys, 2) if ys else r).transpose(1, 2)
     if state_out is not None:
         s = state_out.copy_(s)

@@ -28,48 +28,58 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_SIZES = (32, 64, 128)
 #: chunk lengths C the chunked design is built for
 CHUNKS = (16, 32, 64)
-#: state columns of one chunked block (``kCols`` in csrc/wkv6.cu)
-COLS = 16
-#: the planned C, and the shortest T that takes the chunked design
+#: the planned C (or the largest C below it whose blocks fit in shared
+#: memory), and the shortest T that takes the chunked design
 #: (chip_smoke.py --sweep)
-PLANNED_CHUNK = 16
+PLANNED_CHUNK = 32
 CHUNKED_MIN_T = 16
 MAX_SMEM = 232448            # a block's shared memory on sm_90
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {"repro_wkv6": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _L, _L, _L, _I, _P]}
+                            _I, _L, _L, _L, _I, _P, _P]}
 
 
 class WkvPlan(NamedTuple):
     design: str          # "serial" or "chunked"
     chunk: int           # C (0 for the serial design)
-    cols: int            # state columns a block owns
-    blocks: int          # blocks launched
+    blocks: int          # blocks of the serial launch, or of each of the
+                         # chunked design's per-chunk launches
     chunks: int          # chunks of C steps covering T (0 if serial)
 
 
 def smem_bytes(hs: int, chunk: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one chunked block (``Layout`` in
-    csrc/wkv6.cu): two stages of raw r/k/w rows and v columns, then
-    float32 rhat, ktil, A, the state tile, the chunk's decay and u."""
+    """Dynamic shared memory of one block of the chunked design's output
+    launch, its largest (``OutLayout`` in csrc/wkv6.cu): the chunk's raw
+    r/k/w/v rows, then float32 the entering state, rtil, rhat and A (both
+    transposed), khat for each pair of 16-step sub-blocks, the
+    sub-blocks' decays and u; rows padded by 16 bytes."""
     esize = torch.tensor([], dtype=dtype).element_size()
-    raw = 2 * (3 * chunk * hs + chunk * COLS) * esize
-    floats = 2 * chunk * (hs + 4) + chunk * (chunk + 1) + hs * COLS + 2 * hs
-    return raw + 4 * floats
+    nsb = chunk // 16
+    floats = (hs * hs + chunk * (hs + 4) + (hs + chunk) * (chunk + 4)
+              + nsb * (nsb - 1) // 2 * 16 * (hs + 4) + nsb * hs + hs)
+    return 4 * chunk * (hs * esize + 16) + 4 * floats
+
+
+def scratch_floats(b: int, h: int, hs: int, plan: "WkvPlan") -> int:
+    """float32 scratch of a chunked call: each chunk's state contribution
+    and entering state (hs x hs each) and decay (hs) per (b, h)."""
+    return b * h * plan.chunks * (2 * hs * hs + hs)
 
 
 def chunk_plan(b: int, t: int, h: int, hs: int, dtype: torch.dtype,
                chunk: Optional[int] = None) -> WkvPlan:
-    """The design of a call at these shapes.  ``chunk=None`` plans: the
-    chunked design with C = PLANNED_CHUNK for T >= CHUNKED_MIN_T, else
-    the serial one.  An override (timing sweeps, tests) is 0 for the
-    serial design or a C of CHUNKS whose blocks fit in shared memory;
-    anything else raises ``ValueError``."""
+    """The design of a call at these shapes.  ``chunk=None`` plans: for T
+    >= CHUNKED_MIN_T the chunked design with the largest C of CHUNKS up
+    to PLANNED_CHUNK whose blocks fit in shared memory, else the serial
+    one.  An override (timing sweeps, tests) is 0 for the serial design
+    or a C of CHUNKS that fits; anything else raises ``ValueError``."""
     if chunk is None:
-        chunk = PLANNED_CHUNK if t >= CHUNKED_MIN_T else 0
+        chunk = 0 if t < CHUNKED_MIN_T else max(
+            c for c in CHUNKS if c <= PLANNED_CHUNK
+            and smem_bytes(hs, c, dtype) <= MAX_SMEM)
     if chunk == 0:
-        return WkvPlan("serial", 0, hs, b * h, 0)
+        return WkvPlan("serial", 0, b * h, 0)
     if chunk not in CHUNKS:
         raise ValueError(f"chunk {chunk}: want 0 (serial) or one of "
                          f"{CHUNKS}")
@@ -77,8 +87,8 @@ def chunk_plan(b: int, t: int, h: int, hs: int, dtype: torch.dtype,
         raise ValueError(f"chunk {chunk} at hs {hs} needs "
                          f"{smem_bytes(hs, chunk, dtype)} bytes of shared "
                          f"memory a block, over {MAX_SMEM}")
-    return WkvPlan("chunked", chunk, COLS, b * h * hs // COLS,
-                   -(-t // chunk))
+    chunks = -(-t // chunk)
+    return WkvPlan("chunked", chunk, b * h * chunks, chunks)
 
 
 def reset_launches() -> None:
@@ -135,11 +145,15 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, t, h, hs = r.shape
     plan = chunk_plan(b, t, h, hs, r.dtype, chunk)
     y = torch.empty((b, t, h, hs), dtype=r.dtype, device=r.device)
+    scratch = (torch.empty(scratch_floats(b, h, hs, plan),
+                           dtype=torch.float32, device=r.device)
+               if plan.design == "chunked" else None)
     build.launch(build.library("wkv6", _ARGTYPES), "repro_wkv6",
                  r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                  u.data_ptr(), state0.data_ptr(), y.data_ptr(),
                  s_t.data_ptr(), _DTYPE_CODE[r.dtype], b, t, h, hs,
                  r.stride(0), r.stride(1), r.stride(2), plan.chunk,
+                 None if scratch is None else scratch.data_ptr(),
                  torch.cuda.current_stream(r.device).cuda_stream)
     LAUNCHES["wkv6"] += 1
     if plan.design == "chunked":

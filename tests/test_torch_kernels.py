@@ -459,6 +459,23 @@ def test_wkv6_chunked_ref_survives_extreme_decays(kind, chunk, hs):
     np.testing.assert_allclose(s_t.numpy(), np.asarray(sw), **WKV_TOL)
 
 
+@pytest.mark.parametrize("kind", ["uniform", "mixed", "model"])
+@pytest.mark.parametrize("chunk,sub,t", [(16, 4, 33), (16, 4, 70),
+                                         (64, 16, 70), (64, 16, 129)])
+def test_wkv6_chunked_ref_sub_blocks(chunk, sub, t, kind):
+    """Chunks of several sub-blocks: the products below the diagonal
+    (rtil . khat through the sub-block totals) hold at every decay."""
+    r, k, v, w, u, s0 = _wkv_inputs(1, t, 2, 32, seed=t)
+    if kind != "uniform":
+        w = _extreme_decays(kind, 1, t, 2, 32, seed=t)
+    arrs = [torch.from_numpy(a) for a in (r, k, v, w, u, s0)]
+    y, s_t = ref.wkv6_chunked_ref(*arrs, chunk=chunk, sub=sub)
+    assert torch.isfinite(y).all() and torch.isfinite(s_t).all()
+    yr, sr = ref.wkv6_ref(*arrs)
+    torch.testing.assert_close(y, yr, **WKV_TOL)
+    torch.testing.assert_close(s_t, sr, **WKV_TOL)
+
+
 @pytest.mark.parametrize("chunk", [4, 16])
 def test_wkv6_chunked_ref_state_carry_composes(chunk):
     _wkv_composes(lambda *a: ref.wkv6_chunked_ref(*a, chunk=chunk))
@@ -471,38 +488,44 @@ def test_wkv6_chunk_plan_covers_t(t, chunk):
     then 1..C steps."""
     plan = wk.chunk_plan(1, t, 64, 64, torch.float32, chunk)
     assert plan.design == "chunked" and plan.chunk == chunk
-    assert plan.cols == wk.COLS and plan.blocks == 64 * 64 // wk.COLS
+    assert plan.blocks == 64 * plan.chunks
     assert (plan.chunks - 1) * chunk < t <= plan.chunks * chunk
 
 
 def test_wkv6_chunk_plan_by_shape():
-    """Decode (T=1) takes the serial design; T from the threshold on the
-    planned C; rwkv6-7b's prefill launches B * H * hs / 16 blocks."""
+    """Decode (T=1) takes the serial design, one block per (b, h); T from
+    the threshold on the planned C, one block per (b, h, chunk)."""
     f32 = torch.float32
-    assert wk.chunk_plan(4, 1, 64, 64, f32) == ("serial", 0, 64, 256, 0)
+    assert wk.chunk_plan(4, 1, 64, 64, f32) == ("serial", 0, 256, 0)
     assert wk.chunk_plan(4, wk.CHUNKED_MIN_T - 1, 64, 64,
                          f32).design == "serial"
     for t in (wk.CHUNKED_MIN_T, 768, 1024):
         plan = wk.chunk_plan(1, t, 64, 64, f32)
         assert plan.design == "chunked" and plan.chunk == wk.PLANNED_CHUNK
-        assert plan.blocks == 256
-    for hs in wk.HEAD_SIZES:
-        for dt in (f32, torch.bfloat16):
-            assert wk.smem_bytes(hs, wk.PLANNED_CHUNK, dt) <= wk.MAX_SMEM
+        assert plan.blocks == 64 * -(-t // wk.PLANNED_CHUNK)
     assert wk.chunk_plan(1, 9, 2, 32, f32, 0).design == "serial"
 
 
 @pytest.mark.parametrize("chunk,hs,dtype", [
-    (8, 64, torch.float32), (128, 64, torch.float32),
-    (-16, 64, torch.float32), (64, 128, torch.float32)])
+    (8, 64, torch.float32), (48, 64, torch.float32),
+    (128, 64, torch.float32), (-16, 64, torch.float32),
+    (64, 128, torch.float32), (64, 128, torch.bfloat16)])
 def test_wkv6_chunk_plan_refuses_bad_overrides(chunk, hs, dtype):
+    """C outside CHUNKS, or a block over the shared memory (C = 64 at
+    hs = 128)."""
     with pytest.raises(ValueError):
         wk.chunk_plan(1, 100, 2, hs, dtype, chunk)
 
 
-def test_wkv6_chunk_plan_fits_bf16_at_the_largest_c():
-    """Raw bf16 stages are half the size: C = 64 fits at hs = 128."""
-    assert wk.chunk_plan(1, 100, 2, 128, torch.bfloat16, 64).chunk == 64
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_chunk_plan_takes_the_largest_c_that_fits(dtype):
+    """Every C fits a block's shared memory at hs <= 64; at hs = 128 the
+    plan falls back to C = 32."""
+    for hs in (32, 64):
+        for c in wk.CHUNKS:
+            assert wk.chunk_plan(1, 100, 2, hs, dtype, c).chunk == c
+    assert wk.chunk_plan(1, 100, 2, 128, dtype).chunk == min(
+        wk.PLANNED_CHUNK, 32)
 
 
 def test_wkv6_wrapper_reads_nothing_back_to_the_host():
