@@ -100,7 +100,7 @@ WKV_H, WKV_HS = 64, 64          # rwkv6-7b: d 4096 / head size 64
 # whole-prompt prefills (B, T): a short prompt, the profiled context and
 # PR 12's timed shape
 WKV_PREFILLS = ((1, 128), (1, 768), (1, 1024))
-WKV_SWEEP_T = (1, 8, 32, 128, 512, 1024)
+WKV_SWEEP_T = (1, 8, 32, 48, 64, 96, 128, 512, 1024)
 # rwkv6-7b's decode products at a batch of 4: (M, N, K), IS then OS twice
 GEMM_SHAPES = [(4, 14336, 4096), (4, 4096, 14336), (4, 4096, 4096)]
 GEMM_SPLITS = (1, 2, 3, 4, 5, 6, 8, 12, 16, 17, 18, 24, 32, 48, 64)

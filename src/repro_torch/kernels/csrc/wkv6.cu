@@ -23,8 +23,9 @@
 // is held in registers for the whole sweep by kSplit threads, each owning
 // hs / kSplit of its rows, so the state crosses device memory once in and
 // once out.  The block stages kChunk steps of r, k, w, v in shared memory
-// per barrier and computes sum_i r_t[i] u[i] k_t[i] once per step; each
-// thread then spends the function's 5 flops per state entry and step.
+// per barrier, summing r_t[i] u[i] k_t[i] over i once per step as it
+// stages; each thread then spends the function's 5 flops per state entry
+// and step.
 // The sweep over T is a dependent chain, so time grows with T whatever
 // the card's width.
 //
@@ -99,7 +100,8 @@ wkv6_serial(const typename Tr::raw* __restrict__ r,
   __shared__ __align__(16) float sw[kChunk][ROW];
   __shared__ __align__(16) float su[ROW];
   __shared__ float sv[kChunk][HS];
-  __shared__ float sruk[kChunk];             // sum_i r_t[i] u[i] k_t[i]
+  // sum_i r_t[i] u[i] k_t[i], in parts of 32 rows (one per staging warp)
+  __shared__ float sruk[kChunk][HS / 32];
 
   const int bh = blockIdx.x;
   const int b = bh / H;
@@ -107,7 +109,6 @@ wkv6_serial(const typename Tr::raw* __restrict__ r,
   const int j = threadIdx.x / kSplit;        // state column
   const int p = threadIdx.x % kSplit;        // its row segment
   const int i0 = p * RP;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   const long long state_off =
       static_cast<long long>(bh) * HS * HS + static_cast<long long>(i0) * HS + j;
@@ -126,25 +127,20 @@ wkv6_serial(const typename Tr::raw* __restrict__ r,
   for (int t0 = 0; t0 < T; t0 += kChunk) {
     const int n = T - t0 < kChunk ? T - t0 : kChunk;
     __syncthreads();   // the previous chunk is consumed
+    // a warp stages 32 consecutive rows of one step (HS and NT are
+    // multiples of 32), so it sums its part of r u k as it goes
     for (int idx = threadIdx.x; idx < n * HS; idx += NT) {
       const int c = idx / HS;
       const int i = idx - c * HS;
       const int pi = i + (i / RP) * kPad;
       const long long off = in_off + (t0 + c) * st + i;
-      sr[c][pi] = Tr::load(r[off]);
-      sk[c][pi] = Tr::load(k[off]);
+      const float rv = Tr::load(r[off]), kv = Tr::load(k[off]);
+      sr[c][pi] = rv;
+      sk[c][pi] = kv;
       sw[c][pi] = Tr::load(w[off]);
       sv[c][i] = Tr::load(v[off]);
-    }
-    __syncthreads();
-    for (int c = warp; c < n; c += NT / 32) {
-      float acc = 0.f;
-      for (int i = lane; i < HS; i += 32) {
-        const int pi = i + (i / RP) * kPad;
-        acc = fmaf(sr[c][pi] * su[pi], sk[c][pi], acc);
-      }
-      acc = warp_sum(acc);
-      if (lane == 0) sruk[c] = acc;
+      const float part = warp_sum(rv * su[pi] * kv);
+      if (i % 32 == 0) sruk[c][i / 32] = part;
     }
     __syncthreads();
     for (int c = 0; c < n; ++c) {
@@ -170,7 +166,10 @@ wkv6_serial(const typename Tr::raw* __restrict__ r,
 #pragma unroll
       for (int o = 1; o < kSplit; o <<= 1)
         yj += __shfl_xor_sync(0xffffffffu, yj, o);
-      if (p == 0) y[y_off + (t0 + c) * y_st] = Tr::store(fmaf(vj, sruk[c], yj));
+      float ruk = 0.f;
+#pragma unroll
+      for (int e = 0; e < HS / 32; ++e) ruk += sruk[c][e];
+      if (p == 0) y[y_off + (t0 + c) * y_st] = Tr::store(fmaf(vj, ruk, yj));
     }
   }
 #pragma unroll
@@ -207,17 +206,6 @@ __device__ __forceinline__ void fma2x4(float (&acc)[2][4], float2 a,
   const float av[2] = {a.x, a.y};
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
-    acc[e][0] = fmaf(av[e], b.x, acc[e][0]);
-    acc[e][1] = fmaf(av[e], b.y, acc[e][1]);
-    acc[e][2] = fmaf(av[e], b.z, acc[e][2]);
-    acc[e][3] = fmaf(av[e], b.w, acc[e][3]);
-  }
-}
-__device__ __forceinline__ void fma4x4(float (&acc)[4][4], float4 a,
-                                       float4 b) {
-  const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
     acc[e][0] = fmaf(av[e], b.x, acc[e][0]);
     acc[e][1] = fmaf(av[e], b.y, acc[e][1]);
     acc[e][2] = fmaf(av[e], b.z, acc[e][2]);

@@ -28,11 +28,10 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_SIZES = (32, 64, 128)
 #: chunk lengths C the chunked design is built for
 CHUNKS = (16, 32, 64)
-#: the planned C (or the largest C below it whose blocks fit in shared
-#: memory), and the shortest T that takes the chunked design
+#: the planned C and the shortest T that takes the chunked design
 #: (chip_smoke.py --sweep)
 PLANNED_CHUNK = 32
-CHUNKED_MIN_T = 16
+CHUNKED_MIN_T = 32
 MAX_SMEM = 232448            # a block's shared memory on sm_90
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -69,15 +68,13 @@ def scratch_floats(b: int, h: int, hs: int, plan: "WkvPlan") -> int:
 
 def chunk_plan(b: int, t: int, h: int, hs: int, dtype: torch.dtype,
                chunk: Optional[int] = None) -> WkvPlan:
-    """The design of a call at these shapes.  ``chunk=None`` plans: for T
-    >= CHUNKED_MIN_T the chunked design with the largest C of CHUNKS up
-    to PLANNED_CHUNK whose blocks fit in shared memory, else the serial
-    one.  An override (timing sweeps, tests) is 0 for the serial design
-    or a C of CHUNKS that fits; anything else raises ``ValueError``."""
+    """The design of a call at these shapes.  ``chunk=None`` plans: the
+    chunked design with C = PLANNED_CHUNK for T >= CHUNKED_MIN_T, else
+    the serial one.  An override (timing sweeps, tests) is 0 for the
+    serial design or a C of CHUNKS whose blocks fit in shared memory
+    (all but C = 64 at hs = 128); anything else raises ``ValueError``."""
     if chunk is None:
-        chunk = 0 if t < CHUNKED_MIN_T else max(
-            c for c in CHUNKS if c <= PLANNED_CHUNK
-            and smem_bytes(hs, c, dtype) <= MAX_SMEM)
+        chunk = PLANNED_CHUNK if t >= CHUNKED_MIN_T else 0
     if chunk == 0:
         return WkvPlan("serial", 0, b * h, 0)
     if chunk not in CHUNKS:

@@ -147,26 +147,24 @@ def _reference(name, arch="yi-6b"):
     over, trace_kw = (RWKV_CASES if arch == "rwkv6-7b" else CASES)[name]
     eng = JE.make_engine(JR.get(arch, reduced=True),
                          JE.EngineConfig(**_ecfg(over)))
-    tracer = jtracer.Tracer()
-    eng.set_tracer(tracer)
+    eng.set_tracer(jtracer.Tracer())
     rec = _record_logits(eng)
     metrics = eng.run_trace(_trace(jsched.make_trace, trace_kw))
-    return eng, rec, metrics, tracer
+    return eng, rec, metrics
 
 
 def _port(over, trace_kw, params, arch="yi-6b"):
     eng = TE.make_engine(TR.get(arch, reduced=True),
                          TE.EngineConfig(device="cpu", **_ecfg(over)),
                          params=params)
-    tracer = ttracer.Tracer()
-    eng.set_tracer(tracer)
+    eng.set_tracer(ttracer.Tracer())
     rec = _record_logits(eng)
     metrics = eng.run_trace(_trace(tsched.make_trace, trace_kw))
-    return eng, rec, metrics, tracer
+    return eng, rec, metrics
 
 
 def _assert_streams(ref, port):
-    (jeng, jrec, *_), (teng, trec, *_) = ref, port
+    (jeng, jrec, _), (teng, trec, _) = ref, port
     jby = {r.rid: r for r in jeng.completed}
     tby = {r.rid: r for r in teng.completed}
     assert jby.keys() == tby.keys()
@@ -369,8 +367,8 @@ def test_traced_events_match_reference(arch, name, weights, rwkv_weights):
     family without pages included)."""
     over, trace_kw = (RWKV_CASES if arch == "rwkv6-7b" else CASES)[name]
     params = rwkv_weights if arch == "rwkv6-7b" else weights
-    want = _events(_reference(name, arch)[3])
-    got = _events(_port(over, trace_kw, params, arch)[3])
+    want = _events(_reference(name, arch)[0].tracer)
+    got = _events(_port(over, trace_kw, params, arch)[0].tracer)
     assert len(got) == len(want)
     for i, (g, w) in enumerate(zip(got, want)):
         assert g == w, f"event {i}: port {g} != reference {w}"

@@ -518,14 +518,14 @@ def test_wkv6_chunk_plan_refuses_bad_overrides(chunk, hs, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_wkv6_chunk_plan_takes_the_largest_c_that_fits(dtype):
-    """Every C fits a block's shared memory at hs <= 64; at hs = 128 the
-    plan falls back to C = 32."""
+def test_wkv6_chunk_plan_fits_shared_memory(dtype):
+    """Every C fits a block's shared memory at hs <= 64, and the planned C
+    at every head size."""
     for hs in (32, 64):
         for c in wk.CHUNKS:
             assert wk.chunk_plan(1, 100, 2, hs, dtype, c).chunk == c
-    assert wk.chunk_plan(1, 100, 2, 128, dtype).chunk == min(
-        wk.PLANNED_CHUNK, 32)
+    for hs in wk.HEAD_SIZES:
+        assert wk.chunk_plan(1, 100, 2, hs, dtype).chunk == wk.PLANNED_CHUNK
 
 
 def test_wkv6_wrapper_reads_nothing_back_to_the_host():
