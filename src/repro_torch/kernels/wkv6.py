@@ -31,7 +31,7 @@ CHUNKS = (16, 32, 64)
 #: the planned C and the shortest T that takes the chunked design
 #: (chip_smoke.py --sweep)
 PLANNED_CHUNK = 32
-CHUNKED_MIN_T = 32
+CHUNKED_MIN_T = 48
 MAX_SMEM = 232448            # a block's shared memory on sm_90
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
