@@ -49,11 +49,20 @@ Phases, one line each; any failure raises and exits non-zero:
 3. parity  — full-width yi-6b and rwkv6-7b at 2 layers in float32 (TF32
              off): each engine with its kernels against the same engine
              on the plain path, teacher-forced on the plain run's tokens;
-             per-step logits within 1e-3.
+             per-step logits within 1e-3.  Then yi-6b's fused paged
+             engine (fuse_steps=8, kernels on, one CUDA graph per
+             bucketed horizon) against its per-tick paged engine on the
+             same trace: identical tokens and finish reasons.
 4. serve   — full-width, full-depth models in bf16 (random weights from a
              seeded generator), 4 requests of 256-1024 prompt tokens and
              32 new tokens each through ``Scheduler.run_trace``: yi-6b on
-             the paged engine (chunked prefill 128, paged kernel), then on
+             the paged engine (chunked prefill 128, paged kernel), then the
+             same engine fusing up to 16 decode steps a tick (one CUDA
+             graph per bucketed horizon, every bucket captured before the
+             trace), which must give the per-tick run's tokens and finish
+             reasons and launch the paged kernel (per-tick steps + the
+             bucketed steps of every horizon) x 32 times, counted through
+             the replays; then on
              the dense engine (dense kernel); then rwkv6-7b on the paged
              engine with the WKV6 kernel (every prefill on the chunked
              design, every decode step on the serial one).  Every launch
@@ -687,6 +696,34 @@ def _lockstep(entry, params, ecfg_kw, trace):
     return agree, total, err
 
 
+def _streams(eng):
+    return {r.rid: (r.tokens_out, r.finish_reason) for r in eng.completed}
+
+
+def _fused_parity(entry, params, ecfg_kw, trace):
+    """The fused paged engine (fuse_steps=8, kernels on) against the
+    per-tick paged engine on one trace: the same tokens, bit for bit (the
+    two launch the same kernels at the same shapes)."""
+    from repro_torch.serving.engine import EngineConfig, make_engine
+    runs = []
+    for fuse in (1, 8):
+        eng = make_engine(entry, EngineConfig(use_pallas_decode=True,
+                                              fuse_steps=fuse, **ecfg_kw),
+                          params=params)
+        eng.run_trace(trace())
+        runs.append(eng)
+    per_tick, fused = (_streams(e) for e in runs)
+    if fused != per_tick:
+        bad = sorted(rid for rid in per_tick if fused.get(rid) !=
+                     per_tick[rid])
+        raise AssertionError(f"fused tokens differ from per-tick for "
+                             f"requests {bad}")
+    n = sum(len(t) for t, _ in per_tick.values())
+    print(f"[parity] fused paged engine (fuse_steps 8, graphs "
+          f"{sorted(runs[1]._fused_graphs)}) vs per-tick, yi-6b 2 layers "
+          f"f32: tokens {n}/{n} identical, {runs[1].fused_report()}")
+
+
 def phase_parity(registry, make_trace):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -709,6 +746,8 @@ def phase_parity(registry, make_trace):
                   f"kernels vs plain, {arch} 2 layers f32: max |logit err| "
                   f"{err:.3g} (tol {PARITY_TOL}), token agreement "
                   f"{agree}/{total}")
+        if arch == "yi-6b":
+            _fused_parity(entry, params, dict(base, paged=True), trace)
         del params
         torch.cuda.empty_cache()
 
@@ -718,15 +757,26 @@ def _serve(entry, params, ecfg, lens, make_trace, kmods, kernel, smi):
     every request finished its budget with finite logits and that the
     launch counts are the main path's: ``kernel`` once per layer per
     decode step (the WKV6 kernel also once per layer per prefill, there
-    on the chunked design), every other kernel never.  Returns the
-    counts and the metrics."""
+    on the chunked design; a fused engine's steps are the bucketed
+    ``n_steps`` of each horizon, counted through the graph replays),
+    every other kernel never.  A fused engine captures every bucket up
+    to its ``fuse_steps`` before the trace.  Returns the counts, the
+    metrics and each request's (tokens, finish reason)."""
     from repro_torch.serving.engine import EngineConfig, make_engine
     cfg = entry.config
     new = ecfg["max_new_tokens"]
+    fuse = ecfg.get("fuse_steps", 1)
     warm = make_engine(entry, EngineConfig(**ecfg), params=params)
     warm.run_trace(make_trace(cfg.vocab, rate_req_s=1e9, n_requests=1,
                               prompt_len=130, seed=9))
     eng = make_engine(entry, EngineConfig(**ecfg), params=params)
+    capture_s = 0.0
+    if fuse > 1:
+        t0 = time.perf_counter()
+        for n in range(1, fuse.bit_length()):
+            eng._fused_fn(1 << n)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
     seen = _watch(eng)
     prefills = []
     prefill = eng._prefill
@@ -739,13 +789,17 @@ def _serve(entry, params, ecfg, lens, make_trace, kmods, kernel, smi):
     done = eng.completed
     if len(done) != len(lens) or any(
             r.finish_reason != "budget" or len(r.tokens_out) != new
+            or not all(0 <= t < cfg.vocab for t in r.tokens_out)
             for r in done):
         got = [(r.rid, len(r.tokens_out), r.finish_reason) for r in done]
         raise AssertionError(f"not every request finished its budget: "
                              f"{got}")
     if not bool(seen["finite"]):
         raise AssertionError("non-finite logits in a decode step")
-    runs = seen["steps"] + (len(prefills) if kernel == "wkv6" else 0)
+    horizons = getattr(eng, "fused_horizons", [])
+    fused_steps = sum(1 << (k - 1).bit_length() for k in horizons)
+    runs = (seen["steps"] + fused_steps
+            + (len(prefills) if kernel == "wkv6" else 0))
     want = {kernel: runs * cfg.num_layers}
     if kernel == "wkv6":
         # every prompt (>= 256 tokens) takes the chunked design, every
@@ -756,13 +810,25 @@ def _serve(entry, params, ecfg, lens, make_trace, kmods, kernel, smi):
     keep = ("requests", "decoded_tokens", "tokens_per_s", "tbt_mean_s",
             "tbt_p99_s", "ttft_mean_s", "preemptions", "defrag_runs",
             "kv_peak_tokens", "wall_s")
-    print(f"[serve] {cfg.name} {cfg.num_layers} layers bf16, "
-          f"{'paged' if ecfg['paged'] else 'dense'} engine + {kernel}: "
-          f"prompts {lens.tolist()}, {new} new tokens, {len(prefills)} "
-          f"whole-prompt prefills, {seen['steps']} decode steps, launches "
-          f"{counts}; "
+    mode = "paged" if ecfg["paged"] else "dense"
+    if fuse > 1:
+        mode += f" fused (fuse_steps {fuse})"
+    print(f"[serve] {cfg.name} {cfg.num_layers} layers bf16, {mode} engine "
+          f"+ {kernel}: prompts {lens.tolist()}, {new} new tokens, "
+          f"{len(prefills)} whole-prompt prefills, {seen['steps']} per-tick "
+          f"decode steps, {len(horizons)} fused horizons of "
+          f"{fused_steps} bucketed steps, launches {counts}; "
           f"{json.dumps({k: metrics[k] for k in keep})} on {smi}")
-    return counts, metrics
+    if fuse > 1:
+        print("[serve] fused " + json.dumps({
+            "fuse_steps": fuse, "fused_report": eng.fused_report(),
+            "horizons": horizons, "buckets": sorted(eng._fused_graphs),
+            "capture_s": capture_s,
+            "replays": {n: g.replays for n, g in eng._fused_graphs.items()},
+            "metrics": {k: v for k, v in metrics.items() if k != "hists"},
+            "fused_horizon_hist": metrics["hists"]["fused_horizon"],
+            "card": smi}))
+    return counts, metrics, _streams(eng)
 
 
 def _init_full(registry, arch):
@@ -785,6 +851,7 @@ def _leaves(tree):
 
 
 def phase_serve(registry, make_trace, kmods, smi):
+    """Returns each kernel's launches by serve run."""
     lens = np.random.default_rng(0).integers(256, 1025, size=4)
     new = 32
     base = dict(max_batch=4, max_seq=int(lens.max()) + new + 2,
@@ -792,19 +859,34 @@ def phase_serve(registry, make_trace, kmods, smi):
                 use_pallas_decode=True)
     launches = {}
     entry, params = _init_full(registry, "yi-6b")
-    for paged, kernel in ((True, "paged_flash_decode"),
-                          (False, "flash_decode")):
-        counts, _ = _serve(entry, params, dict(base, paged=paged), lens,
-                           make_trace, kmods, kernel, smi)
-        launches[kernel] = counts[kernel]
+    counts, _, per_tick = _serve(entry, params, dict(base, paged=True), lens,
+                                 make_trace, kmods, "paged_flash_decode", smi)
+    launches["paged_flash_decode"] = {
+        "yi-6b paged": counts["paged_flash_decode"]}
+    # 16 = one page: the most the page-edge clamp lets through, so the
+    # run uses every bucket 2..16
+    counts, _, fused = _serve(entry, params,
+                              dict(base, paged=True, fuse_steps=PAGE), lens,
+                              make_trace, kmods, "paged_flash_decode", smi)
+    if fused != per_tick:
+        bad = sorted(rid for rid in per_tick if fused.get(rid) !=
+                     per_tick[rid])
+        raise AssertionError(f"fused serve tokens differ from per-tick for "
+                             f"requests {bad}")
+    launches["paged_flash_decode"]["yi-6b paged fused"] = \
+        counts["paged_flash_decode"]
+    counts, _, _ = _serve(entry, params, dict(base, paged=False), lens,
+                          make_trace, kmods, "flash_decode", smi)
+    launches["flash_decode"] = {"yi-6b dense": counts["flash_decode"]}
     del params
     torch.cuda.empty_cache()
     # rwkv6 prefills whole prompts (prefill_chunk is for attention
     # families) and its state holds no pages
     entry, params = _init_full(registry, "rwkv6-7b")
-    counts, metrics = _serve(entry, params, dict(base, paged=True), lens,
-                             make_trace, kmods, "wkv6", smi)
-    launches.update(wkv6=counts["wkv6"], wkv6_chunked=counts["wkv6_chunked"])
+    counts, metrics, _ = _serve(entry, params, dict(base, paged=True), lens,
+                                make_trace, kmods, "wkv6", smi)
+    launches.update(wkv6={"rwkv6-7b paged": counts["wkv6"]},
+                    wkv6_chunked={"rwkv6-7b paged": counts["wkv6_chunked"]})
     if metrics["kv_peak_tokens"] != 0:
         raise AssertionError(f"rwkv6 paged KV peak "
                              f"{metrics['kv_peak_tokens']} != 0")
@@ -841,7 +923,9 @@ def main() -> None:
     for row in rows:
         # the decode GEMM is on no serving path: every serve run above
         # asserted its counts stayed 0
-        row["launches"] = launches.get(row["name"], 0)
+        by_run = launches.get(row["name"], {})
+        row["launches"] = sum(by_run.values())
+        row["launches_by_run"] = by_run
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -14,6 +14,10 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import snake_gemm as sg
 from repro_torch.kernels import wkv6 as wk
 
+#: every kernel wrapper's launch counts (each module's ``LAUNCHES``; the
+#: dicts are reset in place, so these references stay valid)
+LAUNCH_COUNTS = (fd.LAUNCHES, sg.LAUNCHES, wk.LAUNCHES)
+
 
 def _route(x: torch.Tensor) -> str:
     if x.device.type not in ("cpu", "cuda"):

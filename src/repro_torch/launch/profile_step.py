@@ -16,6 +16,19 @@ same way).  One more prefill unit of another request (a chunk, or a
 whole prompt) then runs under the profiler.  Each profiled window lists
 its largest device ops with their share of its device time.  Prints one
 JSON line.
+
+With ``--fuse-steps K`` the engine fuses up to K decode steps a tick
+(one CUDA graph per power-of-two horizon on the card, every bucket up to
+K captured first and timed as ``capture_s``).  After the per-tick steps,
+three per-tick windows (``--steps`` steps through ``step()``) alternate
+with three fused windows (ticks through ``tick()`` until ``max(--steps,
+2K)`` steps are decoded) on the same prompts, each timed on the host
+clock and reported as ms per decoded step; then one fused tick of
+horizon K runs under the profiler.  Both profiled windows report the
+host's launches (kernel launches, graph launches and copies issued by
+the host) beside the device's, and the span between CUDA events around
+the window, which reads the device's time even where a profiler does
+not see the kernels inside a graph replay.
 """
 from __future__ import annotations
 
@@ -36,6 +49,9 @@ from repro_torch.serving.scheduler import make_trace
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 # the port's hand-written kernels (csrc/*.cu), by __global__ name
 PORT_KERNELS = re.compile(r"wkv6_\w+|decode_\w+_kernel|snake_gemm_kernel")
+# the host's submissions of device work, by CUDA API name
+HOST_LAUNCHES = re.compile(r"^cu(da)?(LaunchKernel\w*|GraphLaunch|"
+                           r"Memcpy\w*|Memset\w*)$")
 
 
 def _nbytes(tree) -> int:
@@ -63,11 +79,17 @@ def _profile(fn, device: torch.device) -> dict:
     device ops (each with its share of the busy time) and the device time
     of each of the port's own kernels of one ``fn()``."""
     acts = [torch.profiler.ProfilerActivity.CPU]
+    events = None
     if device.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
+        if events:
+            events[0].record()
         fn()
+        if events:
+            events[1].record()
         _sync(device)
         wall_ms = (time.perf_counter() - t0) * 1e3
     # the device-side entries only: an op's own row repeats the time of
@@ -82,13 +104,76 @@ def _profile(fn, device: torch.device) -> dict:
         if m:
             port[m.group(0)] = port.get(m.group(0), 0.0) + \
                 e.self_device_time_total / 1e3
+    host = sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CPU
+               and HOST_LAUNCHES.match(e.key))
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "event_span_ms": (events[0].elapsed_time(events[1])
+                              if events else None),
             "port_kernels_ms": port,
             "launches": sum(e.count for e in kernels),
+            "host_launches": host,
             "top": [{"name": e.key[:60], "count": e.count,
                      "ms": e.self_device_time_total / 1e3,
                      "share": (e.self_device_time_total / 1e3 / busy_ms
                                if busy_ms else 0.0)} for e in top]}
+
+
+def _fused_windows(eng, steps: int, window: int,
+                   device: torch.device) -> dict:
+    """Capture every bucket up to ``fuse_steps``, then alternate three
+    per-tick windows of ``steps`` steps with three fused windows of at
+    least ``window`` decoded steps; then profile one fused tick of the
+    full horizon."""
+    fuse = eng.ecfg.fuse_steps
+    t0 = time.perf_counter()
+    for n in range(1, fuse.bit_length()):
+        eng._fused_fn(1 << n)
+    _sync(device)
+    capture_s = time.perf_counter() - t0
+
+    def tick() -> int:
+        """One tick; the steps it decoded."""
+        n0 = len(eng.fused_horizons)
+        eng.tick()
+        return eng.fused_horizons[-1] if len(eng.fused_horizons) > n0 else 1
+
+    rounds = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        per_tick_ms = (time.perf_counter() - t0) * 1e3
+        horizons = []
+        t0 = time.perf_counter()
+        while sum(horizons) < window:
+            horizons.append(tick())
+        fused_ms = (time.perf_counter() - t0) * 1e3
+        rounds.append({"per_tick_ms_per_step": per_tick_ms / steps,
+                       "fused_ms_per_step": fused_ms / sum(horizons),
+                       "fused_horizons": horizons})
+    # align to a page edge so the profiled tick runs the full horizon
+    eng._pre_decode_grow()
+    if eng._fused_horizon() < fuse:
+        tick()
+    eng._pre_decode_grow()
+    horizon = eng._fused_horizon()
+    prof = _profile(tick, device)
+    fused_ms = statistics.median(r["fused_ms_per_step"] for r in rounds)
+    on_card = device.type == "cuda"
+    return {"fuse_steps": fuse, "capture_s": capture_s,
+            "buckets": sorted(eng._fused_graphs), "rounds": rounds,
+            "per_tick_ms_per_step_median": statistics.median(
+                r["per_tick_ms_per_step"] for r in rounds),
+            "fused_ms_per_step_median": fused_ms,
+            "profiled_tick_horizon": horizon,
+            "profiled_tick": prof,
+            # against unprofiled fused steps: the profiler slows the host
+            "device_busy_share": (prof["device_busy_ms"]
+                                  / (fused_ms * horizon)
+                                  if on_card else None),
+            "host_launches_per_horizon": prof["host_launches"],
+            "fused_report": eng.fused_report()}
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
@@ -100,13 +185,26 @@ def main(argv: Optional[List[str]] = None) -> dict:
     ap.add_argument("--context", type=int, default=768)
     ap.add_argument("--chunk", type=int, default=128)
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--fuse-steps", type=int, default=None,
+                    help="also time fused ticks of up to K steps, in "
+                         "windows alternated with per-tick ones")
     args = ap.parse_args(argv)
     entry = registry.get(args.arch, reduced=not args.full)
     cfg = entry.config
+    fuse = args.fuse_steps
+    if fuse is not None and fuse < 1:
+        ap.error("--fuse-steps must be >= 1")
+    # decode steps the run takes: the per-tick steps, then (fused) three
+    # pairs of windows, an alignment tick and the profiled tick
+    window = max(args.steps, 2 * (fuse or 0))
+    budget = args.steps + 4
+    if fuse:
+        budget += 3 * (args.steps + window + fuse) + 2 * fuse
     base = dict(max_batch=args.batch,
-                max_seq=args.context + args.steps + 8,
-                max_new_tokens=args.steps + 4, paged=True,
-                use_pallas_decode=True, device=args.device)
+                max_seq=args.context + budget + 4,
+                max_new_tokens=budget, paged=True,
+                use_pallas_decode=True, device=args.device,
+                fuse_steps=fuse or 1)
     eng = make_engine(entry, EngineConfig(**base))
     dev = eng.device
     for req in make_trace(cfg.vocab, rate_req_s=1e9, n_requests=args.batch,
@@ -121,9 +219,10 @@ def main(argv: Optional[List[str]] = None) -> dict:
         step_ms.append((time.perf_counter() - t0) * 1e3)
 
     step = _profile(eng.step, dev)
+    fused = _fused_windows(eng, args.steps, window, dev) if fuse else None
 
     chunked = make_engine(entry, EngineConfig(**dict(
-        base, prefill_chunk=args.chunk)), params=eng.params)
+        base, prefill_chunk=args.chunk, fuse_steps=1)), params=eng.params)
     (req,) = make_trace(cfg.vocab, rate_req_s=1e9, n_requests=1,
                         prompt_len=args.context, seed=1)
     chunk_ms = []
@@ -174,6 +273,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
         "device_busy_share": (step["device_busy_ms"]
                               / statistics.median(step_ms)),
         "device_launches_per_step": step["launches"],
+        "host_launches_per_step": step["host_launches"],
         "top_device_ops": step["top"],
         "port_kernels_ms_per_step": step["port_kernels_ms"],
         "weight_bytes_per_step": weight_bytes,
@@ -184,6 +284,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
         "prefill_chunk_ms": chunk_ms,
         # one more prefill unit (a chunk, or a whole prompt) profiled
         "profiled_prefill": prefill,
+        "fused": fused,
         "card": _card(dev)}
     print(json.dumps(out))
     return out

@@ -17,13 +17,16 @@ recurrence of prefill and decode through the WKV6 CUDA kernel;
 ``--paged`` switches KV residency to the page pool (``--page-size``,
 ``--num-pages`` to oversubscribe; a recurrent state stays slot-dense)
 and ``--prefill-chunk`` interleaves Sarathi prefill chunks with the
-decode batch (attention families only: rwkv6 prefills whole prompts).  ``--eos-rate`` samples per-request early-stop decode lengths;
-``--trace-file`` replays a recorded JSON trace.
+decode batch (attention families only: rwkv6 prefills whole prompts).
+``--fuse-steps K`` (with ``--paged``) fuses up to K decode steps per
+tick, each power-of-two horizon one CUDA graph on the card (attention
+families; rwkv6 decode stays per tick).  ``--eos-rate`` samples
+per-request early-stop decode lengths; ``--trace-file`` replays a
+recorded JSON trace.
 
 Flags of features that later slices port (prefix sharing, placement,
-co-design pricing, the fused decode tick, multi-replica routing, tiers
-and Perfetto export) are accepted by the parser and refused with an
-error that names them.
+co-design pricing, multi-replica routing, tiers and Perfetto export) are
+accepted by the parser and refused with an error that names them.
 """
 from __future__ import annotations
 
@@ -40,7 +43,6 @@ UNPORTED = {
     "shared_prefix": (0, "prefix sharing"),
     "placement": (None, "placement and priced page moves"),
     "codesign": (False, "co-design pricing"),
-    "fuse_steps": (1, "the fused decode tick"),
     "placement_regions": (None, "placement and priced page moves"),
     "codesign_rows": (None, "co-design pricing"),
     "reconfig_cost": (None, "co-design pricing"),
@@ -90,6 +92,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--trace-file", type=str, default=None,
                     help="replay a recorded JSON trace "
                          "(serving.scheduler.load_trace format)")
+    ap.add_argument("--fuse-steps", type=int, default=1,
+                    help="fuse up to K decode steps per tick (paged "
+                         "engine; one CUDA graph per power-of-two "
+                         "horizon on the card)")
     # not ported yet: refused in main()
     ap.add_argument("--prefix-sharing", action="store_true")
     ap.add_argument("--shared-prefix", type=int, default=0)
@@ -99,7 +105,6 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--codesign-rows", type=int, default=None,
                     choices=[8, 16, 32, 64])
     ap.add_argument("--reconfig-cost", type=float, default=None)
-    ap.add_argument("--fuse-steps", type=int, default=1)
     ap.add_argument("--replicas", type=int, default=1)
     ap.add_argument("--router-policy", default="round_robin",
                     choices=ROUTER_POLICIES)
@@ -113,6 +118,11 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[List[str]] = None) -> dict:
     ap = build_parser()
     args = ap.parse_args(argv)
+    if args.fuse_steps > 1 and not args.paged:
+        ap.error("--fuse-steps requires --paged (the fused scan runs on "
+                 "the block-table decode step)")
+    if args.fuse_steps < 1:
+        ap.error("--fuse-steps must be >= 1")
     for dest, (unused, feature) in UNPORTED.items():
         if getattr(args, dest) != unused:
             ap.error(f"--{dest.replace('_', '-')} is not ported yet "
@@ -131,6 +141,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
                         num_pages=args.num_pages,
                         defrag_threshold=(None if args.defrag_threshold < 0
                                           else args.defrag_threshold),
+                        fuse_steps=args.fuse_steps,
                         device=args.device)
     vocab = entry.config.vocab
     if args.trace_file:

@@ -55,8 +55,9 @@ def apply_norm(kind: str, p: Params, x: torch.Tensor,
 def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
     exps = torch.arange(0, d_head, 2, dtype=torch.float32,
                         device=device) / d_head
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exps)
+    # a Python-scalar base: no host-to-device copy, so a decode step can
+    # be captured in a CUDA graph
+    return 1.0 / torch.pow(float(theta), exps)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

@@ -3,7 +3,8 @@
 
 ``init`` builds the reference's stacked-parameter tree (layer dim
 leading) as torch tensors; ``prefill`` / ``extend_step`` /
-``decode_step`` / ``decode_step_paged`` walk the layers in a Python loop.
+``decode_step`` / ``decode_step_paged`` walk the layers in a Python loop,
+and ``decode_fused_paged`` loops ``decode_step_paged`` over a horizon.
 Where the reference threads caches and pools through ``lax`` loops and
 returns fresh arrays, these functions write the new K/V into the tensors
 they were given, in place, and return them.
@@ -234,6 +235,50 @@ def decode_step_paged(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     x = L.apply_norm(cfg.norm, params["ln_f"], x)
     logits = L.unembed(params["embed"], x)
     return logits, (k_pool, v_pool, lengths + 1)
+
+
+def decode_fused_paged(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
+                       k_pool: torch.Tensor, v_pool: torch.Tensor,
+                       tables: torch.Tensor, lengths: torch.Tensor,
+                       alive: torch.Tensor, k_active: torch.Tensor,
+                       n_steps: int, tp: int = 1, attn_fn=None,
+                       eos_id: int = -1):
+    """Fuse ``n_steps`` paged decode iterations, with greedy argmax,
+    token feedback, per-lane length advance and eos freezing all on the
+    device (the reference's ``lax.scan``; here a Python loop that the
+    engine captures into one CUDA graph per ``n_steps``).
+
+    ``k_active`` (a 0-d int32 tensor) is the actual horizon: steps at
+    index >= ``k_active`` leave every lane frozen, so a bucketed
+    ``n_steps`` emits exactly the tokens of an exact-length loop.
+    ``alive`` is a (B,) bool tensor.  Nothing is read back to the host,
+    so the loop can be captured.
+
+    A frozen lane (inactive, eos'd, or index >= ``k_active``) still runs
+    the step: its K/V write lands at its frozen length, one past its
+    valid context, on a page it owns (or the scratch page, for inactive
+    lanes whose table rows the caller routed there), but it emits
+    nothing: ``emitted[j, b]`` marks the steps whose ``tokens_out[j, b]``
+    is real.
+
+    Returns ``(tokens_out (n_steps, B), emitted (n_steps, B), k_pool,
+    v_pool, lengths)``; the pools are written in place.
+    """
+    toks, ln, al = tokens, lengths, alive
+    tok_seq, emit_seq = [], []
+    for idx in range(n_steps):
+        logits, _ = decode_step_paged(params, cfg, toks, k_pool, v_pool,
+                                      tables, ln, tp=tp, attn_fn=attn_fn)
+        nxt = logits[:, :cfg.vocab].argmax(-1).to(toks.dtype)
+        run = al & (k_active > idx)
+        toks = torch.where(run, nxt, toks)
+        ln = torch.where(run, ln + 1, ln)
+        if eos_id >= 0:
+            al = al & ~(run & (nxt == eos_id))
+        tok_seq.append(toks)
+        emit_seq.append(run)
+    return (torch.stack(tok_seq), torch.stack(emit_seq), k_pool, v_pool,
+            ln)
 
 
 def decode_step(params: Params, cfg: ArchConfig, tokens: torch.Tensor,

@@ -20,9 +20,14 @@ With ``prefill_chunk`` set, prompts of the attention families advance
 one Sarathi chunk of ``transformer.extend_step`` per tick, co-scheduled
 with the decode batch; the paged engine writes those chunks straight
 into pages.  Families without ``extend_step`` prefill whole prompts.  The
-trace-driving loop lives in ``serving/scheduler.py``.  Prefix sharing,
-placement, co-design pricing, the fused decode tick and page shipping
-arrive with later slices.
+trace-driving loop lives in ``serving/scheduler.py``.
+
+With ``fuse_steps`` > 1 the paged engine of an attention family fuses up
+to that many decode steps per tick (``transformer.decode_fused_paged``);
+on the card each power-of-two bucket of that horizon is one CUDA graph,
+captured at its first use and replayed (``serving/fused_graph.py``).
+Prefix sharing, placement, co-design pricing and page shipping arrive
+with later slices.
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ from repro_torch.device import resolve
 from repro_torch.kernels import ops as kops
 from repro_torch.models import registry
 from repro_torch.obs.tracer import NULL_TRACER
+from repro_torch.serving.fused_graph import FusedGraph
 from repro_torch.serving.paged_cache import PagedCache, num_blocks
 from repro_torch.serving.replica_api import LoadReport
 from repro_torch.serving.scheduler import RequestState, Scheduler
@@ -67,6 +73,14 @@ class EngineConfig:
     # run PagedCache.defrag() when the fraction of holes below the
     # high-water page index exceeds this (None disables the trigger)
     defrag_threshold: Optional[float] = 0.5
+    # fuse up to K decode steps into one device-resident loop with
+    # tokens, lengths, and eos/finish masks on the device (paged engine
+    # only; 1 keeps the per-tick host loop), one CUDA graph per bucketed
+    # horizon on the card.  The actual horizon each tick is
+    # min(fuse_steps, steps-until-any-slot-needs-a-new-page,
+    # min-remaining-decode-budget), so allocation and token streams stay
+    # exactly identical to the per-tick engine
+    fuse_steps: int = 1
     device: str = "cuda"
 
 
@@ -393,6 +407,20 @@ class PagedServingEngine(ServingEngine):
         self.pages_peak = 0
         self.pages_logical_peak = 0
         self.defrag_runs = 0
+        # fused multi-step decode: one FusedGraph per bucketed horizon
+        # length (the reference's jit per bucket), all in one graph memory
+        # pool, plus the host/device wall split for the host-overhead
+        # metric
+        self._fused_graphs: Dict[int, FusedGraph] = {}
+        self._graph_pool = None
+        self._fused_ticks = 0
+        self._fused_steps_sum = 0
+        self._fused_host_s = 0.0
+        self._fused_device_s = 0.0
+        # realized horizons (obs histogram source) and the constraint
+        # that clamped the most recent one (fused_tick trace events)
+        self.fused_horizons: List[int] = []
+        self._last_horizon_clamp = "fuse_steps"
 
     def set_tracer(self, tracer, replica: int = 0) -> None:
         super().set_tracer(tracer, replica)
@@ -582,6 +610,194 @@ class PagedServingEngine(ServingEngine):
         store[li] = torch.where(act, new_len, store[li])
         self.paged.store = store
         return logits
+
+    # -- fused multi-step decode (one CUDA graph per bucketed horizon) --
+    def tick(self) -> int:
+        # the reference also keeps a prefill-role replica per tick; roles
+        # arrive with the router and tiers slice
+        if (self.ecfg.fuse_steps <= 1 or not self.paged.has_seq
+                or self.cfg.family not in _ATTN_FAMILIES
+                or not hasattr(self.entry.module, "decode_fused_paged")):
+            return super().tick()
+        return self._fused_tick()
+
+    def _fused_horizon(self) -> int:
+        """K = min(fuse_steps, steps until any active slot crosses its
+        mapped page window, min remaining decode budget) — computed from
+        ``_lengths_host`` so nothing inside the fused loop ever needs a
+        page allocation, and budget finishes land exactly on the final
+        step.  Token-level eos cannot be predicted from host state; those
+        lanes freeze on device instead (``emitted`` masks their tail
+        steps)."""
+        ps = self.ecfg.page_size
+        k = self.ecfg.fuse_steps
+        clamp = "fuse_steps"            # which constraint set the horizon
+        for slot, req in self.active.items():
+            cap = (len(self.paged.blocks_of(slot)) * ps
+                   - int(self._lengths_host[slot]))
+            if cap < k:
+                k, clamp = cap, "page_edge"
+            bud = self._budget(req) - len(req.tokens_out)
+            if bud < k:
+                k, clamp = bud, "budget"
+        self._last_horizon_clamp = clamp
+        return max(1, k)
+
+    def _fused_fn(self, n_steps: int) -> FusedGraph:
+        """The fused loop of ``n_steps`` steps, cached per bucket: a CUDA
+        graph captured on first use on the card, the eager loop on the
+        CPU."""
+        graph = self._fused_graphs.get(n_steps)
+        if graph is not None:
+            return graph
+        mod, cfg, tp = self.entry.module, self.cfg, self.tp
+        attn_fn = (kops.attention_decode_paged
+                   if self.ecfg.use_pallas_decode else None)
+        eos, b = self.ecfg.eos_id, self.ecfg.max_batch
+        scratch = self.paged.num_pages
+        ki, vi = [i for i, s in enumerate(self.paged.is_seq) if s]
+        kp, vp = self.paged.store[ki], self.paged.store[vi]
+        params = self.params
+
+        def body(packed, tables):
+            toks, lengths = packed[:b], packed[b:2 * b]
+            alive, k_active = packed[2 * b:3 * b] != 0, packed[3 * b]
+            # inactive lanes (a slot mid chunked-prefill has pages
+            # mapped) route to the scratch page, on device
+            tables = torch.where(alive[:, None], tables, scratch)
+            tok_seq, emit_seq, _, _, ln = mod.decode_fused_paged(
+                params, cfg, toks, kp, vp, tables, lengths, alive,
+                k_active, n_steps, tp=tp, attn_fn=attn_fn, eos_id=eos)
+            return torch.stack([tok_seq, emit_seq.to(tok_seq.dtype)]), ln
+
+        if self.device.type == "cuda" and self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        graph = FusedGraph(body, n_steps, b, self.paged.max_blocks,
+                           self.device, (kp, vp), self._graph_pool)
+        self._fused_graphs[n_steps] = graph
+        return graph
+
+    def _fused_tick(self) -> int:
+        """One scheduler tick = one prefill chunk + a K-step fused loop.
+
+        The host surfaces only here, at the fusion-horizon boundary:
+        admission/chunk advance, page growth + preemption, then ONE graph
+        replay and ONE fetch for all K tokens, then finish bookkeeping.
+        Falls back to the per-step path when the horizon degenerates to
+        a single step."""
+        t_tick0 = time.perf_counter()
+        ecfg = self.ecfg
+        # the reference also sizes the chunk for its co-design tick model
+        # here; co-design pricing (_note_tick) arrives with its slice
+        if self._chunkable():
+            self._prefill_chunk_tick()
+        t_dec0 = time.perf_counter() if self.tracer.enabled else 0.0
+        if not self.active:
+            if self.tracer.enabled:
+                self._trace_gauges()
+            return 0
+        self._pre_decode_grow()
+        k = self._fused_horizon()
+        if k <= 1:
+            n_fin = self.step()
+            if self.tracer.enabled:
+                self._trace_gauges()
+            return n_fin
+        # the reference forks the shared pages the next k writes touch
+        # here (_cow_horizon, with prefix sharing) and samples the gather
+        # cost (_note_gather_cost, with placement); both arrive with their
+        # slices
+        batch = len(self.active)
+        b = ecfg.max_batch
+        active = np.zeros((b,), bool)
+        active[list(self.active)] = True
+        packed = np.empty((3 * b + 1,), np.int32)
+        packed[:b] = self._next_tok
+        packed[b:2 * b] = np.where(active, self._lengths_host, 0)
+        packed[2 * b:3 * b] = active
+        packed[3 * b] = k
+        # bucket the loop length to a power of two: a handful of captured
+        # horizons serve every K, and lanes freeze at idx >= k on device
+        n_steps = 1 << (k - 1).bit_length()
+        fn = self._fused_fn(n_steps)
+        store = list(self.paged.store)
+        pools = [t for t, seq in zip(store, self.paged.is_seq) if seq]
+        t_dev0 = time.perf_counter()
+        out, new_len = fn(packed, self.paged.tables_device(), pools)
+        t_dev1 = time.perf_counter()
+        tok_h, emit_h = out[0], out[1].astype(bool)
+        li = self.paged.is_seq.index(False)      # the lengths leaf
+        store[li] = torch.where(self._tensor(active), new_len, store[li])
+        self.paged.store = store
+        finished = self._apply_fused(tok_h, emit_h, k, t_dev0, t_dev1)
+        t_tick1 = time.perf_counter()
+        self._fused_ticks += 1
+        self._fused_steps_sum += k
+        self.fused_horizons.append(k)
+        dev = t_dev1 - t_dev0
+        self._fused_device_s += dev
+        self._fused_host_s += (t_tick1 - t_tick0) - dev
+        if self.tracer.enabled:
+            # the span starts after the co-scheduled prefill chunk so
+            # prefill/decode phases stay disjoint
+            self.tracer.emit("fused_tick", ts=t_dec0,
+                             dur=t_tick1 - t_dec0, batch=batch,
+                             horizon=k, clamp=self._last_horizon_clamp,
+                             device_s=dev, finished=finished)
+            self._trace_gauges()
+        return finished
+
+    def _apply_fused(self, tok_seq: np.ndarray, emit_seq: np.ndarray,
+                     k: int, t0: float, t1: float) -> int:
+        """Host bookkeeping for one fused tick: append each lane's
+        emitted tokens, advance host lengths, retire finished requests.
+        ``emit_seq[j, slot]`` masks the steps a lane actually ran — a
+        lane frozen by an eos mid-horizon emits nothing afterwards, so
+        every append stays behind the emit guard (an unguarded append
+        double-counts the finished lane's last token).  Token times are
+        spread evenly over the horizon."""
+        ecfg = self.ecfg
+        times = [t0 + (j + 1) * (t1 - t0) / k for j in range(k)]
+        finished = 0
+        for slot, req in list(self.active.items()):
+            last_t = t1
+            for j in range(k):
+                if not emit_seq[j, slot]:
+                    continue
+                req.tokens_out.append(int(tok_seq[j, slot]))
+                req.token_times.append(times[j])
+                last_t = times[j]
+                self._lengths_host[slot] += 1
+            hit_eos = (ecfg.eos_id >= 0
+                       and req.tokens_out[-1] == ecfg.eos_id)
+            if hit_eos or len(req.tokens_out) >= self._budget(req):
+                self._finish(slot, req, last_t, hit_eos)
+                del self.active[slot]
+                self._release(slot)
+                finished += 1
+            else:
+                self._next_tok[slot] = req.tokens_out[-1]
+        return finished
+
+    def fused_report(self) -> dict:
+        """Fused-tick accounting ({} before any fused tick ran)."""
+        if not self._fused_ticks:
+            return {}
+        tot = self._fused_host_s + self._fused_device_s
+        return {"fused_ticks": self._fused_ticks,
+                "fused_steps_mean": (self._fused_steps_sum
+                                     / self._fused_ticks),
+                "host_frac": self._fused_host_s / tot if tot > 0 else 0.0}
+
+    def reset_fused_counters(self) -> None:
+        """Zero the fused-tick accounting — warmup-then-measure callers
+        call this between the capture run and the timed run so the
+        report covers only the measured region."""
+        self._fused_ticks = 0
+        self._fused_steps_sum = 0
+        self._fused_host_s = 0.0
+        self._fused_device_s = 0.0
+        self.fused_horizons = []
 
     def _gauges(self) -> dict:
         # a family with no sequence leaf (rwkv6) holds no pages: the

@@ -399,7 +399,8 @@ class PagedCache:
         """Compact live pages to the lowest indices.
 
         Returns the old->new mapping applied.  Pool data is permuted on
-        device; block tables and the allocator (refcounts preserved) are
+        device, in place (each pool keeps its storage); block tables and
+        the allocator (refcounts preserved) are
         renumbered, so the logical contents (``gather()``) are unchanged.
         The reference also prices the moved pages on its near-memory
         model; that accounting arrives with the placement slice.
@@ -412,8 +413,11 @@ class PagedCache:
         for old, new in mapping.items():
             perm[new] = old
         perm_dev = torch.as_tensor(perm, dtype=torch.long).to(self.device)
-        self.store = [pool[:, perm_dev] if seq else pool
-                      for pool, seq in zip(self.store, self.is_seq)]
+        # permute in place: a captured CUDA graph of the fused decode
+        # holds the pools' addresses, so their storage must never move
+        for pool, seq in zip(self.store, self.is_seq):
+            if seq:
+                pool.copy_(pool[:, perm_dev])
         lut = np.full(self.num_pages + 1, -1, np.int32)
         for old, new in mapping.items():
             lut[old] = new

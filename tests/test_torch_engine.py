@@ -55,6 +55,9 @@ CASES = {
                             seed=7)),
     "eos": (dict(paged=True, page_size=8, prefill_chunk=8),
             dict(prompt_lens=SKEWED, seed=5, eos_rate=0.3)),
+    # up to 8 decode steps a tick on the device (fused_tick events)
+    "fused": (dict(paged=True, page_size=8, fuse_steps=8),
+              dict(prompt_lens=SKEWED, seed=3)),
 }
 # the port's kernel path (plain on the CPU) against the reference's
 # plain path of the same layout
@@ -204,6 +207,8 @@ def test_engine_matches_reference(name, weights):
         assert tm["finish_eos"] > 0
     if ref_name == "paged":
         assert tm["defrag_runs"] > 0
+    if ref_name == "fused":
+        assert tm["fused_ticks"] == jm["fused_ticks"] > 0
     # on the CPU the kernel path runs the plain versions: no launches
     assert fd.LAUNCHES == {"flash_decode": 0, "paged_flash_decode": 0}
 

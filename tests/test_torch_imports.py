@@ -75,7 +75,7 @@ def test_cli_serves_rwkv6_on_cpu(capsys):
 @pytest.mark.parametrize("flag", [["--prefix-sharing"],
                                   ["--shared-prefix", "8"],
                                   ["--placement", "affinity"],
-                                  ["--codesign"], ["--fuse-steps", "4"],
+                                  ["--codesign"], ["--groups", "2"],
                                   ["--replicas", "2"], ["--tiers", "1:1"],
                                   ["--trace-out", "t.json"]])
 def test_cli_refuses_unported_flags(flag, capsys):
