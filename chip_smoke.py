@@ -52,7 +52,12 @@ Phases, one line each; any failure raises and exits non-zero:
              per-step logits within 1e-3.  Then yi-6b's fused paged
              engine (fuse_steps=8, kernels on, one CUDA graph per
              bucketed horizon) against its per-tick paged engine on the
-             same trace: identical tokens and finish reasons.
+             same trace: identical tokens and finish reasons; and the
+             same pair with prefix sharing on and prefill chunks of 4, on
+             four 37-token identical prompts of which two are extended
+             by 11 unique tokens (the ragged tail page is shared and
+             forked; the extended ones hold shared pages while their
+             chunks run beside the decode batch).
 4. serve   — full-width, full-depth models in bf16 (random weights from a
              seeded generator), 4 requests of 256-1024 prompt tokens and
              32 new tokens each through ``Scheduler.run_trace``: yi-6b on
@@ -62,14 +67,22 @@ Phases, one line each; any failure raises and exits non-zero:
              trace), which must give the per-tick run's tokens and finish
              reasons and launch the paged kernel (per-tick steps + the
              bucketed steps of every horizon) x 32 times, counted through
-             the replays; then on
-             the dense engine (dense kernel); then rwkv6-7b on the paged
+             the replays.  Then prefix sharing, every run fusing up to 16
+             steps: 4 prompts of 768 shared + 128 unique tokens at 4
+             req/s without and with sharing (768 is a whole number of
+             pages and chunks, so both compute the same KV: identical
+             tokens; the three later requests skip 768 prefill tokens
+             each; a lower KV peak; dedup > 1), then 4 identical
+             777-token prompts, shared, per tick and fused (identical
+             tokens, copy-on-write forks of the ragged tail), and the
+             cost of one fork at full width (host time of ``fork_page``;
+             device time of its in-place page copies).  Then yi-6b on the
+             dense engine (dense kernel), and rwkv6-7b on the paged
              engine with the WKV6 kernel (every prefill on the chunked
              design, every decode step on the serial one).  Every launch
              counter is set to 0 just before each run and read just after
-             it; the decode
-             GEMM is not wired into any model (as in the reference), so
-             its count on these runs is 0.
+             it; the decode GEMM is not wired into any model (as in the
+             reference), so its count on these runs is 0.
 
 The last three lines are the kernels' JSON, the card's name and power
 limit as nvidia-smi reports them, and the result JSON.  Exits non-zero
@@ -97,6 +110,9 @@ HQ, HKV, D, PAGE = 32, 4, 128, 16
 LENGTHS = [0, 1, 16, 17, 255, 1000, 2048, 4096]
 # profile_step.py's decode step: B=4, contexts 768-778, a window of 800
 SERVE_LENGTHS, SERVE_CAP = [768, 771, 775, 778], 800
+# the shared-prefix serve: a system prompt of a whole number of pages and
+# of 128-token chunks, then an identical prompt with a ragged tail page
+SHARED_PREFIX, SHARED_TAIL, IDENTICAL_PROMPT = 768, 128, 777
 KERNEL_TOL = dict(rtol=2e-2, atol=2e-2)
 F32_KERNEL_TOL = dict(rtol=2e-5, atol=2e-5)
 PARITY_TOL = dict(rtol=1e-3, atol=1e-3)
@@ -703,7 +719,8 @@ def _streams(eng):
 def _fused_parity(entry, params, ecfg_kw, trace):
     """The fused paged engine (fuse_steps=8, kernels on) against the
     per-tick paged engine on one trace: the same tokens, bit for bit (the
-    two launch the same kernels at the same shapes)."""
+    two launch the same kernels at the same shapes).  Returns the
+    per-tick and the fused engine."""
     from repro_torch.serving.engine import EngineConfig, make_engine
     runs = []
     for fuse in (1, 8):
@@ -719,12 +736,50 @@ def _fused_parity(entry, params, ecfg_kw, trace):
         raise AssertionError(f"fused tokens differ from per-tick for "
                              f"requests {bad}")
     n = sum(len(t) for t, _ in per_tick.values())
-    print(f"[parity] fused paged engine (fuse_steps 8, graphs "
+    what = "shared " if ecfg_kw.get("prefix_sharing") else ""
+    print(f"[parity] fused {what}paged engine (fuse_steps 8, graphs "
           f"{sorted(runs[1]._fused_graphs)}) vs per-tick, yi-6b 2 layers "
           f"f32: tokens {n}/{n} identical, {runs[1].fused_report()}")
+    return runs
 
 
-def phase_parity(registry, make_trace):
+def _shared_parity(entry, params, base, sched):
+    """Prefix sharing under both decode paths (kernels on, prefill chunks
+    of 4): four identical 37-token prompts, the last two extended by 11
+    unique tokens.  Request 1 maps all three pages of request 0's prompt
+    (the tail page by exact match), recomputes only the last token and
+    forks the tail page at its first decode write; requests 2 and 3 map
+    the two full pages and prefill 16 tokens in 4 chunks, holding live
+    shared pages while the decode batch runs."""
+    vocab = entry.config.vocab
+
+    def trace():
+        reqs = sched.make_shared_prefix_trace(
+            vocab, rate_req_s=1e9, n_requests=4, prefix_len=37, tail_len=0,
+            seed=2)
+        rng = np.random.default_rng(4)
+        for r in reqs[2:]:
+            r.prompt = np.concatenate(
+                [r.prompt, rng.integers(0, vocab, 11).astype(np.int32)])
+        return reqs
+
+    runs = _fused_parity(entry, params, dict(base, paged=True,
+                                             prefix_sharing=True,
+                                             prefill_chunk=4), trace)
+    reports = [e.kv_report() for e in runs]
+    for rep in reports:
+        # 36 + 32 + 32 prompt tokens skipped; one fork of the tail page
+        # (request 1's first write; request 0's page is then its own)
+        if (rep["prefill_skipped_tokens"] != 100 or rep["cow_forks"] != 1
+                or rep["dedup_ratio_peak"] <= 1.0):
+            raise AssertionError(f"sharing counters off: {rep}")
+    print("[parity] shared paged engine (per tick, fused): "
+          + json.dumps({k: [r[k] for r in reports] for k in (
+              "cow_forks", "prefill_skipped_tokens", "dedup_ratio_peak",
+              "peak_tokens")}))
+
+
+def phase_parity(registry, sched):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     lens = np.array([100, 300, 17, 180])
@@ -735,9 +790,9 @@ def phase_parity(registry, make_trace):
         params = entry.module.init(entry.config, device="cuda", seed=1)
 
         def trace():
-            return make_trace(entry.config.vocab, rate_req_s=1e9,
-                              n_requests=len(lens), prompt_len=0, seed=2,
-                              prompt_lens=lens)
+            return sched.make_trace(entry.config.vocab, rate_req_s=1e9,
+                                    n_requests=len(lens), prompt_len=0,
+                                    seed=2, prompt_lens=lens)
 
         for paged in (True, False):
             agree, total, err = _lockstep(entry, params,
@@ -748,13 +803,14 @@ def phase_parity(registry, make_trace):
                   f"{agree}/{total}")
         if arch == "yi-6b":
             _fused_parity(entry, params, dict(base, paged=True), trace)
+            _shared_parity(entry, params, base, sched)
         del params
         torch.cuda.empty_cache()
 
 
-def _serve(entry, params, ecfg, lens, make_trace, kmods, kernel, smi):
-    """Serve the 4-request trace after a 1-request warm-up; check that
-    every request finished its budget with finite logits and that the
+def _serve(entry, params, ecfg, reqs, sched, kmods, kernel, smi):
+    """Serve the request trace ``reqs`` after a 1-request warm-up; check
+    that every request finished its budget with finite logits and that the
     launch counts are the main path's: ``kernel`` once per layer per
     decode step (the WKV6 kernel also once per layer per prefill, there
     on the chunked design; a fused engine's steps are the bucketed
@@ -767,8 +823,8 @@ def _serve(entry, params, ecfg, lens, make_trace, kmods, kernel, smi):
     new = ecfg["max_new_tokens"]
     fuse = ecfg.get("fuse_steps", 1)
     warm = make_engine(entry, EngineConfig(**ecfg), params=params)
-    warm.run_trace(make_trace(cfg.vocab, rate_req_s=1e9, n_requests=1,
-                              prompt_len=130, seed=9))
+    warm.run_trace(sched.make_trace(cfg.vocab, rate_req_s=1e9, n_requests=1,
+                                    prompt_len=130, seed=9))
     eng = make_engine(entry, EngineConfig(**ecfg), params=params)
     capture_s = 0.0
     if fuse > 1:
@@ -781,13 +837,11 @@ def _serve(entry, params, ecfg, lens, make_trace, kmods, kernel, smi):
     prefills = []
     prefill = eng._prefill
     eng._prefill = lambda *a: prefills.append(1) or prefill(*a)
-    reqs = make_trace(cfg.vocab, rate_req_s=4.0, n_requests=len(lens),
-                      prompt_len=0, seed=0, prompt_lens=lens)
     _reset(kmods)
     metrics = eng.run_trace(reqs)
     counts = _launches(kmods)
     done = eng.completed
-    if len(done) != len(lens) or any(
+    if len(done) != len(reqs) or any(
             r.finish_reason != "budget" or len(r.tokens_out) != new
             or not all(0 <= t < cfg.vocab for t in r.tokens_out)
             for r in done):
@@ -809,12 +863,16 @@ def _serve(entry, params, ecfg, lens, make_trace, kmods, kernel, smi):
         raise AssertionError(f"launches {counts}, want {want}")
     keep = ("requests", "decoded_tokens", "tokens_per_s", "tbt_mean_s",
             "tbt_p99_s", "ttft_mean_s", "preemptions", "defrag_runs",
-            "kv_peak_tokens", "wall_s")
+            "kv_peak_tokens", "kv_dedup_ratio_peak", "cow_forks",
+            "prefill_skipped_tokens", "wall_s")
     mode = "paged" if ecfg["paged"] else "dense"
+    if ecfg.get("prefix_sharing"):
+        mode += " shared"
     if fuse > 1:
         mode += f" fused (fuse_steps {fuse})"
     print(f"[serve] {cfg.name} {cfg.num_layers} layers bf16, {mode} engine "
-          f"+ {kernel}: prompts {lens.tolist()}, {new} new tokens, "
+          f"+ {kernel}: prompts {[len(r.prompt) for r in reqs]}, {new} new "
+          f"tokens, "
           f"{len(prefills)} whole-prompt prefills, {seen['steps']} per-tick "
           f"decode steps, {len(horizons)} fused horizons of "
           f"{fused_steps} bucketed steps, launches {counts}; "
@@ -850,41 +908,157 @@ def _leaves(tree):
         yield tree
 
 
-def phase_serve(registry, make_trace, kmods, smi):
+def _same_streams(label, got, want):
+    if got != want:
+        bad = sorted(rid for rid in want if got.get(rid) != want[rid])
+        raise AssertionError(f"{label}: tokens differ for requests {bad}")
+
+
+def _fork_cost(entry):
+    """One copy-on-write fork at full width: ``PagedCache.fork_page`` on
+    a page two slots map, host clock around the call and a synchronise;
+    and the device time of its copies alone (every sequence pool's page
+    copied in place), replayed from a CUDA graph with the L2 flushed.
+    The bound reads and writes each pool's page once."""
+    from repro_torch.serving.paged_cache import PagedCache
+    pc = PagedCache(entry, max_batch=2, max_seq=2 * PAGE, page_size=PAGE,
+                    num_pages=4, share=True, device="cuda")
+    prompt = np.arange(PAGE, dtype=np.int32)
+    if not (pc.alloc_slot(0, PAGE, tokens=prompt)):
+        raise AssertionError("fork setup: no pages")
+    pc.commit_prefix(0)
+    if not (pc.alloc_slot(1, PAGE, tokens=prompt)
+            and pc.alloc.refcount(int(pc.tables[1, 0])) == 2):
+        raise AssertionError("fork setup: the page is not shared")
+    pools = [t for t, seq in zip(pc.store, pc.is_seq) if seq]
+    for pool in pools:
+        pool.normal_()
+    pc.tables_device()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if not pc.fork_page(1, 0):
+        raise AssertionError("fork_page found no free page")
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    old, new = int(pc.tables[0, 0]), int(pc.tables[1, 0])
+    for pool in pools:
+        if not torch.equal(pool[:, new], pool[:, old]):
+            raise AssertionError("the forked page differs from its source")
+    if not pc.mirror_consistent():
+        raise AssertionError("fork left the table mirror stale")
+
+    def copies():
+        for pool in pools:
+            pool[:, new].copy_(pool[:, old])
+
+    nbytes = 2 * sum(pool[:, old].numel() * pool.element_size()
+                     for pool in pools)
+    return {"fork_host_ms": host_ms, "fork_device_ms": time_ms(copies),
+            "fork_bytes": nbytes,
+            "fork_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+def _serve_shared(entry, params, base, sched, kmods, smi, launches):
+    """The shared-prefix serves at full width, every run fusing up to 16
+    steps a tick: the 768 + 128 trace without and with sharing (the same
+    tokens; a lower KV peak; dedup > 1; 768 prefill tokens skipped for
+    each request admitted while the prefix is resident: on the card 3 x
+    768, since the three later requests arrive at 0.43 s while request
+    0's seven chunks still run, and are admitted one at a time after its
+    commit), then identical 777-token prompts, shared, per tick and fused
+    (the same tokens; the ragged tail page forked)."""
+    vocab = entry.config.vocab
+    runs = launches["paged_flash_decode"]
+
+    def trace(prefix, tail):
+        return sched.make_shared_prefix_trace(
+            vocab, rate_req_s=4.0, n_requests=4, prefix_len=prefix,
+            tail_len=tail, seed=0)
+
+    fused = dict(base, paged=True, fuse_steps=PAGE,
+                 max_seq=SHARED_PREFIX + SHARED_TAIL
+                 + base["max_new_tokens"] + 2)
+    out = {}
+    for share in (False, True):
+        label = f"yi-6b {SHARED_PREFIX}+{SHARED_TAIL} " + (
+            "shared fused" if share else "unshared fused")
+        counts, metrics, streams = _serve(
+            entry, params, dict(fused, prefix_sharing=share),
+            trace(SHARED_PREFIX, SHARED_TAIL), sched, kmods,
+            "paged_flash_decode", smi)
+        runs[label] = counts["paged_flash_decode"]
+        out[share] = metrics, streams
+    (plain, plain_t), (shared, shared_t) = out[False], out[True]
+    _same_streams("shared vs unshared serve", shared_t, plain_t)
+    skipped = shared["prefill_skipped_tokens"]
+    if (skipped % SHARED_PREFIX or not 0 < skipped <= 3 * SHARED_PREFIX
+            or plain["prefill_skipped_tokens"] != 0
+            or not shared["kv_peak_tokens"] < plain["kv_peak_tokens"]
+            or not shared["kv_dedup_ratio_peak"] > 1.0):
+        raise AssertionError(f"sharing counters off: shared {shared}, "
+                             f"unshared {plain}")
+    same = {}
+    for fuse in (1, PAGE):
+        label = (f"yi-6b {IDENTICAL_PROMPT} identical shared "
+                 + ("fused" if fuse > 1 else "per tick"))
+        counts, metrics, same[fuse] = _serve(
+            entry, params, dict(fused, prefix_sharing=True, fuse_steps=fuse),
+            trace(IDENTICAL_PROMPT, 0), sched, kmods, "paged_flash_decode",
+            smi)
+        runs[label] = counts["paged_flash_decode"]
+        if metrics["cow_forks"] < 1:
+            raise AssertionError(f"{label}: no copy-on-write fork")
+    _same_streams("identical prompts, fused vs per tick", same[PAGE],
+                  same[1])
+    keys = ("ttft_mean_s", "tbt_mean_s", "tokens_per_s", "kv_peak_tokens",
+            "kv_dedup_ratio_peak", "prefill_skipped_tokens", "cow_forks")
+    print("[serve] shared prefix " + json.dumps({
+        "unshared": {k: plain[k] for k in keys},
+        "shared": {k: shared[k] for k in keys},
+        "tokens_identical": sum(len(t) for t, _ in plain_t.values()),
+        **_fork_cost(entry), "card": smi}))
+
+
+def phase_serve(registry, sched, kmods, smi):
     """Returns each kernel's launches by serve run."""
     lens = np.random.default_rng(0).integers(256, 1025, size=4)
     new = 32
     base = dict(max_batch=4, max_seq=int(lens.max()) + new + 2,
                 max_new_tokens=new, page_size=PAGE, prefill_chunk=128,
                 use_pallas_decode=True)
+
+    def trace():
+        return sched.make_trace(entry.config.vocab, rate_req_s=4.0,
+                                n_requests=len(lens), prompt_len=0, seed=0,
+                                prompt_lens=lens)
+
     launches = {}
     entry, params = _init_full(registry, "yi-6b")
-    counts, _, per_tick = _serve(entry, params, dict(base, paged=True), lens,
-                                 make_trace, kmods, "paged_flash_decode", smi)
+    counts, _, per_tick = _serve(entry, params, dict(base, paged=True),
+                                 trace(), sched, kmods, "paged_flash_decode",
+                                 smi)
     launches["paged_flash_decode"] = {
         "yi-6b paged": counts["paged_flash_decode"]}
     # 16 = one page: the most the page-edge clamp lets through, so the
     # run uses every bucket 2..16
     counts, _, fused = _serve(entry, params,
-                              dict(base, paged=True, fuse_steps=PAGE), lens,
-                              make_trace, kmods, "paged_flash_decode", smi)
-    if fused != per_tick:
-        bad = sorted(rid for rid in per_tick if fused.get(rid) !=
-                     per_tick[rid])
-        raise AssertionError(f"fused serve tokens differ from per-tick for "
-                             f"requests {bad}")
+                              dict(base, paged=True, fuse_steps=PAGE),
+                              trace(), sched, kmods, "paged_flash_decode",
+                              smi)
+    _same_streams("fused serve vs per tick", fused, per_tick)
     launches["paged_flash_decode"]["yi-6b paged fused"] = \
         counts["paged_flash_decode"]
-    counts, _, _ = _serve(entry, params, dict(base, paged=False), lens,
-                          make_trace, kmods, "flash_decode", smi)
+    _serve_shared(entry, params, base, sched, kmods, smi, launches)
+    counts, _, _ = _serve(entry, params, dict(base, paged=False), trace(),
+                          sched, kmods, "flash_decode", smi)
     launches["flash_decode"] = {"yi-6b dense": counts["flash_decode"]}
     del params
     torch.cuda.empty_cache()
     # rwkv6 prefills whole prompts (prefill_chunk is for attention
     # families) and its state holds no pages
     entry, params = _init_full(registry, "rwkv6-7b")
-    counts, metrics, _ = _serve(entry, params, dict(base, paged=True), lens,
-                                make_trace, kmods, "wkv6", smi)
+    counts, metrics, _ = _serve(entry, params, dict(base, paged=True),
+                                trace(), sched, kmods, "wkv6", smi)
     launches.update(wkv6={"rwkv6-7b paged": counts["wkv6"]},
                     wkv6_chunked={"rwkv6-7b paged": counts["wkv6_chunked"]})
     if metrics["kv_peak_tokens"] != 0:
@@ -904,7 +1078,7 @@ def main() -> None:
     from repro_torch.kernels import snake_gemm as sg
     from repro_torch.kernels import wkv6 as wk
     from repro_torch.models import registry
-    from repro_torch.serving.scheduler import make_trace
+    from repro_torch.serving import scheduler as sched
 
     t0 = time.perf_counter()
     smi = card()
@@ -918,8 +1092,8 @@ def main() -> None:
         sys.exit(f"chip_smoke: unknown arguments {sys.argv[1:]} (only "
                  f"--sweep)")
     rows = phase_kernels(fd, ref) + phase_kernels_rwkv(wk, sg, ref)
-    phase_parity(registry, make_trace)
-    launches = phase_serve(registry, make_trace, (fd, wk, sg), smi)
+    phase_parity(registry, sched)
+    launches = phase_serve(registry, sched, (fd, wk, sg), smi)
     for row in rows:
         # the decode GEMM is on no serving path: every serve run above
         # asserted its counts stayed 0

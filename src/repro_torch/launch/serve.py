@@ -20,13 +20,16 @@ and ``--prefill-chunk`` interleaves Sarathi prefill chunks with the
 decode batch (attention families only: rwkv6 prefills whole prompts).
 ``--fuse-steps K`` (with ``--paged``) fuses up to K decode steps per
 tick, each power-of-two horizon one CUDA graph on the card (attention
-families; rwkv6 decode stays per tick).  ``--eos-rate`` samples
-per-request early-stop decode lengths; ``--trace-file`` replays a
-recorded JSON trace.
+families; rwkv6 decode stays per tick).  ``--prefix-sharing`` (with
+``--paged``) adds refcounted prompt-prefix pages with copy-on-write;
+``--shared-prefix N`` drives a trace whose prompts share their first N
+tokens (``--groups G`` of them, Zipf ``--group-skew`` popularity).
+``--eos-rate`` samples per-request early-stop decode lengths;
+``--trace-file`` replays a recorded JSON trace.
 
-Flags of features that later slices port (prefix sharing, placement,
-co-design pricing, multi-replica routing, tiers and Perfetto export) are
-accepted by the parser and refused with an error that names them.
+Flags of features that later slices port (placement, co-design pricing,
+multi-replica routing, tiers and Perfetto export) are accepted by the
+parser and refused with an error that names them.
 """
 from __future__ import annotations
 
@@ -35,12 +38,13 @@ from typing import List, Optional
 
 from repro_torch.models import registry
 from repro_torch.serving.engine import EngineConfig, make_engine
-from repro_torch.serving.scheduler import load_trace, make_trace
+from repro_torch.serving.scheduler import (load_trace,
+                                          make_grouped_prefix_trace,
+                                          make_shared_prefix_trace,
+                                          make_trace)
 
 # flag -> (value that means "not used", the slice that ports it)
 UNPORTED = {
-    "prefix_sharing": (False, "prefix sharing"),
-    "shared_prefix": (0, "prefix sharing"),
     "placement": (None, "placement and priced page moves"),
     "codesign": (False, "co-design pricing"),
     "placement_regions": (None, "placement and priced page moves"),
@@ -49,8 +53,6 @@ UNPORTED = {
     "replicas": (1, "router and tiers"),
     "router_policy": ("round_robin", "router and tiers"),
     "tiers": (None, "router and tiers"),
-    "groups": (1, "router and tiers"),
-    "group_skew": (1.0, "router and tiers"),
     "trace_out": (None, "Perfetto export"),
 }
 
@@ -58,6 +60,28 @@ UNPORTED = {
 # the reference router's dispatch policies (serving/router.py)
 ROUTER_POLICIES = ("round_robin", "least_loaded", "session_affinity",
                    "prefix_affinity")
+
+
+def build_trace(args, vocab: int):
+    """The request trace the flags ask for (the reference's selection)."""
+    if args.trace_file:
+        return load_trace(args.trace_file, vocab=vocab)
+    if args.shared_prefix > 0:
+        # total prompt length stays --prompt-len: N shared + unique tail
+        prefix = min(args.shared_prefix, args.prompt_len - 1)
+        if args.groups > 1:
+            return make_grouped_prefix_trace(
+                vocab, rate_req_s=args.rate, n_requests=args.n_requests,
+                n_groups=args.groups, prefix_len=prefix,
+                tail_len=args.prompt_len - prefix, skew=args.group_skew,
+                eos_rate=args.eos_rate)
+        return make_shared_prefix_trace(
+            vocab, rate_req_s=args.rate, n_requests=args.n_requests,
+            prefix_len=prefix, tail_len=args.prompt_len - prefix,
+            eos_rate=args.eos_rate)
+    return make_trace(vocab, rate_req_s=args.rate,
+                      n_requests=args.n_requests,
+                      prompt_len=args.prompt_len, eos_rate=args.eos_rate)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -96,9 +120,17 @@ def build_parser() -> argparse.ArgumentParser:
                     help="fuse up to K decode steps per tick (paged "
                          "engine; one CUDA graph per power-of-two "
                          "horizon on the card)")
+    ap.add_argument("--prefix-sharing", action="store_true",
+                    help="refcounted prompt-prefix page sharing + CoW")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="common system-prompt tokens per request "
+                         "(0: fully unique prompts)")
+    ap.add_argument("--groups", type=int, default=1,
+                    help="distinct system-prompt groups (with "
+                         "--shared-prefix)")
+    ap.add_argument("--group-skew", type=float, default=1.0,
+                    help="Zipf popularity skew across groups")
     # not ported yet: refused in main()
-    ap.add_argument("--prefix-sharing", action="store_true")
-    ap.add_argument("--shared-prefix", type=int, default=0)
     ap.add_argument("--placement", default=None)
     ap.add_argument("--placement-regions", type=int, default=None)
     ap.add_argument("--codesign", action="store_true")
@@ -109,8 +141,6 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--router-policy", default="round_robin",
                     choices=ROUTER_POLICIES)
     ap.add_argument("--tiers", type=str, default=None)
-    ap.add_argument("--groups", type=int, default=1)
-    ap.add_argument("--group-skew", type=float, default=1.0)
     ap.add_argument("--trace-out", type=str, default=None)
     return ap
 
@@ -118,6 +148,9 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[List[str]] = None) -> dict:
     ap = build_parser()
     args = ap.parse_args(argv)
+    if args.prefix_sharing and not args.paged:
+        ap.error("--prefix-sharing requires --paged (the dense engine "
+                 "has no page tables to share)")
     if args.fuse_steps > 1 and not args.paged:
         ap.error("--fuse-steps requires --paged (the fused scan runs on "
                  "the block-table decode step)")
@@ -139,18 +172,12 @@ def main(argv: Optional[List[str]] = None) -> dict:
                         paged=args.paged,
                         page_size=args.page_size,
                         num_pages=args.num_pages,
+                        prefix_sharing=args.prefix_sharing,
                         defrag_threshold=(None if args.defrag_threshold < 0
                                           else args.defrag_threshold),
                         fuse_steps=args.fuse_steps,
                         device=args.device)
-    vocab = entry.config.vocab
-    if args.trace_file:
-        reqs = load_trace(args.trace_file, vocab=vocab)
-    else:
-        reqs = make_trace(vocab, rate_req_s=args.rate,
-                          n_requests=args.n_requests,
-                          prompt_len=args.prompt_len,
-                          eos_rate=args.eos_rate)
+    reqs = build_trace(args, entry.config.vocab)
     metrics = make_engine(entry, ecfg).run_trace(reqs)
     print(f"[serve] {args.arch} on {args.device}: {metrics}")
     return metrics

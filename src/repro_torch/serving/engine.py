@@ -26,8 +26,13 @@ With ``fuse_steps`` > 1 the paged engine of an attention family fuses up
 to that many decode steps per tick (``transformer.decode_fused_paged``);
 on the card each power-of-two bucket of that horizon is one CUDA graph,
 captured at its first use and replayed (``serving/fused_graph.py``).
-Prefix sharing, placement, co-design pricing and page shipping arrive
-with later slices.
+
+With ``prefix_sharing`` the paged engine maps the leading prompt pages
+already resident onto the existing pages, starts chunked prefill at the
+shared-page boundary, and forks a shared page before a decode write
+touches it (copy-on-write): per tick in ``_pre_decode_grow``, and for a
+whole fused horizon in ``_cow_horizon``.  Placement, co-design pricing
+and page shipping arrive with later slices.
 """
 from __future__ import annotations
 
@@ -70,6 +75,7 @@ class EngineConfig:
     paged: bool = False               # block-table KV residency
     page_size: int = 16
     num_pages: Optional[int] = None   # default: dense-equivalent capacity
+    prefix_sharing: bool = False      # refcounted prompt-prefix pages + CoW
     # run PagedCache.defrag() when the fraction of holes below the
     # high-water page index exceeds this (None disables the trigger)
     defrag_threshold: Optional[float] = 0.5
@@ -189,6 +195,11 @@ class ServingEngine:
         cap = self.ecfg.max_batch * self.ecfg.max_seq
         return {"mode": "dense", "reserved_tokens": cap,
                 "peak_tokens": cap, "used_tokens": used}
+
+    def prefix_residency(self, prompt: np.ndarray) -> int:
+        """Prompt pages already resident on this replica (0: the dense
+        engine shares nothing)."""
+        return 0
 
     def _budget(self, req: RequestState) -> int:
         """Decode budget: the engine ceiling, tightened by the request's
@@ -398,6 +409,7 @@ class PagedServingEngine(ServingEngine):
                                 max_seq=ecfg.max_seq,
                                 page_size=ecfg.page_size,
                                 num_pages=n_pages, tp=self.tp,
+                                share=ecfg.prefix_sharing,
                                 device=self.device)
         # PagedCache rounds max_seq up to a whole number of pages; adopt
         # the rounded value so prefill buffers, gather views and occupancy
@@ -406,7 +418,11 @@ class PagedServingEngine(ServingEngine):
         self._lengths_host = np.zeros((ecfg.max_batch,), np.int64)
         self.pages_peak = 0
         self.pages_logical_peak = 0
+        self.dedup_ratio_peak = 1.0
         self.defrag_runs = 0
+        # prompt tokens whose extend_step compute was skipped because the
+        # shared-prefix trie already held their KV (chunked prefill)
+        self.prefill_tokens_skipped = 0
         # fused multi-step decode: one FusedGraph per bucketed horizon
         # length (the reference's jit per bucket), all in one graph memory
         # pool, plus the host/device wall split for the host-overhead
@@ -424,14 +440,16 @@ class PagedServingEngine(ServingEngine):
 
     def set_tracer(self, tracer, replica: int = 0) -> None:
         super().set_tracer(tracer, replica)
-        self.paged.tracer = self.tracer   # defrag events
+        self.paged.tracer = self.tracer   # CoW and defrag events
 
     # -- capacity ------------------------------------------------------
     def _claim(self, req: RequestState) -> Optional[int]:
         if not self.free_slots:
             return None
         slot = self.free_slots.pop()
-        if not self.paged.alloc_slot(slot, len(req.prompt) + 1):
+        tokens = req.prompt if self.paged.share else None
+        if not self.paged.alloc_slot(slot, len(req.prompt) + 1,
+                                     tokens=tokens):
             self.free_slots.append(slot)
             return None
         self._note_pages()
@@ -456,9 +474,13 @@ class PagedServingEngine(ServingEngine):
             self.defrag_runs += 1
 
     def _note_pages(self) -> None:
-        self.pages_peak = max(self.pages_peak, self.paged.pages_in_use())
-        self.pages_logical_peak = max(self.pages_logical_peak,
-                                      self.paged.logical_pages())
+        physical = self.paged.pages_in_use()
+        self.pages_peak = max(self.pages_peak, physical)
+        logical = self.paged.logical_pages()
+        self.pages_logical_peak = max(self.pages_logical_peak, logical)
+        if physical:
+            self.dedup_ratio_peak = max(self.dedup_ratio_peak,
+                                        logical / physical)
 
     def load_report(self) -> LoadReport:
         base = super().load_report()
@@ -470,6 +492,9 @@ class PagedServingEngine(ServingEngine):
             queue_depth=base.queue_depth, free_slots=base.free_slots,
             free_pages=free_pages, min_region_free=free_pages)
 
+    def prefix_residency(self, prompt: np.ndarray) -> int:
+        return self.paged.prefix_residency(prompt)
+
     # -- chunked prefill straight into block-table pages ---------------
     def _start_chunked(self, req: RequestState) -> bool:
         if not self.paged.has_seq:
@@ -477,10 +502,20 @@ class PagedServingEngine(ServingEngine):
             return super()._start_chunked(req)
         if self._prefilling is not None:
             return False
-        slot = self._claim(req)     # reserves the prompt's pages
+        slot = self._claim(req)     # reserves prompt pages, maps shared ones
         if slot is None:
             return False
-        self._prefilling = {"req": req, "slot": slot, "pos": 0,
+        # shared-prefix compute skip: pages mapped from the trie already
+        # hold the prompt's leading KV, so the prefill starts at the
+        # shared-page boundary.  The last prompt token is always computed
+        # (its logits give the first output token), which is also the
+        # exact-tail case where the whole prompt is resident
+        n = len(req.prompt)
+        resident = min(int(self.paged.shared_count[slot])
+                       * self.ecfg.page_size, n)
+        start = min(resident, n - 1)
+        self.prefill_tokens_skipped += start
+        self._prefilling = {"req": req, "slot": slot, "pos": start,
                             "t0": time.perf_counter()}
         return True
 
@@ -503,6 +538,8 @@ class PagedServingEngine(ServingEngine):
         if st["pos"] < n:
             self._chunk_progress(st, take, t_ck0)
             return False
+        # prompt fully consumed: publish its pages, activate the slot
+        self.paged.commit_prefix(slot)
         self._lengths_host[slot] = n
         self._note_pages()
         self._prefilling = None
@@ -523,7 +560,9 @@ class PagedServingEngine(ServingEngine):
                "peak_tokens": self.pages_peak * self.ecfg.page_size,
                "used_tokens": used,
                "logical_peak_pages": self.pages_logical_peak,
-               "defrag_runs": self.defrag_runs}
+               "dedup_ratio_peak": self.dedup_ratio_peak,
+               "defrag_runs": self.defrag_runs,
+               "prefill_skipped_tokens": self.prefill_tokens_skipped}
         rep.update(self.paged.sharing_report())
         return rep
 
@@ -544,18 +583,32 @@ class PagedServingEngine(ServingEngine):
                 raise RuntimeError(
                     f"slot {slot} context {self._lengths_host[slot] + 1} "
                     f"exceeds max_seq={self.paged.max_seq}")
-            while not self.paged.extend_slot(
-                    slot, int(self._lengths_host[slot]) + 1):
-                victim = self._pick_victim(exclude=slot)
-                if victim is None:
-                    raise RuntimeError(
-                        "page pool exhausted with no preemptible request")
-                self._preempt(victim)
+            ln = int(self._lengths_host[slot])
+            self._preempt_until(
+                slot, lambda: self.paged.extend_slot(slot, ln + 1), "")
+            if self.paged.share:
+                # the write may target a shared page (identical-prompt
+                # tail): fork it now, so the scatter and the paged kernel
+                # only ever write pages with refcount 1
+                self._preempt_until(
+                    slot, lambda: self.paged.cow_for_write(slot, ln),
+                    " (copy-on-write fork)")
         self._note_pages()
         if tr.enabled:
             grown = self.paged.pages_in_use() - pages0
             if grown > 0:
                 tr.emit("grow", pages=grown)
+
+    def _preempt_until(self, slot: int, op, why: str) -> None:
+        """Run ``op()`` until it succeeds (a page allocation for
+        ``slot``), preempting the youngest other request after each
+        failure."""
+        while not op():
+            victim = self._pick_victim(exclude=slot)
+            if victim is None:
+                raise RuntimeError("page pool exhausted with no "
+                                   f"preemptible request{why}")
+            self._preempt(victim)
 
     def _pick_victim(self, exclude: int) -> Optional[int]:
         cands = [s for s in self.active if s != exclude]
@@ -599,7 +652,8 @@ class PagedServingEngine(ServingEngine):
         lengths = self._tensor(np.where(active, self._lengths_host, 0)
                                .astype(np.int32))
         # a lane outside the decode batch can still have pages mapped (a
-        # slot mid chunked-prefill); every lane writes its K/V, so route
+        # slot mid chunked-prefill; with sharing, live shared prefix
+        # pages); every lane writes its K/V, so route
         # each inactive lane's window to the scratch page — on device,
         # over the incrementally maintained table mirror
         tables = torch.where(act[:, None], self.paged.tables_device(),
@@ -642,6 +696,25 @@ class PagedServingEngine(ServingEngine):
                 k, clamp = bud, "budget"
         self._last_horizon_clamp = clamp
         return max(1, k)
+
+    def _cow_horizon(self, k: int) -> None:
+        """Fork every shared page the next ``k`` writes can touch.  A
+        shared page is immutable while its refcount is > 1, so forking at
+        the horizon boundary copies the same bytes as forking at the
+        write step.  Preempts on a failed fork, as the per-tick pass
+        does; the horizon stays valid, since lanes only leave."""
+        if not self.paged.share:
+            return
+        ps = self.ecfg.page_size
+        for slot in sorted(self.active):
+            if slot not in self.active:      # preempted mid-loop
+                continue
+            ln = int(self._lengths_host[slot])
+            for blk in range(ln // ps, (ln + k - 1) // ps + 1):
+                self._preempt_until(
+                    slot, lambda: self.paged.cow_for_write(slot, blk * ps),
+                    " (fused copy-on-write fork)")
+        self._note_pages()
 
     def _fused_fn(self, n_steps: int) -> FusedGraph:
         """The fused loop of ``n_steps`` steps, cached per bucket: a CUDA
@@ -703,10 +776,12 @@ class PagedServingEngine(ServingEngine):
             if self.tracer.enabled:
                 self._trace_gauges()
             return n_fin
-        # the reference forks the shared pages the next k writes touch
-        # here (_cow_horizon, with prefix sharing) and samples the gather
-        # cost (_note_gather_cost, with placement); both arrive with their
-        # slices
+        # fork the shared pages the next k writes touch before the table
+        # reaches the graph's buffer; a preemption in the pass may defrag,
+        # so the mask, lengths and table are read after it.  The reference
+        # also samples the gather cost here (_note_gather_cost), which
+        # arrives with the placement slice
+        self._cow_horizon(k)
         batch = len(self.active)
         b = ecfg.max_batch
         active = np.zeros((b,), bool)

@@ -1,5 +1,6 @@
 """Paged (block-table) KV cache for the serving engine (port of
-``repro.serving.paged_cache``, without prefix sharing and placement).
+``repro.serving.paged_cache``, with refcounted prefix sharing and
+copy-on-write; without placement and page shipping).
 
 Sequence-bearing cache leaves live in a pool of fixed-size pages and each
 slot owns a block table mapping its logical context positions to pages,
@@ -12,14 +13,21 @@ reads of unmapped table entries never touch a live page.  Block tables
 are a host ``(max_batch, max_blocks)`` int32 array with an incrementally
 maintained device mirror.
 
+With ``share=True`` a page-granular prompt-prefix trie
+(:class:`PrefixIndex`) maps the leading prompt pages that are already
+resident onto the existing pages (incref) at admission; a decode write
+to a page with refcount > 1 first forks it (:meth:`PagedCache.fork_page`).
+
 The reference copies and donates its pools through jitted helpers; here
 the pools are updated in place with indexed assignment (``index_put_``),
-so no second pool is ever materialised.
+so no second pool is ever materialised.  A captured CUDA graph of the
+fused decode holds the pools' addresses, so no operation here (defrag
+and the CoW fork included) may ever move them.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -133,6 +141,120 @@ class PageAllocator:
 
 
 # ---------------------------------------------------------------------------
+# Host-side prompt-prefix trie (page-granular; a copy of the reference's)
+# ---------------------------------------------------------------------------
+class _TrieNode:
+    __slots__ = ("children", "partial")
+
+    def __init__(self):
+        # full-page token chunk -> (page id, subtree)
+        self.children: Dict[bytes, Tuple[int, "_TrieNode"]] = {}
+        # trailing sub-page token chunk -> page id
+        self.partial: Dict[bytes, int] = {}
+
+
+def _chunk_key(tokens: np.ndarray) -> bytes:
+    # canonical dtype so int32 prompts and int64 literals key identically
+    return np.ascontiguousarray(tokens, dtype=np.int64).tobytes()
+
+
+class PrefixIndex:
+    """Page-granular prompt-prefix trie (host side).
+
+    Each edge keys one full page of prompt tokens (raw token bytes: exact
+    matching, no hash collisions) and carries the physical page holding
+    that chunk's KV.  A node's ``partial`` table maps a trailing sub-page
+    chunk to its page, which lets two requests with *identical* prompts
+    share the ragged tail page: the case that exercises copy-on-write,
+    since both holders decode-write into that page.
+
+    Entries are registered only after the page contents are written
+    (``PagedCache.commit_prefix``) and dropped when the page's last
+    reference is released, so a hit always points at live, fully written
+    prompt KV.  CoW forks and decode growth pages are never registered.
+    """
+
+    def __init__(self):
+        self.root = _TrieNode()
+        # page -> (owning node, edge key, is_partial) for O(1) removal and
+        # defrag renumbering
+        self._by_page: Dict[int, Tuple[_TrieNode, bytes, bool]] = {}
+
+    def __len__(self) -> int:
+        return len(self._by_page)
+
+    def match(self, tokens: np.ndarray, page_size: int) -> List[int]:
+        """Longest shared prefix of ``tokens`` in whole pages, plus the
+        ragged tail page when the remainder matches exactly."""
+        node, pages = self.root, []
+        k = len(tokens) // page_size
+        for i in range(k):
+            hit = node.children.get(
+                _chunk_key(tokens[i * page_size:(i + 1) * page_size]))
+            if hit is None:
+                return pages
+            pages.append(hit[0])
+            node = hit[1]
+        tail = tokens[k * page_size:]
+        if len(tail):
+            page = node.partial.get(_chunk_key(tail))
+            if page is not None:
+                pages.append(page)
+        return pages
+
+    def register(self, tokens: np.ndarray, pages: Sequence[int],
+                 page_size: int) -> None:
+        """Publish ``pages`` (page-chunked KV of ``tokens``) for reuse.
+        First writer wins: chunks already present keep their page (the
+        caller's duplicate stays private); missing chunks are inserted
+        with the caller's page."""
+        node = self.root
+        k = len(tokens) // page_size
+        for i in range(k):
+            key = _chunk_key(tokens[i * page_size:(i + 1) * page_size])
+            hit = node.children.get(key)
+            if hit is None:
+                child = _TrieNode()
+                node.children[key] = (pages[i], child)
+                self._by_page[pages[i]] = (node, key, False)
+                node = child
+            else:
+                node = hit[1]
+        tail = tokens[k * page_size:]
+        if len(tail) and k < len(pages):
+            key = _chunk_key(tail)
+            if key not in node.partial:
+                node.partial[key] = pages[k]
+                self._by_page[pages[k]] = (node, key, True)
+
+    def remove(self, page: int) -> None:
+        """Forget a freed page.  Children of a removed full-page edge
+        become unreachable, which is safe: any request mapping a child
+        chunk also held a reference on this page, so the chain dies
+        together."""
+        info = self._by_page.pop(page, None)
+        if info is None:
+            return
+        node, key, is_partial = info
+        if is_partial:
+            node.partial.pop(key, None)
+        else:
+            node.children.pop(key, None)
+
+    def remap(self, mapping: Dict[int, int]) -> None:
+        """Apply a defrag old->new page renumbering in place."""
+        by_page = {}
+        for old, (node, key, is_partial) in self._by_page.items():
+            new = mapping.get(old, old)
+            if is_partial:
+                node.partial[key] = new
+            else:
+                node.children[key] = (new, node.children[key][1])
+            by_page[new] = (node, key, is_partial)
+        self._by_page = by_page
+
+
+# ---------------------------------------------------------------------------
 # Shape probing: which leaves page
 # ---------------------------------------------------------------------------
 SEQ_AXIS = 2    # engine batch-axis rule: (L, B, S, ...) for seq leaves
@@ -168,6 +290,8 @@ class PagedCache:
     ``store`` lists the cache leaves with every sequence leaf replaced by
     its pool ``(L, P+1, page, ...)``; the ``lengths`` leaf keeps its dense
     slot layout.  ``max_seq`` is rounded up to a whole number of pages.
+    ``share`` turns on refcounted prompt-prefix sharing with
+    copy-on-write.
     """
     entry: Any
     max_batch: int
@@ -175,6 +299,7 @@ class PagedCache:
     page_size: int
     num_pages: int
     tp: int = 1
+    share: bool = False
     device: Any = "cuda"
 
     def __post_init__(self):
@@ -207,6 +332,13 @@ class PagedCache:
                 store.append(leaf)
         self.store = store
         self.has_seq = any(self.is_seq)
+        self.prefix = PrefixIndex() if self.share else None
+        # leading table entries mapped onto shared pages at admission:
+        # write_slot and scatter_chunk never write them (their KV is
+        # already resident and other holders read it)
+        self.shared_count = np.zeros((self.max_batch,), np.int64)
+        self._pending_prompt: Dict[int, np.ndarray] = {}
+        self.cow_forks = 0
         # lifecycle-event sink; the engine rebinds it to its own tracer
         self.tracer = NULL_TRACER
 
@@ -230,6 +362,12 @@ class PagedCache:
             return
         self._tables_dev[slot] = torch.as_tensor(
             self._host_row(slot)).to(self.device)
+
+    def _mirror_set(self, slot: int, blk: int, page: int) -> None:
+        """Point one mirror entry at a new physical page (CoW fork)."""
+        if self._tables_dev is None:
+            return
+        self._tables_dev[slot, blk] = page
 
     def mirror_consistent(self) -> bool:
         """True iff the device mirror equals a fresh rebuild of the host
@@ -262,26 +400,51 @@ class PagedCache:
         return 1.0 - used / (self.alloc.highest_used() + 1)
 
     def sharing_report(self) -> Dict[str, Any]:
-        """The reference's sharing counters; without prefix sharing no
-        page is mapped twice and no fork happens."""
         logical = self.logical_pages()
         physical = self.alloc.used_pages
         return {"logical_pages": logical,
                 "physical_pages": physical,
                 "shared_pages": self.alloc.shared_pages,
                 "dedup_ratio": logical / physical if physical else 1.0,
-                "cow_forks": 0}
+                "cow_forks": self.cow_forks}
 
-    def alloc_slot(self, slot: int, n_tokens: int) -> bool:
+    def prefix_residency(self, tokens: Optional[np.ndarray]) -> int:
+        """Leading prompt pages of ``tokens`` already resident in the
+        prefix trie (the router's prefix-affinity probe): what admission
+        would map, full pages plus an exact-match ragged tail; 0 when
+        sharing is off."""
+        if (not self.share or not self.has_seq or tokens is None
+                or not len(tokens)):
+            return 0
+        return len(self.prefix.match(np.asarray(tokens), self.page_size))
+
+    def alloc_slot(self, slot: int, n_tokens: int,
+                   tokens: Optional[np.ndarray] = None) -> bool:
         """Allocate pages to cover ``n_tokens`` for an empty slot.
-        Atomic: on failure nothing is allocated."""
+
+        With ``share`` and the prompt ``tokens`` given, the leading pages
+        whose token chunks are already resident are mapped onto the
+        existing pages (incref) and only the rest is allocated.  The new
+        pages reach the trie at ``commit_prefix``, once their KV is
+        written.  Atomic: on failure nothing is mapped, incref'd or
+        allocated."""
         if not self.has_seq:
             return True
         assert not self.blocks_of(slot), "slot already mapped"
-        pages = self.alloc.alloc(num_blocks(n_tokens, self.page_size))
-        if pages is None:
+        need = num_blocks(n_tokens, self.page_size)
+        shared: List[int] = []
+        if self.share and tokens is not None and len(tokens):
+            shared = self.prefix.match(np.asarray(tokens), self.page_size)
+        fresh = self.alloc.alloc(need - len(shared))
+        if fresh is None:
             return False
+        for p in shared:
+            self.alloc.incref(p)
+        pages = shared + fresh
         self.tables[slot, : len(pages)] = pages
+        self.shared_count[slot] = len(shared)
+        if self.share and tokens is not None:
+            self._pending_prompt[slot] = np.asarray(tokens).copy()
         self._mirror_row(slot)
         return True
 
@@ -305,9 +468,59 @@ class PagedCache:
 
     def free_slot(self, slot: int) -> None:
         for p in self.blocks_of(slot):
-            self.alloc.decref(p)
+            if self.alloc.decref(p) and self.prefix is not None:
+                self.prefix.remove(p)
         self.tables[slot, :] = -1
+        self.shared_count[slot] = 0
+        self._pending_prompt.pop(slot, None)
         self._mirror_row(slot)
+
+    # -- copy-on-write -----------------------------------------------------
+    def cow_for_write(self, slot: int, pos: int) -> bool:
+        """Make the page a write at ``pos`` will hit exclusively owned.
+
+        Forks the page when its refcount is > 1; False only when the fork
+        could not allocate a page (the caller preempts and retries).  A
+        no-op for unmapped or out-of-window targets (those land in the
+        scratch page) and for pages already exclusive.
+        """
+        if not self.has_seq:
+            return True
+        blk = pos // self.page_size
+        if blk >= self.max_blocks:
+            return True
+        page = int(self.tables[slot, blk])
+        if page < 0 or self.alloc.refcount(page) <= 1:
+            return True
+        return self.fork_page(slot, blk)
+
+    def fork_page(self, slot: int, blk: int) -> bool:
+        """Copy-on-write fork: give ``slot`` a private copy of the page at
+        table entry ``blk``; the original page (and its trie entry) stays
+        for the other holders.  The copy runs in place on the existing
+        pools (a captured CUDA graph holds their addresses)."""
+        old = int(self.tables[slot, blk])
+        assert old >= 0, "fork of unmapped table entry"
+        got = self.alloc.alloc(1)
+        if got is None:
+            return False
+        new = got[0]
+        for pool, seq in zip(self.store, self.is_seq):
+            if seq:
+                pool[:, new].copy_(pool[:, old])
+        self.tables[slot, blk] = new
+        if blk < self.shared_count[slot]:
+            self.shared_count[slot] = blk
+        if self.alloc.decref(old) and self.prefix is not None:
+            # cow_for_write forks only at refcount > 1, so the old page
+            # keeps a holder; kept as the reference keeps it
+            self.prefix.remove(old)
+        self.cow_forks += 1
+        if self.tracer.enabled:
+            self.tracer.emit("cow_fork", slot=slot, blk=blk, old_page=old,
+                             new_page=new)
+        self._mirror_set(slot, blk, new)
+        return True
 
     # -- device ops (all pool writes are in place) ---------------------------
     def _cache(self, leaves) -> Any:
@@ -343,20 +556,26 @@ class PagedCache:
     def write_slot(self, slot: int, cache1: Any, n_tokens: int) -> None:
         """Insert a freshly prefilled request (batch-1 cache) into ``slot``:
         sequence leaves are chopped into pages and written to the slot's
-        block table; the lengths leaf is written to the slot column."""
+        block table, skipping the pages mapped from the prefix trie (their
+        KV is resident and other holders read it); the lengths leaf is
+        written to the slot column.  The slot's prompt pages are then
+        published to the trie."""
         pages = self.blocks_of(slot)
         need = num_blocks(n_tokens, self.page_size)
+        skip = int(self.shared_count[slot])
         if self.has_seq:
             assert len(pages) >= need, \
                 "write_slot without enough pages mapped"
-        idx = torch.as_tensor(pages[:need], dtype=torch.long).to(
+        idx = torch.as_tensor(pages[skip:need], dtype=torch.long).to(
             self.device)
         for pool, leaf, seq in zip(self.store, cache1, self.is_seq):
             if seq:
-                if need:
-                    _write_pages(pool, leaf, idx, need, self.page_size)
+                if skip < need:
+                    _write_pages(pool, leaf, idx, skip, need,
+                                 self.page_size)
             else:
                 _set_slot(pool, leaf, slot)
+        self.commit_prefix(slot)
 
     # -- direct chunked prefill (no dense staging buffer) ------------------
     def gather_slot(self, slot: int, pos: int) -> Any:
@@ -381,13 +600,18 @@ class PagedCache:
                       take: int) -> None:
         """Write one prefill chunk (``take`` tokens at offset ``pos``)
         from the batch-1 view ``extend_step`` returned straight into the
-        slot's pages; the lengths leaf goes to the slot column."""
+        slot's pages; the lengths leaf goes to the slot column.  Positions
+        inside shared-prefix pages go to the scratch page: their KV is
+        resident and other holders read it, and this request's recompute
+        (the exact-tail case) differs from it in the last bits."""
         ps = self.page_size
         idx = np.arange(pos, pos + take)
         row = self.tables[slot]
         blk = idx // ps
         assert (row[blk] >= 0).all(), "scatter_chunk into unmapped pages"
-        pages = torch.as_tensor(row[blk].astype(np.int64)).to(self.device)
+        dest = np.where(blk < int(self.shared_count[slot]), self.num_pages,
+                        row[blk])
+        pages = torch.as_tensor(dest.astype(np.int64)).to(self.device)
         offs = torch.as_tensor((idx % ps).astype(np.int64)).to(self.device)
         for pool, leaf, seq in zip(self.store, cache1, self.is_seq):
             if seq:
@@ -395,13 +619,23 @@ class PagedCache:
             else:
                 _set_slot(pool, leaf, slot)
 
+    def commit_prefix(self, slot: int) -> None:
+        """Publish the slot's prompt pages now that their KV is written."""
+        tokens = self._pending_prompt.pop(slot, None)
+        if tokens is None or self.prefix is None:
+            return
+        covered = num_blocks(len(tokens), self.page_size)
+        self.prefix.register(tokens, self.blocks_of(slot)[:covered],
+                             self.page_size)
+
     def defrag(self) -> Dict[int, int]:
         """Compact live pages to the lowest indices.
 
         Returns the old->new mapping applied.  Pool data is permuted on
         device, in place (each pool keeps its storage); block tables and
         the allocator (refcounts preserved) are
-        renumbered, so the logical contents (``gather()``) are unchanged.
+        renumbered, so the logical contents (``gather()``) are unchanged;
+        so is the prefix trie.
         The reference also prices the moved pages on its near-memory
         model; that accounting arrives with the placement slice.
         """
@@ -430,6 +664,12 @@ class PagedCache:
             self.tracer.emit("defrag", live_pages=len(live),
                              moved=sum(1 for o, n in mapping.items()
                                        if o != n))
+        if self.prefix is not None:
+            self.prefix.remap(mapping)
+            # every registered page is still allocated after renumbering
+            assert all(self.alloc.refcount(p) > 0
+                       for p in self.prefix._by_page), \
+                "defrag left the prefix trie pointing at a dead page"
         self._tables_dev = None
         return mapping
 
@@ -452,15 +692,17 @@ def _set_slot(pool: torch.Tensor, leaf: torch.Tensor, slot: int) -> None:
         pool[:, slot] = leaf[:, 0]
 
 
-def _write_pages(pool, leaf, idx, need: int, page_size: int) -> None:
-    """Chop ``leaf[:, 0]``'s first ``need`` pages (the ragged tail padded
-    with zeros) into ``(L, need, ps, ...)`` and write them at ``idx``."""
-    span = leaf[:, 0, :need * page_size]
-    short = need * page_size - span.shape[1]
+def _write_pages(pool, leaf, idx, skip: int, need: int,
+                 page_size: int) -> None:
+    """Chop pages ``skip..need-1`` of ``leaf[:, 0]`` (the ragged tail
+    padded with zeros) into ``(L, need - skip, ps, ...)`` and write them
+    at ``idx``."""
+    span = leaf[:, 0, skip * page_size:need * page_size]
+    short = (need - skip) * page_size - span.shape[1]
     if short > 0:
         pad = [0, 0] * (span.ndim - 2) + [0, short]
         span = torch.nn.functional.pad(span, pad)
-    pool[:, idx] = span.reshape((span.shape[0], need, page_size)
+    pool[:, idx] = span.reshape((span.shape[0], need - skip, page_size)
                                 + tuple(span.shape[2:]))
 
 

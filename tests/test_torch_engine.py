@@ -1,7 +1,8 @@
 """Serving engines of the PyTorch port against ``repro.serving.engine``.
 
-Both packages' engines serve the same ``make_trace`` trace on the
-reference's own reduced yi-6b or rwkv6-7b weights (bridged), in float32.  Arrivals
+Both packages' engines serve the same trace (``make_trace``, or the
+trace maker a case names) on the reference's own reduced yi-6b or
+rwkv6-7b weights (bridged), in float32.  Arrivals
 are all at t~0 (rate 1e9), so admission depends only on capacity and
 both sides schedule identically: token streams, finish reasons,
 preemptions and defrag runs must be equal.
@@ -41,7 +42,9 @@ from repro_torch.serving import scheduler as tsched  # noqa: E402
 LOGIT_TOL = 1e-5   # float32 both sides, sums in another order: ~6e-7 seen
 SKEWED = np.array([9, 17, 5, 30, 12, 24])
 
-# name -> (EngineConfig overrides, trace kwargs)
+# name -> (EngineConfig overrides, trace kwargs); a ``maker`` entry in
+# the trace kwargs names the scheduler's trace maker (default make_trace)
+SHARED = dict(paged=True, page_size=8, prefix_sharing=True)
 CASES = {
     "dense": (dict(), dict(prompt_lens=SKEWED, seed=3)),
     "paged": (dict(paged=True, page_size=8),
@@ -58,10 +61,28 @@ CASES = {
     # up to 8 decode steps a tick on the device (fused_tick events)
     "fused": (dict(paged=True, page_size=8, fuse_steps=8),
               dict(prompt_lens=SKEWED, seed=3)),
+    # prefix sharing: identical 20-token prompts prefilled whole, so the
+    # ragged tail page is shared and forked (cow_fork events)
+    "shared": (SHARED, dict(maker="make_shared_prefix_trace", n_requests=4,
+                            prefix_len=20, tail_len=0, seed=3)),
+    # 16 shared + 5 unique tokens in chunks of 8: the compute skip
+    "shared_chunked": (dict(SHARED, prefill_chunk=8),
+                       dict(maker="make_shared_prefix_trace", n_requests=5,
+                            prefix_len=16, tail_len=5, seed=3)),
+    # identical 19-token prompts in chunks of 4 under the fused tick:
+    # exact-tail recompute, horizon-boundary forks; the budget keeps
+    # request 0 resident while the others are admitted
+    "shared_fused": (dict(SHARED, prefill_chunk=4, fuse_steps=8,
+                          max_new_tokens=16),
+                     dict(maker="make_shared_prefix_trace", n_requests=4,
+                          prefix_len=19, tail_len=0, seed=3)),
 }
 # the port's kernel path (plain on the CPU) against the reference's
 # plain path of the same layout
-KERNEL_CASES = {"dense_kernel": "dense", "paged_kernel": "paged"}
+KERNEL_CASES = {"dense_kernel": "dense", "paged_kernel": "paged",
+                "shared_kernel": "shared",
+                "shared_chunked_kernel": "shared_chunked",
+                "shared_fused_kernel": "shared_fused"}
 # rwkv6 (ssm family): the state is slot-dense and prompts prefill whole
 # on both sides, with or without prefill_chunk; use_pallas_decode selects
 # the port's WKV6 kernel (plain on the CPU) and is a no-op in the
@@ -98,13 +119,17 @@ def rwkv_weights():
 
 
 def _ecfg(over):
-    return dict(max_batch=3, max_seq=48, max_new_tokens=6, **over)
+    return dict(dict(max_batch=3, max_seq=48, max_new_tokens=6), **over)
 
 
-def _trace(make, trace_kw):
-    n = len(trace_kw["prompt_lens"])
-    return make(512, rate_req_s=1e9, n_requests=n, prompt_len=0,
-                **trace_kw)
+def _trace(sched, trace_kw):
+    """The case's trace from the scheduler module ``sched`` of either
+    package, all arrivals at t~0."""
+    kw = dict(trace_kw)
+    maker = kw.pop("maker", "make_trace")
+    if maker == "make_trace":
+        kw.update(n_requests=len(kw["prompt_lens"]), prompt_len=0)
+    return getattr(sched, maker)(512, rate_req_s=1e9, **kw)
 
 
 def _host(x):
@@ -152,7 +177,7 @@ def _reference(name, arch="yi-6b"):
                          JE.EngineConfig(**_ecfg(over)))
     eng.set_tracer(jtracer.Tracer())
     rec = _record_logits(eng)
-    metrics = eng.run_trace(_trace(jsched.make_trace, trace_kw))
+    metrics = eng.run_trace(_trace(jsched, trace_kw))
     return eng, rec, metrics
 
 
@@ -162,7 +187,7 @@ def _port(over, trace_kw, params, arch="yi-6b"):
                          params=params)
     eng.set_tracer(ttracer.Tracer())
     rec = _record_logits(eng)
-    metrics = eng.run_trace(_trace(tsched.make_trace, trace_kw))
+    metrics = eng.run_trace(_trace(tsched, trace_kw))
     return eng, rec, metrics
 
 
@@ -199,15 +224,22 @@ def test_engine_matches_reference(name, weights):
     jm, tm = ref[2], port[2]
     for key in ("requests", "decoded_tokens", "preemptions", "finish_eos",
                 "finish_budget", "defrag_runs", "kv_peak_tokens",
-                "kv_logical_peak_pages", "kv_mode"):
+                "kv_logical_peak_pages", "kv_mode", "kv_shared_pages",
+                "kv_dedup_ratio_peak", "cow_forks",
+                "prefill_skipped_tokens"):
         assert tm[key] == jm[key], key
+    if ref_name.startswith("shared"):
+        assert tm["kv_dedup_ratio_peak"] > 1.0
+        assert (tm["cow_forks"] > 0) == (ref_name != "shared_chunked")
+        assert (tm["prefill_skipped_tokens"] > 0) == (
+            ref_name != "shared")
     if ref_name == "oversubscribed":
         assert tm["preemptions"] > 0
     if ref_name == "eos":
         assert tm["finish_eos"] > 0
     if ref_name == "paged":
         assert tm["defrag_runs"] > 0
-    if ref_name == "fused":
+    if ref_name.endswith("fused"):
         assert tm["fused_ticks"] == jm["fused_ticks"] > 0
     # on the CPU the kernel path runs the plain versions: no launches
     assert fd.LAUNCHES == {"flash_decode": 0, "paged_flash_decode": 0}
@@ -264,7 +296,7 @@ def test_load_report_and_tracer(weights):
     eng.set_tracer(tracer)
     rep = eng.load_report()
     assert rep.free_slots == 3 and rep.free_pages == eng.paged.num_pages
-    eng.run_trace(_trace(tsched.make_trace, CASES["paged"][1]))
+    eng.run_trace(_trace(tsched, CASES["paged"][1]))
     kinds = {e.kind for e in tracer.events}
     assert {"arrival", "admit", "prefill_chunk", "decode_step", "finish",
             "gauge"} <= kinds
@@ -321,7 +353,7 @@ def test_rwkv_engine_routes_the_wkv6_kernel(rwkv_weights, monkeypatch):
         steps = []
         decode = eng._decode_batch
         eng._decode_batch = lambda toks: steps.append(1) or decode(toks)
-        eng.run_trace(_trace(tsched.make_trace,
+        eng.run_trace(_trace(tsched,
                              dict(prompt_lens=np.array([5, 7]), seed=1)))
         n = eng.cfg.num_layers
         if kernel:
@@ -343,14 +375,14 @@ def test_rwkv_paged_engine_reports_slots_not_pages(rwkv_weights):
     eng.set_tracer(tracer)
     rep = eng.load_report()
     assert rep.free_pages == rep.min_region_free == rep.free_slots == 3
-    req = _trace(tsched.make_trace, dict(prompt_lens=np.array([6]),
+    req = _trace(tsched, dict(prompt_lens=np.array([6]),
                                          seed=2))[0]
     assert eng._start_chunked(req)
     assert "buf" in eng._prefilling and eng.paged.pages_in_use() == 0
     assert eng.load_report().free_pages == 2
     eng._release(eng._prefilling.pop("slot"))
     eng._prefilling = None
-    eng.run_trace(_trace(tsched.make_trace, RWKV_CASES["paged"][1]))
+    eng.run_trace(_trace(tsched, RWKV_CASES["paged"][1]))
     kinds = {e.kind for e in tracer.events}
     assert "decode_step" in kinds and not kinds & {"grow", "defrag"}
 

@@ -72,11 +72,42 @@ def test_cli_serves_rwkv6_on_cpu(capsys):
     assert "[serve] rwkv6-7b on cpu" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag", [["--prefix-sharing"],
-                                  ["--shared-prefix", "8"],
-                                  ["--placement", "affinity"],
-                                  ["--codesign"], ["--groups", "2"],
-                                  ["--replicas", "2"], ["--tiers", "1:1"],
+@pytest.mark.parametrize("argv", [
+    # 8 shared + 4 unique tokens prefilled whole: the first page is
+    # mapped, no compute is skipped
+    ["--shared-prefix", "8"],
+    # 8 shared + 4 unique tokens in chunks of 4: the compute skip
+    ["--shared-prefix", "8", "--prefill-chunk", "4"],
+    # two prompt groups (make_grouped_prefix_trace) under the fused tick
+    ["--shared-prefix", "8", "--groups", "2", "--group-skew", "0.5",
+     "--prefill-chunk", "4", "--fuse-steps", "8", "--max-new", "8",
+     "--n-requests", "6"],
+], ids=["whole_prompt", "chunked", "groups_fused"])
+def test_cli_serves_prefix_sharing_on_cpu(argv, capsys):
+    base = ["--device", "cpu", "--n-requests", "4", "--prompt-len", "12",
+            "--max-new", "5", "--paged", "--page-size", "8",
+            "--prefix-sharing", "--pallas", "--rate", "1e9"]
+    m = serve.main(base + argv)
+    assert m["requests"] == int(argv[argv.index("--n-requests") + 1]
+                                if "--n-requests" in argv else 4)
+    assert m["kv_dedup_ratio_peak"] > 1.0
+    assert (m["prefill_skipped_tokens"] > 0) == ("--prefill-chunk" in argv)
+    if "--fuse-steps" in argv:
+        assert m["fused_ticks"] > 0
+    assert "[serve] yi-6b on cpu" in capsys.readouterr().out
+
+
+def test_cli_prefix_sharing_requires_paged(capsys):
+    with pytest.raises(SystemExit) as exc:
+        serve.main(["--device", "cpu", "--prefix-sharing",
+                    "--shared-prefix", "8"])
+    assert exc.value.code == 2
+    assert "--prefix-sharing requires --paged" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag", [["--placement", "affinity"],
+                                  ["--codesign"], ["--replicas", "2"],
+                                  ["--tiers", "1:1"],
                                   ["--trace-out", "t.json"]])
 def test_cli_refuses_unported_flags(flag, capsys):
     with pytest.raises(SystemExit) as exc:
