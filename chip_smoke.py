@@ -23,10 +23,12 @@ Phases, one line each; any failure raises and exits non-zero:
                0..4096 and at the serve's decode shape (B=4, lengths
                768-778), garbage past every length and in the scratch
                page, rtol = atol = 2e-2 (the bf16 tolerance of
-               tests/test_kernels.py); the split plan (C, n_split, blocks
-               holding valid positions) of each timed case; then every
-               instantiation (f32 / bf16 x D 32/64/128 x G 1/4/8) on
-               lengths at the chunk edges, f32 within 2e-5;
+               tests/test_kernels.py), and at stablelm-3b's decode shape
+               (B=4, Hq=Hkv=32, D=80, the serve's lengths); the split
+               plan (C, n_split, blocks holding valid positions) of each
+               timed case; then every instantiation (f32 / bf16 x D
+               32/64/80/112/128 x G 1/4/6/7/8) on lengths at the chunk
+               edges, f32 within 2e-5;
              * WKV6 at rwkv6-7b shapes (H=64, hs=64): decode B=4, T=1 (the
                serial design) and whole-prompt prefills B=1, T=128, 768
                and 1024 (the chunked design), each with its plan (design,
@@ -46,14 +48,16 @@ Phases, one line each; any failure raises and exits non-zero:
                checked bitwise repeatable over two calls and two CUDA
                graph replays; each case's split plan (bk, n_split,
                blocks) and achieved TB/s.
-3. parity  — full-width yi-6b and rwkv6-7b at 2 layers in float32 (TF32
-             off): each engine with its kernels against the same engine
-             on the plain path, teacher-forced on the plain run's tokens;
-             per-step logits within 1e-3.  Then yi-6b's fused paged
+3. parity  — full-width yi-6b, rwkv6-7b, qwen3-30b-a3b (MoE),
+             stablelm-3b (D=80, MHA, layernorm) and qwen2-vl-7b (M-RoPE,
+             G=7) at 2 layers in float32 (TF32 off): each engine with its
+             kernels against the same engine on the plain path,
+             teacher-forced on the plain run's tokens; per-step logits
+             within 1e-3.  Then yi-6b's and qwen3-30b-a3b's fused paged
              engine (fuse_steps=8, kernels on, one CUDA graph per
              bucketed horizon) against its per-tick paged engine on the
-             same trace: identical tokens and finish reasons; and the
-             same pair with prefix sharing on and prefill chunks of 4, on
+             same trace: identical tokens and finish reasons; and, for
+             yi-6b, the same pair with prefix sharing on and prefill chunks of 4, on
              four 37-token identical prompts of which two are extended
              by 11 unique tokens (the ragged tail page is shared and
              forked; the extended ones hold shared pages while their
@@ -79,7 +83,15 @@ Phases, one line each; any failure raises and exits non-zero:
              device time of its in-place page copies).  Then yi-6b on the
              dense engine (dense kernel), and rwkv6-7b on the paged
              engine with the WKV6 kernel (every prefill on the chunked
-             design, every decode step on the serial one).  Every launch
+             design, every decode step on the serial one).  Then
+             stablelm-3b (D=80) on the paged and the dense engine, and,
+             with every earlier model, engine and graph freed,
+             qwen3-30b-a3b (48 layers, 128 experts top-8, ~61 GB of
+             bf16 weights) on the paged engine per tick and fusing up to
+             16 steps a tick: the same tokens, the paged kernel launched
+             (per-tick steps + bucketed fused steps) x 48 times, with the
+             weights' size and the peak of allocated device memory.
+             Every launch
              counter is set to 0 just before each run and read just after
              it; the decode GEMM is not wired into any model (as in the
              reference), so its count on these runs is 0.
@@ -90,6 +102,7 @@ without a CUDA device.
 """
 from __future__ import annotations
 
+import gc
 import json
 import re
 import statistics
@@ -110,6 +123,11 @@ HQ, HKV, D, PAGE = 32, 4, 128, 16
 LENGTHS = [0, 1, 16, 17, 255, 1000, 2048, 4096]
 # profile_step.py's decode step: B=4, contexts 768-778, a window of 800
 SERVE_LENGTHS, SERVE_CAP = [768, 771, 775, 778], 800
+# stablelm-3b's attention: MHA (Hq = Hkv = 32), D = 80
+STABLELM_HEADS, STABLELM_D = 32, 80
+# group sizes of the instantiation grid: yi-6b and qwen3 (8), mixtral and
+# dbrx (6), qwen2-vl (7), stablelm (1)
+GROUPS = (1, 4, 6, 7, 8)
 # the shared-prefix serve: a system prompt of a whole number of pages and
 # of 128-token chunks, then an identical prompt with a ragged tail page
 SHARED_PREFIX, SHARED_TAIL, IDENTICAL_PROMPT = 768, 128, 777
@@ -305,8 +323,8 @@ def _fd_case(fd, ref, x, chunk=None, timed=True):
 
 
 def _ragged_checks(fd, ref, gen):
-    """Every instantiation (f32 and bf16 x D in {32, 64, 128} x G in {1,
-    4, 8}), paged and dense, on lengths at the chunk edges (0, 1, C-1, C,
+    """Every instantiation (f32 and bf16 x D in fd.HEAD_DIMS x G in
+    GROUPS), paged and dense, on lengths at the chunk edges (0, 1, C-1, C,
     C+1 and one lane over several chunks) with garbage past every length,
     at the planned C and at the largest C that fits; returns the largest
     |err| per dtype."""
@@ -319,7 +337,7 @@ def _ragged_checks(fd, ref, gen):
                       if c * d * row <= fd.MAX_TILE_BYTES)
             cap = 4 * big
             planned, _ = fd.split_plan(cap, 6, 2, PAGE, d * row)
-            for g in (1, 4, 8):
+            for g in GROUPS:
                 for c in sorted({planned, big}):
                     lens = [0, 1, c - 1, c, c + 1, 3 * c + 5]
                     x = _fd_inputs(gen, lens, cap, dt, d, 2 * g, 2)
@@ -330,17 +348,22 @@ def _ragged_checks(fd, ref, gen):
 
 def phase_kernels(fd, ref):
     """Both flash-decode kernels at chip_smoke's ragged shape (B=8,
-    lengths 0..4096) and at the serve's decode shape (B=4, lengths
-    768-778), timed; every instantiation on chunk-edge lengths."""
+    lengths 0..4096), at the serve's decode shape (B=4, lengths 768-778)
+    and at stablelm-3b's (the same lengths, Hq = Hkv = 32, D = 80), timed;
+    every instantiation on chunk-edge lengths."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     head = _fd_case(fd, ref, _fd_inputs(gen, LENGTHS, max(LENGTHS)))
     serve = _fd_case(fd, ref, _fd_inputs(gen, SERVE_LENGTHS, SERVE_CAP))
+    stablelm = _fd_case(fd, ref, _fd_inputs(
+        gen, SERVE_LENGTHS, SERVE_CAP, d=STABLELM_D, hq=STABLELM_HEADS,
+        hkv=STABLELM_HEADS))
     ragged = _ragged_checks(fd, ref, gen)
     keys = ("shape", "plan", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "library_ms")
     rows = []
     for name, row in head.items():
-        cases = [{k: case[name][k] for k in keys} for case in (head, serve)]
+        cases = [{k: case[name][k] for k in keys}
+                 for case in (head, serve, stablelm)]
         del row["shape"], row["plan"]
         rows.append({**row, "cases": cases})
     print("[kernels] " + json.dumps({"ragged_max_abs_err": ragged,
@@ -738,8 +761,9 @@ def _fused_parity(entry, params, ecfg_kw, trace):
     n = sum(len(t) for t, _ in per_tick.values())
     what = "shared " if ecfg_kw.get("prefix_sharing") else ""
     print(f"[parity] fused {what}paged engine (fuse_steps 8, graphs "
-          f"{sorted(runs[1]._fused_graphs)}) vs per-tick, yi-6b 2 layers "
-          f"f32: tokens {n}/{n} identical, {runs[1].fused_report()}")
+          f"{sorted(runs[1]._fused_graphs)}) vs per-tick, "
+          f"{entry.config.name} 2 layers f32: tokens {n}/{n} identical, "
+          f"{runs[1].fused_report()}")
     return runs
 
 
@@ -785,7 +809,8 @@ def phase_parity(registry, sched):
     lens = np.array([100, 300, 17, 180])
     base = dict(max_batch=4, max_seq=int(lens.max()) + 18,
                 max_new_tokens=16, page_size=PAGE, prefill_chunk=128)
-    for arch in ("yi-6b", "rwkv6-7b"):
+    for arch in ("yi-6b", "rwkv6-7b", "qwen3-30b-a3b", "stablelm-3b",
+                 "qwen2-vl-7b"):
         entry = registry.get(arch, num_layers=2, dtype="float32")
         params = entry.module.init(entry.config, device="cuda", seed=1)
 
@@ -801,11 +826,12 @@ def phase_parity(registry, sched):
                   f"kernels vs plain, {arch} 2 layers f32: max |logit err| "
                   f"{err:.3g} (tol {PARITY_TOL}), token agreement "
                   f"{agree}/{total}")
-        if arch == "yi-6b":
+        if arch in ("yi-6b", "qwen3-30b-a3b"):
             _fused_parity(entry, params, dict(base, paged=True), trace)
+        if arch == "yi-6b":
             _shared_parity(entry, params, base, sched)
         del params
-        torch.cuda.empty_cache()
+        _free()
 
 
 def _serve(entry, params, ecfg, reqs, sched, kmods, kernel, smi):
@@ -894,10 +920,25 @@ def _init_full(registry, arch):
     t0 = time.perf_counter()
     params = entry.module.init(entry.config, device="cuda", seed=0)
     torch.cuda.synchronize()
+    leaves = list(_leaves(params))
     print(f"[serve] {arch} weights: "
-          f"{sum(t.numel() for t in _leaves(params)) / 1e9:.2f} B "
-          f"parameters, init {time.perf_counter() - t0:.1f} s")
+          f"{sum(t.numel() for t in leaves) / 1e9:.2f} B parameters, "
+          f"{sum(t.numel() * t.element_size() for t in leaves) / 1e9:.2f} "
+          f"GB, init {time.perf_counter() - t0:.1f} s")
     return entry, params
+
+
+def _free():
+    """Release what earlier runs held on the card: the engines (a watched
+    engine refers to itself, so only the collector frees it), their
+    pools and captured graphs, the cuBLAS workspace kept for each stream
+    a capture ran on, then the allocator's cached blocks."""
+    gc.collect()
+    torch.cuda.synchronize()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    torch.cuda.empty_cache()
 
 
 def _leaves(tree):
@@ -1027,8 +1068,8 @@ def phase_serve(registry, sched, kmods, smi):
                 max_new_tokens=new, page_size=PAGE, prefill_chunk=128,
                 use_pallas_decode=True)
 
-    def trace():
-        return sched.make_trace(entry.config.vocab, rate_req_s=4.0,
+    def trace(vocab=None):
+        return sched.make_trace(vocab or entry.config.vocab, rate_req_s=4.0,
                                 n_requests=len(lens), prompt_len=0, seed=0,
                                 prompt_lens=lens)
 
@@ -1053,7 +1094,7 @@ def phase_serve(registry, sched, kmods, smi):
                           sched, kmods, "flash_decode", smi)
     launches["flash_decode"] = {"yi-6b dense": counts["flash_decode"]}
     del params
-    torch.cuda.empty_cache()
+    _free()
     # rwkv6 prefills whole prompts (prefill_chunk is for attention
     # families) and its state holds no pages
     entry, params = _init_full(registry, "rwkv6-7b")
@@ -1065,8 +1106,54 @@ def phase_serve(registry, sched, kmods, smi):
         raise AssertionError(f"rwkv6 paged KV peak "
                              f"{metrics['kv_peak_tokens']} != 0")
     del params
-    torch.cuda.empty_cache()
+    _free()
+    # stablelm-3b: D = 80 through both flash-decode kernels
+    entry, params = _init_full(registry, "stablelm-3b")
+    for paged, kernel in ((True, "paged_flash_decode"),
+                          (False, "flash_decode")):
+        counts, _, _ = _serve(entry, params, dict(base, paged=paged),
+                              trace(), sched, kmods, kernel, smi)
+        launches[kernel]["stablelm-3b " + ("paged" if paged else "dense")] \
+            = counts[kernel]
+    del params
+    _free()
+    _serve_qwen3(registry, sched, kmods, smi, base, trace, launches)
     return launches
+
+
+def _serve_qwen3(registry, sched, kmods, smi, base, trace, launches):
+    """qwen3-30b-a3b at full width and depth, alone on the card: per tick,
+    then fusing up to 16 steps a tick; the same tokens, and the weights'
+    size and the peak of allocated memory over both runs."""
+    held = torch.cuda.memory_allocated()
+    if held > 1 << 30:
+        raise AssertionError(f"{held / 1e9:.2f} GB still allocated before "
+                             f"qwen3-30b-a3b's weights are drawn")
+    torch.cuda.reset_peak_memory_stats()
+    entry, params = _init_full(registry, "qwen3-30b-a3b")
+    weight_gb = sum(t.numel() * t.element_size()
+                    for t in _leaves(params)) / 1e9
+    runs = launches["paged_flash_decode"]
+    streams, keep = {}, {}
+    for fuse in (1, PAGE):
+        label = "qwen3-30b-a3b paged" + (" fused" if fuse > 1 else "")
+        counts, metrics, streams[fuse] = _serve(
+            entry, params, dict(base, paged=True, fuse_steps=fuse),
+            trace(entry.config.vocab), sched, kmods, "paged_flash_decode",
+            smi)
+        runs[label] = counts["paged_flash_decode"]
+        keep[label] = {k: metrics[k] for k in (
+            "tokens_per_s", "tbt_mean_s", "tbt_p99_s", "ttft_mean_s")}
+    _same_streams("qwen3-30b-a3b fused serve vs per tick", streams[PAGE],
+                  streams[1])
+    print("[serve] qwen3-30b-a3b " + json.dumps({
+        "weights_gb": weight_gb,
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "held_before_gb": held / 1e9, "runs": keep,
+        "tokens_identical": sum(len(t) for t, _ in streams[1].values()),
+        "card": smi}))
+    del params
+    _free()
 
 
 def main() -> None:

@@ -8,6 +8,8 @@
 //       page pools (P+1, page, Hkv, D) read through a block table
 //       tables (B, nblk); page P is a scratch page
 //
+// Built for D in {32, 64, 80, 112, 128} and G = Hq / Hkv in 1..8.
+//
 // Function (exactly the Pallas kernels'): scale 1/sqrt(D); float32
 // scores, max, sum and accumulator; positions >= lengths[b] (clamped to
 // the cap) contribute nothing; the output is acc / max(l, 1e-20), so a
@@ -176,6 +178,14 @@ __device__ __forceinline__ void load_page_ids(const Args& a, int b,
   __syncthreads();
 }
 
+// Lanes given to one row's 16-byte pieces: the next power of two at or
+// above the piece count, so every row has the same lanes (D = 80 and 112
+// leave 6 of 16 and 2 of 16 bf16 lanes, or 12 of 32 and 4 of 32 f32
+// lanes, without a piece).
+__host__ __device__ constexpr int pow2_at_least(int n) {
+  return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2);
+}
+
 // Copy rows [start, start + nvalid) of head h into dst (chunk rows,
 // padded); rows past nvalid are zero-filled.  A thread keeps one 16-byte
 // piece of every kStep-th row, so a paged row's (page, offset) is carried
@@ -187,10 +197,12 @@ __device__ __forceinline__ void stage_rows(const Args& a, const void* base,
                                            int start, int nvalid) {
   using raw = typename Tr::raw;
   using S = Smem<Tr, D>;
-  constexpr int kStep = kThreads / S::kPieces;
-  static_assert(kThreads % S::kPieces == 0, "a piece per thread per row");
-  const int c = threadIdx.x % S::kPieces;
-  int r = threadIdx.x / S::kPieces;
+  constexpr int kLanes = pow2_at_least(S::kPieces);
+  constexpr int kStep = kThreads / kLanes;
+  static_assert(kThreads % kLanes == 0, "whole rows per pass");
+  const int c = threadIdx.x % kLanes;
+  if (c >= S::kPieces) return;       // a lane past the row's pieces
+  int r = threadIdx.x / kLanes;
   const raw* src0 = static_cast<const raw*>(base) + h * a.kv_sh +
                     c * S::kVec;
   int blk = 0, off = 0;   // the row's entry in pages[] and offset in it
@@ -637,6 +649,8 @@ int launch_d(const Args& a, int batch, int hkv, int d, cudaStream_t s) {
   switch (d) {
     case 32: return launch<Tr, 32, PAGED>(a, batch, hkv, s);
     case 64: return launch<Tr, 64, PAGED>(a, batch, hkv, s);
+    case 80: return launch<Tr, 80, PAGED>(a, batch, hkv, s);
+    case 112: return launch<Tr, 112, PAGED>(a, batch, hkv, s);
     case 128: return launch<Tr, 128, PAGED>(a, batch, hkv, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -25,7 +25,9 @@ from repro_torch.kernels import build
 LAUNCHES: Dict[str, int] = {"flash_decode": 0, "paged_flash_decode": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+#: head dims the kernels are built for (80: stablelm-3b; 112:
+#: kimi-k2-1t-a32b), each a multiple of 16 for the bf16 tensor-core tiles
+HEAD_DIMS = (32, 64, 80, 112, 128)
 MAX_GROUP = 8
 #: context positions per block the plan chooses among, largest first
 CHUNKS = (256, 128, 64, 32)

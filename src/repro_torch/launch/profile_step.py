@@ -17,6 +17,13 @@ whole prompt) then runs under the profiler.  Each profiled window lists
 its largest device ops with their share of its device time.  Prints one
 JSON line.
 
+Each profiled window also splits its device time by kind (GEMMs from
+cuBLAS, the port's attention kernels, everything else).  For an MoE
+config, one layer's ``apply_moe`` is profiled on its own at the decode
+step's and the prefill chunk's token counts, which splits the layer into
+its expert and router GEMMs and its dispatch / combine (routing, ranks,
+scatter, gather; every other kernel of the layer).
+
 With ``--fuse-steps K`` the engine fuses up to K decode steps a tick
 (one CUDA graph per power-of-two horizon on the card, every bucket up to
 K captured first and timed as ``capture_s``).  After the per-tick steps,
@@ -42,13 +49,18 @@ from typing import List, Optional
 
 import torch
 
-from repro_torch.models import registry
+from repro_torch.models import layers as L
+from repro_torch.models import registry, transformer
 from repro_torch.serving.engine import EngineConfig, make_engine
 from repro_torch.serving.scheduler import make_trace
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 # the port's hand-written kernels (csrc/*.cu), by __global__ name
 PORT_KERNELS = re.compile(r"wkv6_\w+|decode_\w+_kernel|snake_gemm_kernel")
+# device kernels by kind: cuBLAS / CUTLASS matrix products, the port's
+# attention kernels (flash decode); everything else is "other"
+KINDS = (("gemm", re.compile(r"gemm|nvjet|xmma|cutlass|cublas", re.I)),
+         ("attention", re.compile(r"decode_\w+_kernel")))
 # the host's submissions of device work, by CUDA API name
 HOST_LAUNCHES = re.compile(r"^cu(da)?(LaunchKernel\w*|GraphLaunch|"
                            r"Memcpy\w*|Memset\w*)$")
@@ -99,11 +111,16 @@ def _profile(fn, device: torch.device) -> dict:
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     port = {}
+    by_kind = {name: 0.0 for name, _ in KINDS}
+    by_kind["other"] = 0.0
     for e in kernels:
+        ms = e.self_device_time_total / 1e3
         m = PORT_KERNELS.search(e.key)
         if m:
-            port[m.group(0)] = port.get(m.group(0), 0.0) + \
-                e.self_device_time_total / 1e3
+            port[m.group(0)] = port.get(m.group(0), 0.0) + ms
+        kind = next((name for name, pat in KINDS if pat.search(e.key)),
+                    "other")
+        by_kind[kind] += ms
     host = sum(e.count for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CPU
                and HOST_LAUNCHES.match(e.key))
@@ -111,6 +128,7 @@ def _profile(fn, device: torch.device) -> dict:
             "event_span_ms": (events[0].elapsed_time(events[1])
                               if events else None),
             "port_kernels_ms": port,
+            "device_ms_by_kind": by_kind,
             "launches": sum(e.count for e in kernels),
             "host_launches": host,
             "top": [{"name": e.key[:60], "count": e.count,
@@ -176,9 +194,28 @@ def _fused_windows(eng, steps: int, window: int,
             "fused_report": eng.fused_report()}
 
 
+def _moe_layer(params, cfg, tokens: int, device: torch.device) -> dict:
+    """Layer 0's ``apply_moe`` on ``tokens`` random rows, profiled alone
+    (after one warm-up call): its GEMMs (experts, router) and the rest,
+    the dispatch and combine."""
+    lp = transformer.layer_params(params, 0)["moe"]
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = torch.randn((tokens, cfg.d_model), generator=gen, device=device
+                    ).to(L._dtype(cfg.dtype))
+    L.apply_moe(lp, x, cfg)
+    _sync(device)
+    prof = _profile(lambda: L.apply_moe(lp, x, cfg), device)
+    kinds = prof["device_ms_by_kind"]
+    return {"tokens": tokens, "device_busy_ms": prof["device_busy_ms"],
+            "gemm_ms": kinds["gemm"],
+            "dispatch_combine_ms": kinds["other"] + kinds["attention"],
+            "launches": prof["launches"], "top": prof["top"]}
+
+
 def main(argv: Optional[List[str]] = None) -> dict:
     ap = argparse.ArgumentParser(prog="repro_torch.launch.profile_step")
-    ap.add_argument("--arch", choices=registry.ARCH_IDS, default="yi-6b")
+    ap.add_argument("--arch", choices=registry.ARCH_IDS
+                    + registry.EXTRA_ARCH_IDS, default="yi-6b")
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--batch", type=int, default=4)
@@ -189,7 +226,10 @@ def main(argv: Optional[List[str]] = None) -> dict:
                     help="also time fused ticks of up to K steps, in "
                          "windows alternated with per-tick ones")
     args = ap.parse_args(argv)
-    entry = registry.get(args.arch, reduced=not args.full)
+    try:
+        entry = registry.get(args.arch, reduced=not args.full)
+    except NotImplementedError as exc:   # an architecture not ported yet
+        ap.error(str(exc))
     cfg = entry.config
     fuse = args.fuse_steps
     if fuse is not None and fuse < 1:
@@ -275,6 +315,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
         "device_launches_per_step": step["launches"],
         "host_launches_per_step": step["host_launches"],
         "top_device_ops": step["top"],
+        "device_ms_by_kind_per_step": step["device_ms_by_kind"],
         "port_kernels_ms_per_step": step["port_kernels_ms"],
         "weight_bytes_per_step": weight_bytes,
         "weights_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
@@ -285,6 +326,12 @@ def main(argv: Optional[List[str]] = None) -> dict:
         # one more prefill unit (a chunk, or a whole prompt) profiled
         "profiled_prefill": prefill,
         "fused": fused,
+        # one MoE layer alone, at the decode step's and the chunk's tokens
+        "moe_layer": ({"decode": _moe_layer(eng.params, cfg, args.batch,
+                                            dev),
+                       "prefill_chunk": _moe_layer(eng.params, cfg,
+                                                   args.chunk, dev)}
+                      if cfg.num_experts else None),
         "card": _card(dev)}
     print(json.dumps(out))
     return out

@@ -5,12 +5,17 @@
       --paged --prefill-chunk 128 --pallas
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
       --full --paged --pallas
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-30b-a3b \
+      --full --paged --prefill-chunk 128 --pallas --fuse-steps 16
 
 Runs on the CUDA card by default (``--device cpu`` runs the plain
 PyTorch path on the host); the reduced config is the default and
 ``--full`` serves the published widths.  The ported architectures are
-yi-6b (dense) and rwkv6-7b (ssm); the reference's other ids, its extra
-Table 1 models included, are refused with an error naming their slice.
+the dense, MoE and VLM-text transformers (every id but two, the extra
+Table 1 models included) and rwkv6-7b (ssm); recurrentgemma-9b and
+whisper-small are refused with an error naming their slice.  At full
+width qwen1.5-110b, opt-66b, llama3-70b, mixtral-8x22b, dbrx-132b and
+kimi-k2-1t-a32b do not fit one 80 GB card (nothing is sharded yet).
 ``--pallas`` routes decode attention through the flash-decode CUDA
 kernel (the block-table kernel with ``--paged``) and, for rwkv6-7b, the
 recurrence of prefill and decode through the WKV6 CUDA kernel;
@@ -98,7 +103,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--pallas", action="store_true",
                     help="the CUDA kernels: flash-decode attention "
-                         "(dense), the WKV6 recurrence (rwkv6-7b)")
+                         "(transformers), the WKV6 recurrence (rwkv6-7b)")
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="Sarathi-style chunked prefill")
     ap.add_argument("--paged", action="store_true",

@@ -1,16 +1,19 @@
-"""Model components for the dense transformer (port of
+"""Model components for the transformer families (port of
 ``repro.models.layers``).
 
 Plain functions on tensors over a parameter dict, with the reference's
 layouts: weights are ``(d_in, d_out)`` so ``x @ W`` matches the JAX
-code, caches are ``(B, S, Hkv, D)`` and page pools ``(P+1, page, Hkv,
-D)`` with scratch page ``P``.  Norms, rope and attention compute in
-float32 and cast back, as the reference does.
+code, expert weights ``(E, d_in, d_out)``, caches are ``(B, S, Hkv, D)``
+and page pools ``(P+1, page, Hkv, D)`` with scratch page ``P``.  Norms,
+rope and attention compute in float32 and cast back, as the reference
+does.  The MoE layer is the reference's single-device dispatch (one
+chunk; the expert-parallel ``shard_map`` form arrives with the
+distribution slice).
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -50,7 +53,7 @@ def apply_norm(kind: str, p: Params, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Rotary embeddings
+# Rotary embeddings (RoPE + M-RoPE)
 # ---------------------------------------------------------------------------
 def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
     exps = torch.arange(0, d_head, 2, dtype=torch.float32,
@@ -60,12 +63,28 @@ def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / torch.pow(float(theta), exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x: (B, S, H, D); positions: (B, S) absolute token positions."""
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               mrope_sections: Optional[Tuple[int, int, int]] = None
+               ) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S) absolute token positions, or
+    (B, S, 3) for M-RoPE (Qwen2-VL), where frequency ``i`` of the D/2
+    takes the position stream of the section holding it
+    (``mrope_sections`` consecutive widths, cut to D/2)."""
     d = x.shape[-1]
     inv = rope_freqs(d, theta, x.device)
-    ang = positions.float()[..., None] * inv              # (B, S, D/2)
+    if positions.ndim == 3:                               # M-RoPE
+        if mrope_sections is None or sum(mrope_sections) < d // 2:
+            raise ValueError(f"M-RoPE positions need sections covering "
+                             f"D/2 = {d // 2}, got {mrope_sections}")
+        # section id of each frequency, built on the device from Python
+        # bounds (no host-to-device copy, so a step stays capturable)
+        freq = torch.arange(d // 2, device=x.device)
+        sec = (freq >= mrope_sections[0]).long() + (
+            freq >= mrope_sections[0] + mrope_sections[1]).long()
+        pos = positions.float().index_select(-1, sec)     # (B, S, D/2)
+        ang = pos * inv
+    else:
+        ang = positions.float()[..., None] * inv          # (B, S, D/2)
     cos = torch.cos(ang)[..., None, :]                    # (B, S, 1, D/2)
     sin = torch.sin(ang)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
@@ -262,6 +281,91 @@ def apply_ffn(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
     else:
         h = _act(act, h)
     return h @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# MoE: capacity-grouped dispatch (sort-based ranks, dense (E, C, d) slots)
+# ---------------------------------------------------------------------------
+def init_moe(gen, cfg, dtype, device=None, lead=()) -> Params:
+    e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff_expert
+    p = {
+        "router": dense_init(gen, (*lead, d, e), torch.float32,
+                             device=device),
+        "w_up": dense_init(gen, (*lead, e, d, f), dtype, device=device),
+        "w_gate": dense_init(gen, (*lead, e, d, f), dtype, device=device),
+        "w_down": dense_init(gen, (*lead, e, f, d), dtype,
+                             scale=0.02 / math.sqrt(2 * cfg.num_layers),
+                             device=device),
+    }
+    if cfg.num_shared_experts:
+        p["shared"] = init_ffn(gen, d, f * cfg.num_shared_experts,
+                               cfg.gated_ffn, dtype, cfg.num_layers,
+                               device=device, lead=lead)
+    return p
+
+
+def moe_capacity(tokens: int, num_experts: int, topk: int,
+                 factor: float) -> int:
+    c = max(1, int(math.ceil(tokens * topk / num_experts * factor)))
+    return -(-c // 16) * 16   # a multiple of 16, as the reference's
+
+
+def _local_ranks(flat_e: torch.Tensor, n: int, e: int) -> torch.Tensor:
+    """Rank of each (token, k) pair within its expert group (stable:
+    pairs of one expert are ranked in flat order)."""
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    first = torch.searchsorted(
+        sorted_e, torch.arange(e, device=flat_e.device,
+                               dtype=sorted_e.dtype))
+    rank_sorted = torch.arange(n, device=flat_e.device) - first[sorted_e]
+    return torch.zeros((n,), dtype=torch.int32,
+                       device=flat_e.device).scatter_(
+        0, order, rank_sorted.to(torch.int32))
+
+
+def apply_moe(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+    """x: (T, d_model) flattened tokens -> (T, d_model).
+
+    The reference's single-device dispatch: float32 router logits,
+    softmax, top-k with the weights renormalised; each (token, k) pair
+    ranked within its expert and written to slot ``(expert, rank)`` of a
+    dense ``(E, C, d)`` buffer, pairs at rank >= C dropped; three batched
+    products over every expert; each pair's output gathered back (0 for
+    a dropped pair), scaled by its weight in the activation dtype and
+    summed over k; the shared expert's FFN added last.
+
+    Where the reference drops out-of-range ranks inside its scatter and
+    gather, here they are routed to one extra trash row (discarded on
+    the way in, zero on the way out): no index is ever out of range, and
+    nothing reads back to the host or takes a data-dependent shape, so
+    a decode step holding this layer can be captured in a CUDA graph.
+    """
+    t, d = x.shape
+    e, k = cfg.num_experts, cfg.topk
+    c = moe_capacity(t, e, k, cfg.capacity_factor)
+    logits = x.float() @ p["router"]                      # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    weights, experts = torch.topk(probs, k, dim=-1)       # (T, K)
+    weights = weights / torch.clamp(weights.sum(-1, keepdim=True),
+                                    min=1e-9)
+    flat_e = experts.reshape(-1)
+    rank = _local_ranks(flat_e, t * k, e)                 # (T*K,)
+    slot = torch.where(rank < c, flat_e * c + rank, e * c)
+    token_idx = torch.arange(t, device=x.device).repeat_interleave(k)
+    ge = x.new_zeros((e * c + 1, d))
+    ge[slot] = x[token_idx]
+    ge = ge[:e * c].view(e, c, d)
+    up = torch.bmm(ge, p["w_up"])
+    gate = torch.bmm(ge, p["w_gate"])
+    h = _act(cfg.act, gate) * up
+    out_e = torch.bmm(h, p["w_down"])                     # (E, C, d)
+    out = torch.cat([out_e.reshape(e * c, d), out_e.new_zeros((1, d))])
+    y = out[slot] * weights.reshape(-1)[:, None].to(out.dtype)
+    y = y.reshape(t, k, d).sum(dim=1)                     # (T, d)
+    if "shared" in p:
+        y = y + apply_ffn(p["shared"], x, cfg.act)
+    return y.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

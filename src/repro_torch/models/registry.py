@@ -1,9 +1,11 @@
 """Architecture registry: ``--arch <id>`` resolution (port of
 ``repro.models.registry``).
 
-The port serves the dense transformer family and the RWKV6 (``ssm``)
-family.  Asking for an architecture whose family or config has not been
-ported raises ``NotImplementedError`` naming the slice that brings it.
+The port serves the transformer families (dense, MoE, and the VLM text
+backbone with M-RoPE) and the RWKV6 (``ssm``) family.  Asking for an
+architecture whose family has not been ported (the recurrent hybrid and
+the encoder-decoder) raises ``NotImplementedError`` naming the slice
+that brings it.
 """
 from __future__ import annotations
 
@@ -24,19 +26,29 @@ ARCH_IDS = [
 # the paper's own Table 1 models, selectable in the reference beyond the
 # assigned sweep
 EXTRA_ARCH_IDS = ["opt-66b", "llama3-70b", "mixtral-8x22b", "qwen3-30b-a3b"]
-_EXTRA_SLICE = ("the rest of the dense family, then MoE and VLM (ROADMAP "
-                "queue 1, item 3)")
 
 # configs ported so far (module name under repro_torch.configs)
-_CONFIG_MODULES = {"yi-6b": "yi_6b", "rwkv6-7b": "rwkv6_7b"}
-
-# the slice (ROADMAP queue 1) that brings each family still to port
-_PENDING_FAMILIES = {
-    "moe": "MoE and VLM on the transformer path (queue 1, item 8)",
-    "vlm": "MoE and VLM on the transformer path (queue 1, item 8)",
-    "hybrid": "recurrent and encoder-decoder families (queue 1, item 9)",
-    "audio": "recurrent and encoder-decoder families (queue 1, item 9)",
+_CONFIG_MODULES = {
+    "dbrx-132b": "dbrx_132b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "rwkv6-7b": "rwkv6_7b",
+    "stablelm-3b": "stablelm_3b",
+    "yi-6b": "yi_6b",
+    "granite-3-8b": "granite_3_8b",
+    "qwen1.5-110b": "qwen1_5_110b",
+    "qwen2-vl-7b": "qwen2_vl_7b",
+    "opt-66b": "opt_66b",
+    "llama3-70b": "llama3_70b",
+    "mixtral-8x22b": "mixtral_8x22b",
+    "qwen3-30b-a3b": "qwen3_30b_a3b",
 }
+
+#: families served by the transformer module (the engines key their
+#: chunked prefill and flash-decode paths off this set too)
+TRANSFORMER_FAMILIES = ("dense", "moe", "vlm")
+# the slice (ROADMAP queue 1) that brings what is still to port
+_RECURRENT_SLICE = "recurrent and encoder-decoder families (queue 1, item 7)"
+_PENDING_FAMILIES = {"hybrid": _RECURRENT_SLICE, "audio": _RECURRENT_SLICE}
 
 
 @dataclass(frozen=True)
@@ -53,15 +65,11 @@ class ArchEntry:
 
 
 def get_config(name: str) -> ArchConfig:
-    if name in EXTRA_ARCH_IDS:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet; it arrives with: "
-            f"{_EXTRA_SLICE}")
     if name not in _CONFIG_MODULES:
         raise NotImplementedError(
             f"arch {name!r} is not ported yet: the port has configs for "
-            f"{sorted(_CONFIG_MODULES)}; the others arrive with the slice "
-            f"that ports their family (ROADMAP queue 1)")
+            f"{sorted(_CONFIG_MODULES)}; the others arrive with: "
+            f"{_RECURRENT_SLICE}")
     mod = importlib.import_module(
         f"repro_torch.configs.{_CONFIG_MODULES[name]}")
     return mod.CONFIG
@@ -70,14 +78,15 @@ def get_config(name: str) -> ArchConfig:
 def from_config(cfg: ArchConfig) -> ArchEntry:
     if cfg.family == "ssm":
         return ArchEntry(config=cfg, module=rwkv6)
-    if cfg.family != "dense":
+    if cfg.family not in TRANSFORMER_FAMILIES:
         slice_ = _PENDING_FAMILIES.get(cfg.family, "a later slice")
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet; it "
             f"arrives with: {slice_}")
-    if cfg.window or cfg.mrope:
+    if cfg.window:
         raise NotImplementedError(
-            f"{cfg.name}: windowed attention and M-RoPE are not ported yet")
+            f"{cfg.name}: windowed attention is not ported yet; it arrives "
+            f"with: {_RECURRENT_SLICE}")
     return ArchEntry(config=cfg, module=transformer)
 
 

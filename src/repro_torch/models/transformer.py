@@ -1,13 +1,16 @@
-"""Decoder-only transformer LM, dense family (port of
-``repro.models.transformer``).
+"""Decoder-only transformer LM: the dense, MoE and VLM-text families
+(port of ``repro.models.transformer``).
 
 ``init`` builds the reference's stacked-parameter tree (layer dim
-leading) as torch tensors; ``prefill`` / ``extend_step`` /
+leading; ``moe`` in place of ``ffn`` when the config has experts) as
+torch tensors; ``prefill`` / ``extend_step`` /
 ``decode_step`` / ``decode_step_paged`` walk the layers in a Python loop,
 and ``decode_fused_paged`` loops ``decode_step_paged`` over a horizon.
 Where the reference threads caches and pools through ``lax`` loops and
 returns fresh arrays, these functions write the new K/V into the tensors
-they were given, in place, and return them.
+they were given, in place, and return them.  The VLM family takes
+precomputed patch embeddings (``embeds``, the frontend stub) and
+(B, S, 3) M-RoPE positions; text positions are the one stream repeated.
 """
 from __future__ import annotations
 
@@ -61,9 +64,13 @@ def init(cfg: ArchConfig, tp: int = 1, *, device="cuda",
         "attn": L.init_attention(gen, cfg, dtype, hq, hkv, device=dev,
                                  lead=lead),
         "ln2": L.init_norm(cfg.norm, cfg.d_model, device=dev, lead=lead),
-        "ffn": L.init_ffn(gen, cfg.d_model, cfg.d_ff, cfg.gated_ffn, dtype,
-                          cfg.num_layers, device=dev, lead=lead),
     }
+    if cfg.num_experts:
+        blocks["moe"] = L.init_moe(gen, cfg, dtype, device=dev, lead=lead)
+    else:
+        blocks["ffn"] = L.init_ffn(gen, cfg.d_model, cfg.d_ff, cfg.gated_ffn,
+                                   dtype, cfg.num_layers, device=dev,
+                                   lead=lead)
     return {
         "embed": L.init_embed(gen, cfg.padded_vocab(tp), cfg.d_model, dtype,
                               cfg.tie_embeddings, device=dev),
@@ -80,16 +87,28 @@ def layer_params(params: Params, li: int) -> Params:
     return take(params["blocks"])
 
 
-def _positions(start, n: int, batch: int, device) -> torch.Tensor:
+def _mrope(cfg: ArchConfig, positions: torch.Tensor) -> torch.Tensor:
+    """(B, S) positions as the (B, S, 3) streams of M-RoPE (all three
+    the same) when the config uses it; unchanged otherwise."""
+    if cfg.mrope:
+        return positions[..., None].expand(*positions.shape, 3)
+    return positions
+
+
+def _positions(cfg: ArchConfig, start, n: int, batch: int,
+               device) -> torch.Tensor:
     pos = start + torch.arange(n, device=device)
-    return pos[None, :].expand(batch, n)
+    return _mrope(cfg, pos[None, :].expand(batch, n))
 
 
 def _attn_ffn_tail(cfg: ArchConfig, lp: Params, x: torch.Tensor,
                    attn: torch.Tensor) -> torch.Tensor:
-    """Residual + output projection, then the FFN sub-block."""
+    """Residual + output projection, then the FFN (or MoE) sub-block."""
     x = x + attn.reshape(*attn.shape[:-2], -1) @ lp["attn"]["wo"]
     h = L.apply_norm(cfg.norm, lp["ln2"], x)
+    if cfg.num_experts:
+        y = L.apply_moe(lp["moe"], h.reshape(-1, cfg.d_model), cfg)
+        return x + y.reshape(h.shape)
     return x + L.apply_ffn(lp["ffn"], h, cfg.act)
 
 
@@ -97,20 +116,26 @@ def _qkv_rope(cfg: ArchConfig, lp: Params, x: torch.Tensor,
               positions: torch.Tensor, hq: int, hkv: int):
     h = L.apply_norm(cfg.norm, lp["ln1"], x)
     q, k, v = L.qkv_project(lp["attn"], h, hq, hkv, cfg.d_head)
-    return (L.apply_rope(q, positions, cfg.rope_theta),
-            L.apply_rope(k, positions, cfg.rope_theta), v)
+    sections = cfg.mrope_sections if cfg.mrope else None
+    return (L.apply_rope(q, positions, cfg.rope_theta, sections),
+            L.apply_rope(k, positions, cfg.rope_theta, sections), v)
 
 
 # ---------------------------------------------------------------------------
 # Forward (prefill)
 # ---------------------------------------------------------------------------
-def forward_seq(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
-                tp: int = 1, collect_cache: bool = False):
-    """Full-sequence forward. Returns (hidden, (k_stack, v_stack) | None)."""
+def forward_seq(params: Params, cfg: ArchConfig,
+                tokens: Optional[torch.Tensor],
+                positions: Optional[torch.Tensor] = None,
+                embeds: Optional[torch.Tensor] = None, tp: int = 1,
+                collect_cache: bool = False):
+    """Full-sequence forward over ``tokens`` or precomputed ``embeds``
+    (B, S, d).  Returns (hidden, (k_stack, v_stack) | None)."""
     hq, hkv = cfg.padded_heads(tp)
-    x = L.embed(params["embed"], tokens)
+    x = embeds if embeds is not None else L.embed(params["embed"], tokens)
     b, s, _ = x.shape
-    positions = _positions(0, s, b, x.device)
+    if positions is None:
+        positions = _positions(cfg, 0, s, b, x.device)
     ks, vs = [], []
     for li in range(cfg.num_layers):
         lp = layer_params(params, li)
@@ -125,23 +150,29 @@ def forward_seq(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     return x, kv
 
 
-def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
-            tp: int = 1, max_seq: Optional[int] = None,
-            chunk: Optional[int] = None):
-    """Process the prompt; returns (last_logits, KVCache).
+def prefill(params: Params, cfg: ArchConfig,
+            tokens: Optional[torch.Tensor], tp: int = 1,
+            embeds: Optional[torch.Tensor] = None,
+            max_seq: Optional[int] = None, chunk: Optional[int] = None):
+    """Process the prompt (``tokens``, or the VLM's ``embeds``); returns
+    (last_logits, KVCache).
 
     ``chunk`` enables Sarathi-style chunked prefill: the prompt is
-    processed ``chunk`` tokens at a time against the growing cache.
+    processed ``chunk`` tokens at a time against the growing cache.  An
+    ``embeds`` prompt is always processed whole, as in the reference.
     """
-    b, s = tokens.shape
-    if chunk is not None and s > chunk and s % chunk == 0:
+    first = tokens if tokens is not None else embeds
+    b, s = first.shape[:2]
+    if chunk is not None and s > chunk and s % chunk == 0 \
+            and embeds is None:
         return _prefill_chunked(params, cfg, tokens, tp, max_seq, chunk)
-    h, (k, v) = forward_seq(params, cfg, tokens, tp=tp, collect_cache=True)
+    h, (k, v) = forward_seq(params, cfg, tokens, embeds=embeds, tp=tp,
+                            collect_cache=True)
     if max_seq is not None and max_seq > s:
         pad = (0, 0, 0, 0, 0, max_seq - s)
         k = torch.nn.functional.pad(k, pad)
         v = torch.nn.functional.pad(v, pad)
-    lengths = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
+    lengths = torch.full((b,), s, dtype=torch.int32, device=first.device)
     logits = L.unembed(params["embed"], h[:, -1])
     return logits, KVCache(k, v, lengths)
 
@@ -174,7 +205,7 @@ def extend_step(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     if offset is None:
         offset = int(cache.lengths[0])
     x = L.embed(params["embed"], tokens)                  # (B, C, d)
-    positions = _positions(offset, c, b, x.device)
+    positions = _positions(cfg, offset, c, b, x.device)
     for li in range(cfg.num_layers):
         lp = layer_params(params, li)
         q, k, v = _qkv_rope(cfg, lp, x, positions, hq, hkv)
@@ -214,8 +245,7 @@ def decode_step_paged(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     ps = k_pool.shape[2]
     nblk = tables.shape[1]
     x = L.embed(params["embed"], tokens)                 # (B, d)
-    b = x.shape[0]
-    positions = lengths[:, None]                         # (B, 1)
+    positions = _mrope(cfg, lengths[:, None])            # (B, 1[, 3])
     blk = lengths.long() // ps
     # a position past the mapped window must write to the scratch page P,
     # not alias (via clipping) onto the window's last live page
@@ -293,7 +323,7 @@ def decode_step(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     attn_fn = attn_fn or L.decode_attention
     x = L.embed(params["embed"], tokens)                 # (B, d)
     b = x.shape[0]
-    positions = cache.lengths[:, None]                   # (B, 1)
+    positions = _mrope(cfg, cache.lengths[:, None])      # (B, 1[, 3])
     s = cache.k.shape[2]
     # the reference's dynamic_update_slice clamps the start index, so a
     # stale (finished) lane past the window rewrites position S-1

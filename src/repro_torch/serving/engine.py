@@ -57,7 +57,7 @@ __all__ = ["EngineConfig", "ServingEngine", "PagedServingEngine",
 
 # transformer-module families: chunkable prefill (extend_step) and the
 # flash-decode attention paths all key off this one set
-_ATTN_FAMILIES = ("dense", "moe", "vlm")
+_ATTN_FAMILIES = registry.TRANSFORMER_FAMILIES
 
 
 @dataclass

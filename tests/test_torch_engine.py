@@ -2,7 +2,9 @@
 
 Both packages' engines serve the same trace (``make_trace``, or the
 trace maker a case names) on the reference's own reduced yi-6b or
-rwkv6-7b weights (bridged), in float32.  Arrivals
+rwkv6-7b weights (bridged), in float32; ``NEW_ARCH_CASES`` run cases of
+``CASES`` on reduced qwen3-30b-a3b (MoE), qwen2-vl-7b (M-RoPE, QKV bias)
+and stablelm-3b (MHA, layernorm).  Arrivals
 are all at t~0 (rate 1e9), so admission depends only on capacity and
 both sides schedule identically: token streams, finish reasons,
 preemptions and defrag runs must be equal.
@@ -409,3 +411,51 @@ def test_traced_events_match_reference(arch, name, weights, rwkv_weights):
     assert len(got) == len(want)
     for i, (g, w) in enumerate(zip(got, want)):
         assert g == w, f"event {i}: port {g} != reference {w}"
+
+
+# cases of CASES on the MoE, VLM and MHA/layernorm configs: streams,
+# finish reasons, scheduler counts and traced events against the
+# reference's, on the plain path and on the kernel path (plain on the CPU)
+NEW_ARCH_CASES = [("qwen3-30b-a3b", "paged_chunked"),
+                  ("qwen3-30b-a3b", "fused"),
+                  ("qwen3-30b-a3b", "shared"),
+                  ("qwen3-30b-a3b", "shared_fused"),
+                  ("qwen2-vl-7b", "paged"),
+                  ("stablelm-3b", "paged"),
+                  ("stablelm-3b", "dense")]
+
+
+@functools.lru_cache(maxsize=None)
+def _arch_weights(arch):
+    cfg = JR.get(arch, reduced=True).config
+    tree = jax.tree.map(np.asarray, JT.init(jax.random.PRNGKey(0), cfg))
+    return params_from_numpy(tree, TR.get(arch, reduced=True).config,
+                             device="cpu")
+
+
+@pytest.mark.parametrize("kernel", [False, True], ids=["plain", "kernel"])
+@pytest.mark.parametrize("arch,name", NEW_ARCH_CASES)
+def test_new_arch_engine_matches_reference(arch, name, kernel):
+    over, trace_kw = CASES[name]
+    if kernel:
+        over = dict(over, use_pallas_decode=True)
+    ref = _reference(name, arch)
+    fd.reset_launches()
+    port = _port(over, trace_kw, _arch_weights(arch), arch)
+    _assert_streams(ref, port)
+    jm, tm = ref[2], port[2]
+    for key in ("requests", "decoded_tokens", "preemptions", "finish_eos",
+                "finish_budget", "defrag_runs", "kv_peak_tokens",
+                "kv_logical_peak_pages", "kv_mode", "kv_dedup_ratio_peak",
+                "cow_forks", "prefill_skipped_tokens", "fused_ticks"):
+        assert tm.get(key) == jm.get(key), key
+    if name.endswith("fused"):
+        assert tm["fused_ticks"] > 0
+    if name.startswith("shared"):
+        assert tm["cow_forks"] > 0 and tm["kv_dedup_ratio_peak"] > 1.0
+    want = _events(ref[0].tracer)
+    got = _events(port[0].tracer)
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g == w, f"event {i}: port {g} != reference {w}"
+    assert fd.LAUNCHES == {"flash_decode": 0, "paged_flash_decode": 0}

@@ -47,10 +47,16 @@ def test_unported_families_name_their_slice():
     with pytest.raises(NotImplementedError, match="not ported"):
         registry.get("recurrentgemma-9b", reduced=True)
     cfg = registry.get_config("yi-6b")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        registry.from_config(dataclasses.replace(cfg, family="hybrid"))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        registry.from_config(dataclasses.replace(cfg, family="moe"))
+    for family in ("hybrid", "audio"):
+        with pytest.raises(NotImplementedError, match="item 7"):
+            registry.from_config(dataclasses.replace(cfg, family=family))
+    with pytest.raises(NotImplementedError, match="item 7"):
+        registry.from_config(dataclasses.replace(cfg, window=64))
+    # MoE and VLM (M-RoPE) resolve to the transformer module
+    for arch in ("qwen3-30b-a3b", "qwen2-vl-7b"):
+        entry = registry.from_config(registry.get_config(arch))
+        assert entry.module.__name__ == "repro_torch.models.transformer"
+    assert registry.get_config("qwen2-vl-7b").mrope
 
 
 def test_cli_serves_on_cpu(capsys):
@@ -182,12 +188,20 @@ def test_cli_knows_every_reference_flag(flag, capsys):
 
 
 def test_cli_names_the_slice_of_every_reference_arch(capsys):
+    """Every reference id is the port's: resolved with the reference's
+    config, or (the recurrent hybrid and the encoder-decoder) refused
+    naming queue 1, item 7."""
     from repro.models import registry as jregistry
     ids = jregistry.ARCH_IDS + jregistry.EXTRA_ARCH_IDS
     choices = serve.build_parser()._option_string_actions["--arch"].choices
     assert set(ids) <= set(choices)
     for arch in ids:
-        if arch in ("yi-6b", "rwkv6-7b"):
+        if arch not in ("recurrentgemma-9b", "whisper-small"):
+            cfg = registry.get_config(arch)
+            want = jregistry.get_config(arch)
+            assert dataclasses.asdict(cfg) == {
+                f.name: getattr(want, f.name)
+                for f in dataclasses.fields(cfg)}, arch
             registry.get(arch, reduced=True)
             continue
         with pytest.raises(SystemExit) as exc:
@@ -195,5 +209,37 @@ def test_cli_names_the_slice_of_every_reference_arch(capsys):
         assert exc.value.code == 2
         err = capsys.readouterr().err
         assert f"{arch!r} is not ported yet" in err
-        if arch in jregistry.EXTRA_ARCH_IDS:
-            assert "queue 1, item 3" in err
+        assert "queue 1, item 7" in err
+
+
+@pytest.mark.parametrize("arch,argv", [
+    # MoE: chunked prefill through extend_step, the fused tick
+    ("qwen3-30b-a3b", ["--prefill-chunk", "4", "--fuse-steps", "4"]),
+    # MoE with a shared expert, prefix sharing
+    ("kimi-k2-1t-a32b", ["--prefix-sharing", "--shared-prefix", "8"]),
+    ("qwen2-vl-7b", ["--prefill-chunk", "4"]),
+    ("stablelm-3b", []),
+])
+def test_cli_serves_new_archs_on_cpu(arch, argv, capsys):
+    m = serve.main(["--arch", arch, "--device", "cpu", "--n-requests", "3",
+                    "--prompt-len", "12", "--max-new", "4", "--paged",
+                    "--page-size", "8", "--pallas", "--rate", "1e9", *argv])
+    assert m["requests"] == 3 and m["decoded_tokens"] == 12
+    if "--fuse-steps" in argv:
+        assert m["fused_ticks"] > 0
+    if "--prefix-sharing" in argv:
+        assert m["kv_dedup_ratio_peak"] > 1.0
+    assert f"[serve] {arch} on cpu" in capsys.readouterr().out
+
+
+def test_profile_step_splits_moe_on_cpu(capsys):
+    from repro_torch.launch import profile_step
+    out = profile_step.main(["--arch", "qwen3-30b-a3b", "--device", "cpu",
+                             "--batch", "2", "--context", "20", "--chunk",
+                             "8", "--steps", "2"])
+    assert len(out["prefill_chunk_ms"]) == 3
+    assert out["moe_layer"]["decode"]["tokens"] == 2
+    assert out["moe_layer"]["prefill_chunk"]["tokens"] == 8
+    assert set(out["device_ms_by_kind_per_step"]) == {"gemm", "attention",
+                                                      "other"}
+    assert '"arch": "qwen3-30b-a3b"' in capsys.readouterr().out

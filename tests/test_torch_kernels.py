@@ -104,6 +104,42 @@ def test_dense_ref_matches_pallas(g, dtype):
     assert not got[0].any()
 
 
+# the widened head dims (stablelm-3b D = 80, kimi-k2 D = 112) at the
+# group sizes of mixtral / dbrx (G = 6) and qwen2-vl (G = 7)
+WIDE = [(80, 6), (80, 7), (112, 6), (112, 7)]
+
+
+@pytest.mark.parametrize("d,g", WIDE)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wide_paged_ref_matches_pallas(d, g, dtype):
+    q, kp, vp, tables, lengths = _paged_case(g, dtype, seed=d + g, d=d)
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(a, dtype) for a in (q, kp, vp))
+    want = paged_flash_decode(qj, kj, vj, jnp.asarray(tables),
+                              jnp.asarray(lengths), interpret=True)
+    got = ref.paged_flash_decode_ref(qt, kt, vt, torch.from_numpy(tables),
+                                     torch.from_numpy(lengths))
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **_tol(dtype))
+    assert not got[0].any()
+    fd.check_args(qt, kt, vt, torch.from_numpy(lengths),
+                  torch.from_numpy(tables))
+
+
+@pytest.mark.parametrize("d,g", WIDE)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wide_split_ref_matches_dense_pallas(d, g, dtype):
+    chunk = 16
+    q, k, v, lengths = _dense_case(g, _edges(chunk), d=d, s=64, seed=d + g)
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(a, dtype) for a in (q, k, v))
+    lt = torch.from_numpy(lengths)
+    got = ref.flash_decode_split_ref(qt, kt, vt, lt, chunk)
+    want = flash_decode(qj, kj, vj, jnp.asarray(lengths), block_s=16,
+                        interpret=True)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **_tol(dtype))
+    fd.check_args(qt, kt, vt, lt)
+
+
 def test_wrappers_take_the_plain_path_on_cpu():
     fd.reset_launches()
     q, kp, vp, tables, lengths = (torch.from_numpy(a) for a in
@@ -208,6 +244,37 @@ def test_cuda_kernels_match_plain(dtype, g, case):
                       "edges_planned": (None, _edges(planned))}[case]
     q, kp, vp, tables, lengths = (torch.from_numpy(a).cuda() for a in
                                   _paged_case(g, dtype, d=64,
+                                              lengths=lengths, nblk=nblk))
+    q, kp, vp = (t.to(getattr(torch, dtype)) for t in (q, kp, vp))
+    b = q.shape[0]
+    got = fd.paged_flash_decode(q, kp, vp, tables, lengths, chunk)
+    want = ref.paged_flash_decode_ref(q, kp, vp, tables, lengths)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    assert not got[0].any()
+    k = kp[tables.long()].reshape(b, -1, *kp.shape[2:]).contiguous()
+    v = vp[tables.long()].reshape(b, -1, *vp.shape[2:]).contiguous()
+    got = fd.flash_decode(q, k, v, lengths, chunk)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    assert not got[0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["small", "edges_16", "edges_planned"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,g", WIDE)
+def test_cuda_wide_kernels_match_plain(d, g, dtype, case):
+    """D = 80 / 112 (rows of 10 / 14 bf16 pieces, an odd count of
+    16-wide tensor-core tiles) at G = 6 / 7 (heads padded to 8)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    esize = 4 if dtype == "float32" else 2
+    nblk = 64                      # cap 256 at page 4
+    planned, _ = fd.split_plan(256, 6, 2, 4, d * esize)
+    chunk, lengths = {"small": (None, (0, 7, 13)),
+                      "edges_16": (16, _edges(16)),
+                      "edges_planned": (None, _edges(planned))}[case]
+    q, kp, vp, tables, lengths = (torch.from_numpy(a).cuda() for a in
+                                  _paged_case(g, dtype, d=d,
                                               lengths=lengths, nblk=nblk))
     q, kp, vp = (t.to(getattr(torch, dtype)) for t in (q, kp, vp))
     b = q.shape[0]

@@ -61,6 +61,31 @@ def test_apply_rope(theta):
     _close(TL.rope_freqs(32, theta), JL.rope_freqs(32, theta), PW)
 
 
+@pytest.mark.parametrize("d,sections", [(128, (16, 24, 24)),
+                                         (32, (16, 24, 24)),
+                                         (32, (4, 6, 6))])
+def test_apply_mrope(d, sections):
+    """(B, S, 3) positions with three distinct streams; at D = 32 the
+    published sections are cut to D/2 (all in section 0)."""
+    rng = np.random.default_rng(d + sections[0])
+    x = _rand(rng, 2, 6, 3, d)
+    pos = rng.integers(0, 4096, size=(2, 6, 3)).astype(np.int32)
+    got = TL.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), 1e6,
+                        sections)
+    _close(got, JL.apply_rope(jnp.asarray(x), jnp.asarray(pos), 1e6,
+                              sections), PW)
+    one = TL.apply_rope(torch.from_numpy(x), torch.from_numpy(pos[..., 0]),
+                        1e6)
+    assert torch.equal(got, one) == (sum(sections[:1]) >= d // 2)
+
+
+def test_apply_mrope_refuses_short_sections():
+    x = torch.zeros(1, 2, 1, 128)
+    with pytest.raises(ValueError, match="sections"):
+        TL.apply_rope(x, torch.zeros(1, 2, 3, dtype=torch.int32), 1e4,
+                      (8, 8, 8))
+
+
 @pytest.mark.parametrize("bias", [False, True])
 def test_qkv_project(bias):
     rng = np.random.default_rng(2)
