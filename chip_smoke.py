@@ -61,7 +61,12 @@ Phases, one line each; any failure raises and exits non-zero:
              four 37-token identical prompts of which two are extended
              by 11 unique tokens (the ragged tail page is shared and
              forked; the extended ones hold shared pages while their
-             chunks run beside the decode batch).
+             chunks run beside the decode batch); then yi-6b's fused
+             engine with affinity placement over 2 regions and sharing,
+             on a 14-page pool that spills and then migrates at defrag,
+             against the same engine unplaced: identical tokens, at
+             least one page migrated, the device table mirror
+             consistent.
 4. serve   — full-width, full-depth models in bf16 (random weights from a
              seeded generator), 4 requests of 256-1024 prompt tokens and
              32 new tokens each through ``Scheduler.run_trace``: yi-6b on
@@ -71,7 +76,17 @@ Phases, one line each; any failure raises and exits non-zero:
              trace), which must give the per-tick run's tokens and finish
              reasons and launch the paged kernel (per-tick steps + the
              bucketed steps of every horizon) x 32 times, counted through
-             the replays.  Then prefix sharing, every run fusing up to 16
+             the replays; then the same fused run with affinity placement
+             and co-design pricing, which must give the unplaced fused
+             run's tokens: its TBT, TTFT and tokens/s beside the
+             unplaced run's, the modeled tokens/s, reconfigurations,
+             array utilization and gather cost, the host ms a horizon
+             spends pricing, and the paged kernel at the serve's decode
+             shape with its table laid out by each placement policy
+             (the same output, timed); then the paper's GPU model
+             (``gpu_decode_step`` at B=4, tp=1) beside a measured fused
+             step at B=4 on 768-token prompts (also for qwen3-30b-a3b
+             below).  Then prefix sharing, every run fusing up to 16
              steps: 4 prompts of 768 shared + 128 unique tokens at 4
              req/s without and with sharing (768 is a whole number of
              pages and chunks, so both compute the same KV: identical
@@ -81,7 +96,8 @@ Phases, one line each; any failure raises and exits non-zero:
              tokens, copy-on-write forks of the ragged tail), and the
              cost of one fork at full width (host time of ``fork_page``;
              device time of its in-place page copies).  Then yi-6b on the
-             dense engine (dense kernel), and rwkv6-7b on the paged
+             dense engine (dense kernel), without and with co-design
+             pricing (the same tokens), and rwkv6-7b on the paged
              engine with the WKV6 kernel (every prefill on the chunked
              design, every decode step on the serial one).  Then
              stablelm-3b (D=80) on the paged and the dense engine, and,
@@ -131,6 +147,18 @@ GROUPS = (1, 4, 6, 7, 8)
 # the shared-prefix serve: a system prompt of a whole number of pages and
 # of 128-token chunks, then an identical prompt with a ragged tail page
 SHARED_PREFIX, SHARED_TAIL, IDENTICAL_PROMPT = 768, 128, 777
+# the 2-layer placed run: affinity over 2 regions of 7 pages with prefix
+# sharing and the fused tick; decode growth spills out of a full home
+# region, preemption relaxes the pool, and the defrag that follows
+# copies the spilled pages home (the schedule depends on the lengths
+# alone, so it is the one the CPU tests see at the reduced widths)
+PLACED_LENS = np.array([40, 70, 10, 100, 30, 60])
+PLACED = dict(max_batch=4, max_new_tokens=32, page_size=PAGE, num_pages=14,
+              prefill_chunk=16, prefix_sharing=True, fuse_steps=8,
+              paged=True, use_pallas_decode=True, placement_regions=2)
+# the paper's GPU model against a measured fused step: B=4, 768-token
+# prompts, then a window of at least 48 decoded steps
+GPU_MODEL_BATCH, GPU_MODEL_CTX, GPU_MODEL_WINDOW = 4, 768, 48
 KERNEL_TOL = dict(rtol=2e-2, atol=2e-2)
 F32_KERNEL_TOL = dict(rtol=2e-5, atol=2e-5)
 PARITY_TOL = dict(rtol=1e-3, atol=1e-3)
@@ -803,6 +831,39 @@ def _shared_parity(entry, params, base, sched):
               "peak_tokens")}))
 
 
+def _placed_parity(entry, params, sched):
+    """Affinity placement with sharing under the fused tick (kernels on)
+    against the same engine unplaced, on a pool small enough to spill
+    and then migrate at defrag: the same tokens, at least one page moved,
+    and the device table mirror equal to the host tables."""
+    from repro_torch.serving.engine import EngineConfig, make_engine
+    ecfg = dict(PLACED, max_seq=int(PLACED_LENS.max())
+                + PLACED["max_new_tokens"] + 2)
+    runs = {}
+    for placement in (None, "affinity"):
+        eng = make_engine(entry, EngineConfig(placement=placement, **ecfg),
+                          params=params)
+        metrics = eng.run_trace(sched.make_trace(
+            entry.config.vocab, rate_req_s=1e9, n_requests=len(PLACED_LENS),
+            prompt_len=0, prompt_lens=PLACED_LENS, seed=2))
+        runs[placement] = eng, metrics
+    (plain, _), (placed, m) = runs[None], runs["affinity"]
+    _same_streams("placed vs unplaced fused, 2 layers f32",
+                  _streams(placed), _streams(plain))
+    if (m["kv_migrated_pages"] < 1 or m["fused_ticks"] < 1
+            or not placed.paged.mirror_consistent()):
+        raise AssertionError(f"placed run: no migrate, no fused tick or a "
+                             f"stale mirror: {m}")
+    n = sum(len(t) for t, _ in _streams(plain).values())
+    print(f"[parity] placed fused paged engine (affinity, 2 regions, "
+          f"sharing) vs unplaced, {entry.config.name} 2 layers f32: "
+          f"tokens {n}/{n} identical, mirror consistent; " + json.dumps(
+              {k: m[k] for k in ("kv_migrated_pages", "kv_migration_cost_s",
+                                 "preemptions", "defrag_runs",
+                                 "fused_ticks", "kv_gather_cost_mean_s",
+                                 "kv_region_peak")}))
+
+
 def phase_parity(registry, sched):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -830,6 +891,7 @@ def phase_parity(registry, sched):
             _fused_parity(entry, params, dict(base, paged=True), trace)
         if arch == "yi-6b":
             _shared_parity(entry, params, base, sched)
+            _placed_parity(entry, params, sched)
         del params
         _free()
 
@@ -878,6 +940,11 @@ def _serve(entry, params, ecfg, reqs, sched, kmods, kernel, smi):
         raise AssertionError("non-finite logits in a decode step")
     horizons = getattr(eng, "fused_horizons", [])
     fused_steps = sum(1 << (k - 1).bit_length() for k in horizons)
+    if horizons:
+        # host time the fused ticks spent pricing (placement sample and
+        # the per-step tick model), a share of the fused host time
+        metrics["pricing_host_ms_per_horizon"] = (
+            eng.pricing_host_s / len(horizons) * 1e3)
     runs = (seen["steps"] + fused_steps
             + (len(prefills) if kernel == "wkv6" else 0))
     want = {kernel: runs * cfg.num_layers}
@@ -891,9 +958,16 @@ def _serve(entry, params, ecfg, reqs, sched, kmods, kernel, smi):
             "tbt_p99_s", "ttft_mean_s", "preemptions", "defrag_runs",
             "kv_peak_tokens", "kv_dedup_ratio_peak", "cow_forks",
             "prefill_skipped_tokens", "wall_s")
+    if ecfg.get("codesign"):
+        keep += ("modeled_tokens_per_s", "reconfigurations",
+                 "array_util_mean")
     mode = "paged" if ecfg["paged"] else "dense"
     if ecfg.get("prefix_sharing"):
         mode += " shared"
+    if ecfg.get("placement"):
+        mode += f" placed ({ecfg['placement']})"
+    if ecfg.get("codesign"):
+        mode += " priced"
     if fuse > 1:
         mode += f" fused (fuse_steps {fuse})"
     print(f"[serve] {cfg.name} {cfg.num_layers} layers bf16, {mode} engine "
@@ -1060,6 +1134,135 @@ def _serve_shared(entry, params, base, sched, kmods, smi, launches):
         **_fork_cost(entry), "card": smi}))
 
 
+def _policy_kernel_ms(fd):
+    """The paged kernel at the serve's decode shape (B=4, lengths
+    768-778, bf16) with its block table laid out by each placement
+    policy over the same pool (the serve's default map: one region per
+    PU of the SNAKE template) and the same K/V contents: the output must
+    not change, and neither should the time (a 32 KB page is far larger
+    than any HBM burst)."""
+    from repro_torch.core.placement import PlacementMap, default_system
+    from repro_torch.serving.paged_cache import PageAllocator
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = _fd_inputs(gen, SERVE_LENGTHS, SERVE_CAP)
+    q, kp, vp, tables, lengths = (x[n] for n in (
+        "q", "kp", "vp", "tables", "lengths"))
+    want = fd.paged_flash_decode(q, kp, vp, tables, lengths)
+    n_pages = kp.shape[0] - 1
+    need = [-(-n // PAGE) for n in SERVE_LENGTHS]
+    old = tables.cpu().numpy()
+    out = {}
+    for policy in ("free-first", "affinity", "interleave"):
+        pmap = PlacementMap.from_system(default_system(), n_pages)
+        alloc = PageAllocator(n_pages, placement=pmap, policy=policy)
+        t = np.full(old.shape, n_pages, np.int32)
+        for i, n in enumerate(need):
+            free = alloc.region_free()
+            # the engine's home choice: the most free region, ties low
+            home = (min(free, key=lambda r: (-free[r], r))
+                    if alloc.placed else None)
+            t[i, :n] = alloc.alloc(n, home=home)
+        kp2, vp2 = kp.clone(), vp.clone()
+        src = torch.from_numpy(old[old < n_pages]).long().cuda()
+        dst = torch.from_numpy(t[old < n_pages]).long().cuda()
+        kp2[dst], vp2[dst] = kp[src], vp[src]
+        t_dev = torch.from_numpy(t).cuda()
+        got = fd.paged_flash_decode(q, kp2, vp2, t_dev, lengths)
+        if not torch.equal(got, want):
+            raise AssertionError(f"paged kernel under {policy}: output "
+                                 f"differs from the shuffled table's")
+        out[policy] = {
+            "ms": time_ms(lambda: fd.paged_flash_decode(q, kp2, vp2, t_dev,
+                                                        lengths)),
+            "regions_per_slot": [len({pmap.region_of(int(p))
+                                      for p in t[i, :n]})
+                                 for i, n in enumerate(need)]}
+    return {"pages": n_pages, "regions": pmap.n_regions, **out}
+
+
+def _serve_placed(entry, params, base, trace, sched, kmods, smi, launches,
+                  fused_m, fused):
+    """yi-6b at full width on the fused serve of §4 with affinity
+    placement and co-design pricing: the unplaced fused run's tokens;
+    TBT, TTFT and tokens/s beside that run's (the same process), the
+    modeled numbers, the host time of pricing a horizon, and the paged
+    kernel timed under two placement policies."""
+    counts, m, streams = _serve(
+        entry, params, dict(base, paged=True, fuse_steps=PAGE,
+                            placement="affinity", codesign=True),
+        trace(), sched, kmods, "paged_flash_decode", smi)
+    _same_streams("placed priced fused serve vs unplaced fused", streams,
+                  fused)
+    launches["paged_flash_decode"]["yi-6b paged fused affinity codesign"] \
+        = counts["paged_flash_decode"]
+    if not (m["modeled_time_s"] > 0 and m["kv_gather_cost_mean_s"] > 0
+            and m["placement_policy"] == "affinity"):
+        raise AssertionError(f"placed priced serve reports nothing: {m}")
+    wall = ("tbt_mean_s", "tbt_p99_s", "ttft_mean_s", "tokens_per_s",
+            "fused_host_frac")
+    print("[serve] placed priced " + json.dumps({
+        "unplaced_fused": {k: fused_m[k] for k in wall},
+        "affinity_codesign_fused": {k: m[k] for k in wall},
+        "modeled": {k: m[k] for k in (
+            "codesign_substrate", "modeled_time_s", "modeled_tokens_per_s",
+            "reconfigurations", "substrate_configs", "array_util_mean",
+            "kv_gather_cost_mean_s", "kv_gather_concentration",
+            "kv_migrated_pages", "kv_migration_cost_s")},
+        "pricing_host_ms_per_horizon": m["pricing_host_ms_per_horizon"],
+        "fused_ticks": m["fused_ticks"],
+        "tokens_identical": sum(len(t) for t, _ in fused.values()),
+        "paged_kernel_by_policy": _policy_kernel_ms(kmods[0]),
+        "card": smi}))
+
+
+def _gpu_model_line(entry, params, sched, smi):
+    """The paper's GPU model (``core.gpu_model.gpu_decode_step`` at tp=1)
+    beside a measured fused step on this card: B=4 lanes of 768-token
+    prompts (prefilled whole at admission, so all four decode from the
+    first tick), ticks of up to 16 fused steps timed on the host
+    clock (each tick fetches its tokens, so it waits for the card) over
+    at least 48 steps, in ms per decoded step.  A record, not a target."""
+    from repro_torch.core.gpu_model import gpu_decode_step
+    from repro_torch.serving.engine import EngineConfig, make_engine
+    b, ctx, window = GPU_MODEL_BATCH, GPU_MODEL_CTX, GPU_MODEL_WINDOW
+    new = 2 * window + 2 * PAGE
+    eng = make_engine(entry, EngineConfig(
+        max_batch=b, max_seq=ctx + new + 2, max_new_tokens=new, paged=True,
+        page_size=PAGE, use_pallas_decode=True, fuse_steps=PAGE),
+        params=params)
+    for n in range(1, PAGE.bit_length()):
+        eng._fused_fn(1 << n)
+    for req in sched.make_trace(entry.config.vocab, rate_req_s=1e9,
+                                n_requests=b, prompt_len=ctx, seed=5):
+        if not eng.admit(req):
+            raise AssertionError("GPU-model run: a request was refused")
+    eng.tick()
+    torch.cuda.synchronize()
+    ctx0 = statistics.mean(eng._active_ctxs())
+    steps, t0 = 0, time.perf_counter()
+    while steps < window:
+        n0 = len(eng.fused_horizons)
+        eng.tick()
+        steps += eng.fused_horizons[-1] if len(eng.fused_horizons) > n0 \
+            else 1
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    if len(eng.active) != b:
+        raise AssertionError("a lane finished inside the timed window")
+    ctx_mid = ctx0 + steps / 2
+    spec = entry.config.nmp_spec()
+    print("[gpu-model] " + json.dumps({
+        "arch": entry.config.name, "batch": b,
+        "prompt_ctx": ctx,
+        "predicted_ms_prompt_ctx": gpu_decode_step(spec, b, ctx,
+                                                   tp=1).time_s * 1e3,
+        "predicted_ms_window_ctx": gpu_decode_step(
+            spec, b, round(ctx_mid), tp=1).time_s * 1e3,
+        "window_ctx_mean": ctx_mid, "measured_fused_ms_per_step": ms,
+        "steps": steps, "card": smi}))
+    del eng
+    _free()
+
+
 def phase_serve(registry, sched, kmods, smi):
     """Returns each kernel's launches by serve run."""
     lens = np.random.default_rng(0).integers(256, 1025, size=4)
@@ -1082,17 +1285,26 @@ def phase_serve(registry, sched, kmods, smi):
         "yi-6b paged": counts["paged_flash_decode"]}
     # 16 = one page: the most the page-edge clamp lets through, so the
     # run uses every bucket 2..16
-    counts, _, fused = _serve(entry, params,
-                              dict(base, paged=True, fuse_steps=PAGE),
-                              trace(), sched, kmods, "paged_flash_decode",
-                              smi)
+    counts, fused_m, fused = _serve(entry, params,
+                                    dict(base, paged=True, fuse_steps=PAGE),
+                                    trace(), sched, kmods,
+                                    "paged_flash_decode", smi)
     _same_streams("fused serve vs per tick", fused, per_tick)
     launches["paged_flash_decode"]["yi-6b paged fused"] = \
         counts["paged_flash_decode"]
+    _serve_placed(entry, params, base, trace, sched, kmods, smi, launches,
+                  fused_m, fused)
+    _gpu_model_line(entry, params, sched, smi)
     _serve_shared(entry, params, base, sched, kmods, smi, launches)
-    counts, _, _ = _serve(entry, params, dict(base, paged=False), trace(),
-                          sched, kmods, "flash_decode", smi)
+    counts, _, dense = _serve(entry, params, dict(base, paged=False),
+                              trace(), sched, kmods, "flash_decode", smi)
     launches["flash_decode"] = {"yi-6b dense": counts["flash_decode"]}
+    # co-design pricing on the dense engine: the same tokens
+    counts, _, priced = _serve(entry, params,
+                               dict(base, paged=False, codesign=True),
+                               trace(), sched, kmods, "flash_decode", smi)
+    _same_streams("priced dense serve vs dense", priced, dense)
+    launches["flash_decode"]["yi-6b dense codesign"] = counts["flash_decode"]
     del params
     _free()
     # rwkv6 prefills whole prompts (prefill_chunk is for attention
@@ -1146,6 +1358,7 @@ def _serve_qwen3(registry, sched, kmods, smi, base, trace, launches):
             "tokens_per_s", "tbt_mean_s", "tbt_p99_s", "ttft_mean_s")}
     _same_streams("qwen3-30b-a3b fused serve vs per tick", streams[PAGE],
                   streams[1])
+    _gpu_model_line(entry, params, sched, smi)
     print("[serve] qwen3-30b-a3b " + json.dumps({
         "weights_gb": weight_gb,
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,

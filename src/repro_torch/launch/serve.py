@@ -7,6 +7,9 @@
       --full --paged --pallas
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-30b-a3b \
       --full --paged --prefill-chunk 128 --pallas --fuse-steps 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --full \
+      --paged --prefill-chunk 128 --pallas --fuse-steps 16 \
+      --placement affinity --codesign
 
 Runs on the CUDA card by default (``--device cpu`` runs the plain
 PyTorch path on the host); the reduced config is the default and
@@ -29,18 +32,25 @@ families; rwkv6 decode stays per tick).  ``--prefix-sharing`` (with
 ``--paged``) adds refcounted prompt-prefix pages with copy-on-write;
 ``--shared-prefix N`` drives a trace whose prompts share their first N
 tokens (``--groups G`` of them, Zipf ``--group-skew`` popularity).
+``--placement`` (with ``--paged``) places pages by channel region of the
+near-memory substrate model (``--placement-regions`` of them) and
+reports the modeled gather cost; ``--codesign`` prices every tick on
+the reconfigurable substrate (``--codesign-rows`` a fixed array instead,
+``--reconfig-cost`` the modeled charge per reconfiguration) and reports
+the modeled throughput beside the wall clock.
 ``--eos-rate`` samples per-request early-stop decode lengths;
 ``--trace-file`` replays a recorded JSON trace.
 
-Flags of features that later slices port (placement, co-design pricing,
-multi-replica routing, tiers and Perfetto export) are accepted by the
-parser and refused with an error that names them.
+Flags of features that later slices port (multi-replica routing, tiers
+and Perfetto export) are accepted by the parser and refused with an
+error that names them.
 """
 from __future__ import annotations
 
 import argparse
 from typing import List, Optional
 
+from repro_torch.core.placement import PLACEMENT_POLICIES
 from repro_torch.models import registry
 from repro_torch.serving.engine import EngineConfig, make_engine
 from repro_torch.serving.scheduler import (load_trace,
@@ -50,11 +60,6 @@ from repro_torch.serving.scheduler import (load_trace,
 
 # flag -> (value that means "not used", the slice that ports it)
 UNPORTED = {
-    "placement": (None, "placement and priced page moves"),
-    "codesign": (False, "co-design pricing"),
-    "placement_regions": (None, "placement and priced page moves"),
-    "codesign_rows": (None, "co-design pricing"),
-    "reconfig_cost": (None, "co-design pricing"),
     "replicas": (1, "router and tiers"),
     "router_policy": ("round_robin", "router and tiers"),
     "tiers": (None, "router and tiers"),
@@ -135,13 +140,30 @@ def build_parser() -> argparse.ArgumentParser:
                          "--shared-prefix)")
     ap.add_argument("--group-skew", type=float, default=1.0,
                     help="Zipf popularity skew across groups")
-    # not ported yet: refused in main()
-    ap.add_argument("--placement", default=None)
-    ap.add_argument("--placement-regions", type=int, default=None)
-    ap.add_argument("--codesign", action="store_true")
+    ap.add_argument("--placement", default=None,
+                    choices=list(PLACEMENT_POLICIES),
+                    help="stack-aware page placement: per-channel page "
+                         "regions, each slot's pages co-located "
+                         "(affinity) or striped (interleave); free-first "
+                         "keeps the plain layout but reports its gather "
+                         "cost")
+    ap.add_argument("--placement-regions", type=int, default=None,
+                    help="per-channel regions (default: one per PU of "
+                         "the SNAKE template, capped by pool size)")
+    ap.add_argument("--codesign", action="store_true",
+                    help="price every tick on the SNAKE substrate model "
+                         "and report modeled throughput, "
+                         "reconfigurations and array utilization")
     ap.add_argument("--codesign-rows", type=int, default=None,
-                    choices=[8, 16, 32, 64])
-    ap.add_argument("--reconfig-cost", type=float, default=None)
+                    choices=[8, 16, 32, 64],
+                    help="price a fixed rows x (4096/rows) array instead "
+                         "of the reconfigurable substrate")
+    ap.add_argument("--reconfig-cost", type=float, default=None,
+                    metavar="SECONDS",
+                    help="modeled-clock charge per substrate "
+                         "reconfiguration (default: the pipeline "
+                         "fill/drain cost of the array geometry)")
+    # not ported yet: refused in main()
     ap.add_argument("--replicas", type=int, default=1)
     ap.add_argument("--router-policy", default="round_robin",
                     choices=ROUTER_POLICIES)
@@ -156,11 +178,21 @@ def main(argv: Optional[List[str]] = None) -> dict:
     if args.prefix_sharing and not args.paged:
         ap.error("--prefix-sharing requires --paged (the dense engine "
                  "has no page tables to share)")
+    if args.placement and not args.paged:
+        ap.error("--placement requires --paged (the dense cache has no "
+                 "page pool to partition)")
     if args.fuse_steps > 1 and not args.paged:
         ap.error("--fuse-steps requires --paged (the fused scan runs on "
                  "the block-table decode step)")
     if args.fuse_steps < 1:
         ap.error("--fuse-steps must be >= 1")
+    if args.codesign_rows and not args.codesign:
+        ap.error("--codesign-rows requires --codesign")
+    if args.reconfig_cost is not None and not args.codesign:
+        ap.error("--reconfig-cost requires --codesign (there is no "
+                 "modeled clock to charge otherwise)")
+    if args.reconfig_cost is not None and args.reconfig_cost < 0:
+        ap.error("--reconfig-cost must be >= 0")
     for dest, (unused, feature) in UNPORTED.items():
         if getattr(args, dest) != unused:
             ap.error(f"--{dest.replace('_', '-')} is not ported yet "
@@ -181,6 +213,11 @@ def main(argv: Optional[List[str]] = None) -> dict:
                         defrag_threshold=(None if args.defrag_threshold < 0
                                           else args.defrag_threshold),
                         fuse_steps=args.fuse_steps,
+                        placement=args.placement,
+                        placement_regions=args.placement_regions,
+                        codesign=args.codesign,
+                        codesign_rows=args.codesign_rows,
+                        codesign_reconfig_cost_s=args.reconfig_cost,
                         device=args.device)
     reqs = build_trace(args, entry.config.vocab)
     metrics = make_engine(entry, ecfg).run_trace(reqs)

@@ -1,17 +1,20 @@
 """Architecture configuration (a copy of ``repro.models.config``).
 
-One ``ArchConfig`` describes any of the supported model families; the
-port serves the dense transformer family so far (see ``registry``).
-``padded_heads`` / ``padded_vocab`` pad head count and vocab to the
-tensor-parallel degree exactly as the reference does, so a bridged
-parameter tree has the same shapes on both sides.  ``nmp_spec`` (the
-near-memory simulator projection) arrives with the co-design slice.
+One ``ArchConfig`` describes any of the supported model families (the
+ids the port resolves are in ``registry``).  ``padded_heads`` /
+``padded_vocab`` pad head count and vocab to the tensor-parallel degree
+exactly as the reference does, so a bridged parameter tree has the same
+shapes on both sides.  ``nmp_spec`` projects the architecture into the
+near-memory simulator's ``ModelSpec`` (``repro_torch.core.operators``),
+which the engines' co-design pricing reads.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
 from typing import Tuple
+
+from repro_torch.core.operators import ModelSpec, MoESpec
 
 
 def _pad_to(x: int, g: int) -> int:
@@ -78,6 +81,21 @@ class ArchConfig:
 
     def padded_vocab(self, tp: int) -> int:
         return _pad_to(self.vocab, 128 * tp)
+
+    def nmp_spec(self) -> ModelSpec:
+        """Project this architecture into the NMP simulator's ModelSpec."""
+        moe = None
+        if self.num_experts:
+            moe = MoESpec(num_experts=self.num_experts, topk=self.topk,
+                          d_ff_expert=self.d_ff_expert,
+                          num_shared_experts=self.num_shared_experts,
+                          d_ff_shared=self.d_ff_expert)
+        return ModelSpec(name=self.name, num_layers=self.num_layers,
+                         d_model=self.d_model, d_ff=self.d_ff,
+                         num_q_heads=self.num_q_heads,
+                         num_kv_heads=max(1, self.num_kv_heads),
+                         vocab=self.vocab, d_head=self.d_head,
+                         gated_ffn=self.gated_ffn, moe=moe)
 
     def reduced(self, **over) -> "ArchConfig":
         """Tiny same-family config for CPU tests (the reference's sizes)."""

@@ -31,18 +31,29 @@ With ``prefix_sharing`` the paged engine maps the leading prompt pages
 already resident onto the existing pages, starts chunked prefill at the
 shared-page boundary, and forks a shared page before a decode write
 touches it (copy-on-write): per tick in ``_pre_decode_grow``, and for a
-whole fused horizon in ``_cow_horizon``.  Placement, co-design pricing
-and page shipping arrive with later slices.
+whole fused horizon in ``_cow_horizon``.
+
+With ``placement`` the paged engine places pages by channel region of
+the near-memory substrate model (``core/placement.py``), re-homes
+spilled pages at defrag, and samples each decode iteration's block-table
+gather cost on that model.  With ``codesign`` either engine prices every
+tick's operator mix on the reconfigurable substrate
+(``core/serving_sim.TickLatencyModel``) and reports the modeled clock
+beside the wall clock; neither changes a token.  Page shipping between
+replicas arrives with the cluster-and-tiers slice.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core.hw import fixed_sa_system
+from repro_torch.core.placement import PlacementMap, default_system
+from repro_torch.core.serving_sim import nmp_tick_model
 from repro_torch.device import resolve
 from repro_torch.kernels import ops as kops
 from repro_torch.models import registry
@@ -79,6 +90,34 @@ class EngineConfig:
     # run PagedCache.defrag() when the fraction of holes below the
     # high-water page index exceeds this (None disables the trigger)
     defrag_threshold: Optional[float] = 0.5
+    # stack-aware page placement (core/placement.py): None keeps the
+    # plain layout with no region accounting; "free-first" keeps the
+    # plain layout but scores it; "affinity" co-locates a slot's pages
+    # in one per-channel region; "interleave" stripes them
+    placement: Optional[str] = None
+    placement_regions: Optional[int] = None   # default: one per PU, capped
+    # fraction of the pool carved off for shared prefix pages (placement
+    # + prefix_sharing only)
+    communal_frac: float = 0.25
+    # live microarchitecture-scheduling co-design (core/serving_sim.py
+    # TickLatencyModel): price every tick's actual operator mix on an NMP
+    # substrate model and report the chosen array shapes, reconfiguration
+    # count and utilization beside the wall-clock metrics.  The modeled
+    # clock is an accounting channel: scheduling stays wall-clock-driven,
+    # so decoded tokens are identical with it on or off
+    codesign: bool = False
+    # price a fixed-shape substrate (rows x PEs/rows at the same PE count
+    # as the reconfigurable default) instead
+    codesign_rows: Optional[int] = None
+    # price this ModelSpec instead of the engine's own (a reduced config
+    # can be priced at its full-size spec), and at this tensor-parallel
+    # width
+    codesign_spec: Optional[object] = None
+    codesign_tp: Optional[int] = None
+    # seconds charged to the modeled clock per substrate reconfiguration
+    # (shape-profile change); None derives the pipeline fill/drain cost
+    # from the substrate geometry
+    codesign_reconfig_cost_s: Optional[float] = None
     # fuse up to K decode steps into one device-resident loop with
     # tokens, lengths, and eos/finish masks on the device (paged engine
     # only; 1 keeps the per-tick host loop), one CUDA graph per bucketed
@@ -122,6 +161,7 @@ class ServingEngine:
         # lifecycle tracing: NULL_TRACER keeps the hot path branch-cheap
         self.tracer = NULL_TRACER
         self._init_cache()
+        self._init_codesign()
 
         mod, cfg = entry.module, self.cfg
         # the kernel hook each family's steps take
@@ -349,19 +389,101 @@ class ServingEngine:
         return (self._start_chunked(req) if self._chunkable()
                 else self.submit(req))
 
+    # -- live co-design (TickLatencyModel accounting channel) ----------
+    def _init_codesign(self) -> None:
+        self._tick_model = None
+        self.modeled_time_s = 0.0
+        self._tick_util_sum = 0.0
+        self._tick_steps = 0
+        if not self.ecfg.codesign:
+            return
+        hw = default_system()
+        if self.ecfg.codesign_rows:
+            sa = hw.substrate
+            pes = sa.phys_rows * sa.phys_cols
+            hw = fixed_sa_system(self.ecfg.codesign_rows,
+                                 pes // self.ecfg.codesign_rows)
+        self._codesign_hw = hw
+        spec = self.ecfg.codesign_spec or self.cfg.nmp_spec()
+        self._tick_model = nmp_tick_model(
+            hw, spec, tp=self.ecfg.codesign_tp or self.tp,
+            reconfig_cost_s=self.ecfg.codesign_reconfig_cost_s)
+
+    def _note_tick(self, batch: int, ctxs: List[int], pf_tokens: int,
+                   pf_ctx: int) -> None:
+        """Price this tick's actual composition on the modeled substrate."""
+        if self._tick_model is None or not (batch or pf_tokens):
+            return
+        prev = (self._tick_model._last_shapes.get(0)
+                if self.tracer.enabled else None)
+        d = self._tick_model.step(batch, ctxs, prefill_tokens=pf_tokens,
+                                  prefill_ctx=pf_ctx)
+        self.modeled_time_s += d.time_s + d.reconfig_s
+        self._tick_util_sum += d.util
+        self._tick_steps += 1
+        if prev is not None and prev != d.shapes:
+            # instantaneous on the wall clock; the modeled charge rides
+            # in the args
+            self.tracer.emit("reconfigure", old=str(prev),
+                             new=str(d.shapes),
+                             modeled_reconfig_s=d.reconfig_s)
+
+    def _pending_chunk(self) -> Tuple[int, int]:
+        """(tokens, context) of the prefill chunk this tick advances, for
+        the tick model ((0, 0) with pricing off or no chunk in flight)."""
+        st = self._prefilling
+        if st is None or self._tick_model is None:
+            return 0, 0
+        take = min(self.ecfg.prefill_chunk,
+                   len(st["req"].prompt) - st["pos"])
+        return take, st["pos"] + take
+
+    def _active_ctxs(self) -> List[int]:
+        return [len(r.prompt) + len(r.tokens_out)
+                for r in self.active.values()]
+
+    def codesign_report(self) -> dict:
+        """Substrate decisions accumulated over the run ({} when off)."""
+        if self._tick_model is None:
+            return {}
+        tm = self._tick_model
+        return {"substrate": self._codesign_hw.name,
+                "modeled_time_s": self.modeled_time_s,
+                "reconfigurations": tm.reconfigurations,
+                "substrate_configs": len(tm.configs_seen),
+                "array_util_mean": (self._tick_util_sum / self._tick_steps
+                                    if self._tick_steps else 0.0)}
+
     def tick(self) -> int:
         """Advance one iteration: at most one prefill chunk co-scheduled
         with one decode step.  Returns #finished requests."""
+        pf_tokens = pf_ctx = 0
         if self._chunkable():
+            pf_tokens, pf_ctx = self._pending_chunk()
             self._prefill_chunk_tick()
+        if self._tick_model is not None:
+            # the decode step about to run (the chunk just ticked may
+            # have activated its request into this batch)
+            ctxs = self._active_ctxs()
+            self._note_tick(len(ctxs), ctxs, pf_tokens, pf_ctx)
         n_fin = self.step()
         if self.tracer.enabled:
             self._trace_gauges()
         return n_fin
 
     def _gauges(self) -> dict:
-        return {"active": len(self.active),
+        args = {"active": len(self.active),
                 "free_slots": len(self.free_slots)}
+        args.update(self._pool_gauges())
+        if self._tick_model is not None and self.modeled_time_s > 0:
+            toks = (sum(len(r.tokens_out) for r in self.completed)
+                    + sum(len(r.tokens_out) for r in self.active.values()))
+            args["modeled_tokens_per_s"] = toks / self.modeled_time_s
+        return args
+
+    def _pool_gauges(self) -> dict:
+        """Page-pool gauges (none for the dense engine)."""
+        return {}
 
     def _trace_gauges(self) -> None:
         """One ``gauge`` event per tick (tracing only)."""
@@ -405,11 +527,23 @@ class PagedServingEngine(ServingEngine):
             raise ValueError(
                 f"num_pages={n_pages} cannot hold even one max-length "
                 f"context ({max_blocks} pages)")
+        pmap = None
+        self._hw = None
+        if ecfg.placement is not None:
+            self._hw = default_system()
+            pmap = PlacementMap.from_system(
+                self._hw, n_pages,
+                communal_frac=(ecfg.communal_frac
+                               if ecfg.prefix_sharing else 0.0),
+                n_regions=ecfg.placement_regions)
         self.paged = PagedCache(self.entry, max_batch=ecfg.max_batch,
                                 max_seq=ecfg.max_seq,
                                 page_size=ecfg.page_size,
                                 num_pages=n_pages, tp=self.tp,
                                 share=ecfg.prefix_sharing,
+                                placement=pmap,
+                                placement_policy=(ecfg.placement
+                                                  or "free-first"),
                                 device=self.device)
         # PagedCache rounds max_seq up to a whole number of pages; adopt
         # the rounded value so prefill buffers, gather views and occupancy
@@ -423,6 +557,13 @@ class PagedServingEngine(ServingEngine):
         # prompt tokens whose extend_step compute was skipped because the
         # shared-prefix trie already held their KV (chunked prefill)
         self.prefill_tokens_skipped = 0
+        self._gather_cost_sum = 0.0
+        self._gather_conc_sum = 0.0
+        self._gather_cost_steps = 0
+        # per-iteration gather-cost samples (the gather_cost_s histogram;
+        # one float per decode iteration under a placement map)
+        self.gather_cost_samples: List[float] = []
+        self._region_peak: Dict[int, int] = {}
         # fused multi-step decode: one FusedGraph per bucketed horizon
         # length (the reference's jit per bucket), all in one graph memory
         # pool, plus the host/device wall split for the host-overhead
@@ -437,10 +578,13 @@ class PagedServingEngine(ServingEngine):
         # that clamped the most recent one (fused_tick trace events)
         self.fused_horizons: List[int] = []
         self._last_horizon_clamp = "fuse_steps"
+        # host seconds the fused ticks spent pricing (_note_gather_cost
+        # and the per-step _note_tick), a share of _fused_host_s
+        self.pricing_host_s = 0.0
 
     def set_tracer(self, tracer, replica: int = 0) -> None:
         super().set_tracer(tracer, replica)
-        self.paged.tracer = self.tracer   # CoW and defrag events
+        self.paged.tracer = self.tracer   # CoW / defrag / migrate events
 
     # -- capacity ------------------------------------------------------
     def _claim(self, req: RequestState) -> Optional[int]:
@@ -467,10 +611,12 @@ class PagedServingEngine(ServingEngine):
 
     def _maybe_defrag(self) -> None:
         """Fragmentation-threshold defrag trigger: compact the page pool
-        when the live set has drifted too far from the lowest indices."""
+        when the live set has drifted too far from the lowest indices.
+        Under placement, defrag also re-homes spilled pages, priced on
+        the engine's substrate model."""
         thr = self.ecfg.defrag_threshold
         if thr is not None and self.paged.fragmentation() > thr:
-            self.paged.defrag()
+            self.paged.defrag(self._hw)
             self.defrag_runs += 1
 
     def _note_pages(self) -> None:
@@ -481,16 +627,44 @@ class PagedServingEngine(ServingEngine):
         if physical:
             self.dedup_ratio_peak = max(self.dedup_ratio_peak,
                                         logical / physical)
+        if self.paged.placement is not None:
+            for r, u in self.paged.alloc.region_used().items():
+                self._region_peak[r] = max(self._region_peak.get(r, 0), u)
+
+    def _note_gather_cost(self) -> None:
+        """Score the active slots' block tables against the substrate
+        (one sample per decode iteration)."""
+        if self.paged.placement is None or not self.active:
+            return
+        cost, conc = self.paged.gather_cost_mean(
+            self._hw, slots=sorted(self.active))
+        self._gather_cost_sum += cost
+        self._gather_conc_sum += conc
+        self._gather_cost_steps += 1
+        self.gather_cost_samples.append(cost)
+
+    def _slot_region_free(self) -> List[int]:
+        """Free pages of each slot region (the communal region left out)."""
+        free = self.paged.alloc.region_free()
+        return [free[r] for r in free if r >= 0]
 
     def load_report(self) -> LoadReport:
         base = super().load_report()
         if not self.paged.has_seq:
             return base
         free_pages = self.paged.alloc.free_pages
+        region_free: tuple = ()
+        min_region_free = free_pages
+        if self.paged.placement is not None:
+            # the scarcest slot region gates an affinity admission
+            # staying fully co-located
+            region_free = tuple(self._slot_region_free())
+            min_region_free = min(region_free)
         return LoadReport(
             active=base.active, prefilling=base.prefilling,
             queue_depth=base.queue_depth, free_slots=base.free_slots,
-            free_pages=free_pages, min_region_free=free_pages)
+            free_pages=free_pages, min_region_free=min_region_free,
+            region_free=region_free)
 
     def prefix_residency(self, prompt: np.ndarray) -> int:
         return self.paged.prefix_residency(prompt)
@@ -562,8 +736,21 @@ class PagedServingEngine(ServingEngine):
                "logical_peak_pages": self.pages_logical_peak,
                "dedup_ratio_peak": self.dedup_ratio_peak,
                "defrag_runs": self.defrag_runs,
-               "prefill_skipped_tokens": self.prefill_tokens_skipped}
+               "prefill_skipped_tokens": self.prefill_tokens_skipped,
+               "migrated_pages": self.paged.migrated_pages,
+               "migration_cost_s": self.paged.migration_cost_s,
+               "shipped_pages": self.paged.shipped_pages,
+               "ship_cost_s": self.paged.ship_cost_s}
         rep.update(self.paged.sharing_report())
+        if self.paged.placement is not None:
+            steps = max(1, self._gather_cost_steps)
+            rep.update(self.paged.placement_report().to_dict())
+            rep["region_peak"] = {str(r): u
+                                  for r, u in self._region_peak.items()}
+            rep["gather_cost_mean_s"] = self._gather_cost_sum / steps
+            rep["gather_concentration_mean"] = (
+                self._gather_conc_sum / steps
+                if self._gather_cost_steps else 1.0)
         return rep
 
     # -- decode --------------------------------------------------------
@@ -630,6 +817,7 @@ class PagedServingEngine(ServingEngine):
         self.requeue.append(req)
 
     def _decode_batch(self, toks: torch.Tensor) -> torch.Tensor:
+        self._note_gather_cost()
         lengths_pre = self._lengths_host.copy()
         active = np.zeros((self.ecfg.max_batch,), bool)
         active[list(self.active)] = True
@@ -760,28 +948,35 @@ class PagedServingEngine(ServingEngine):
         a single step."""
         t_tick0 = time.perf_counter()
         ecfg = self.ecfg
-        # the reference also sizes the chunk for its co-design tick model
-        # here; co-design pricing (_note_tick) arrives with its slice
+        pf_tokens = pf_ctx = 0
         if self._chunkable():
+            pf_tokens, pf_ctx = self._pending_chunk()
             self._prefill_chunk_tick()
         t_dec0 = time.perf_counter() if self.tracer.enabled else 0.0
         if not self.active:
+            self._note_tick(0, [], pf_tokens, pf_ctx)
             if self.tracer.enabled:
                 self._trace_gauges()
             return 0
         self._pre_decode_grow()
         k = self._fused_horizon()
         if k <= 1:
+            if self._tick_model is not None:
+                ctxs = self._active_ctxs()
+                self._note_tick(len(ctxs), ctxs, pf_tokens, pf_ctx)
             n_fin = self.step()
             if self.tracer.enabled:
                 self._trace_gauges()
             return n_fin
         # fork the shared pages the next k writes touch before the table
         # reaches the graph's buffer; a preemption in the pass may defrag,
-        # so the mask, lengths and table are read after it.  The reference
-        # also samples the gather cost here (_note_gather_cost), which
-        # arrives with the placement slice
+        # so the mask, lengths and table are read after it
         self._cow_horizon(k)
+        t_price0 = time.perf_counter()
+        self._note_gather_cost()     # one placement sample per fused tick
+        self.pricing_host_s += time.perf_counter() - t_price0
+        base_ctx = {s: len(r.prompt) + len(r.tokens_out)
+                    for s, r in self.active.items()}
         batch = len(self.active)
         b = ecfg.max_batch
         active = np.zeros((b,), bool)
@@ -805,6 +1000,18 @@ class PagedServingEngine(ServingEngine):
         store[li] = torch.where(self._tensor(active), new_len, store[li])
         self.paged.store = store
         finished = self._apply_fused(tok_h, emit_h, k, t_dev0, t_dev1)
+        if self._tick_model is not None:
+            # post-hoc per-step attribution: step j's batch is the lanes
+            # that actually ran it (eos'd lanes drop out mid-horizon, as
+            # they would tick by tick); the prefill chunk rides step 0
+            t_price0 = time.perf_counter()
+            for j in range(k):
+                ctxs = [base_ctx[s] + j for s in base_ctx
+                        if emit_h[j, s]]
+                self._note_tick(len(ctxs), ctxs,
+                                pf_tokens if j == 0 else 0,
+                                pf_ctx if j == 0 else 0)
+            self.pricing_host_s += time.perf_counter() - t_price0
         t_tick1 = time.perf_counter()
         self._fused_ticks += 1
         self._fused_steps_sum += k
@@ -873,14 +1080,19 @@ class PagedServingEngine(ServingEngine):
         self._fused_host_s = 0.0
         self._fused_device_s = 0.0
         self.fused_horizons = []
+        self.pricing_host_s = 0.0
 
-    def _gauges(self) -> dict:
+    def _pool_gauges(self) -> dict:
         # a family with no sequence leaf (rwkv6) holds no pages: the
         # reference samples free_pages only where pages exist
         if not self.paged.has_seq:
-            return super()._gauges()
-        return {**super()._gauges(),
-                "free_pages": self.paged.alloc.free_pages}
+            return {}
+        args = {"free_pages": self.paged.alloc.free_pages}
+        if self.paged.placement is not None:
+            slot_free = self._slot_region_free()
+            if slot_free:
+                args["min_region_free"] = min(slot_free)
+        return args
 
 
 def make_engine(entry: registry.ArchEntry, ecfg: EngineConfig,

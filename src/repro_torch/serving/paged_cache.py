@@ -1,6 +1,7 @@
 """Paged (block-table) KV cache for the serving engine (port of
-``repro.serving.paged_cache``, with refcounted prefix sharing and
-copy-on-write; without placement and page shipping).
+``repro.serving.paged_cache``, with refcounted prefix sharing,
+copy-on-write and stack-aware placement; cross-pool page shipping comes
+with the cluster-and-tiers slice).
 
 Sequence-bearing cache leaves live in a pool of fixed-size pages and each
 slot owns a block table mapping its logical context positions to pages,
@@ -18,6 +19,12 @@ With ``share=True`` a page-granular prompt-prefix trie
 resident onto the existing pages (incref) at admission; a decode write
 to a page with refcount > 1 first forks it (:meth:`PagedCache.fork_page`).
 
+With a :class:`~repro_torch.core.placement.PlacementMap` the allocator
+places pages by channel region of the near-memory substrate (a slot's
+home region, a communal region for shared prompt pages), and every page
+movement (spilled-page migration, defrag compaction) is priced on that
+model through :meth:`PagedCache.transfer_pages`.
+
 The reference copies and donates its pools through jitted helpers; here
 the pools are updated in place with indexed assignment (``index_put_``),
 so no second pool is ever materialised.  A captured CUDA graph of the
@@ -32,12 +39,18 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.gemm import ceil_div
+from repro_torch.core.noc import CollectiveCost, page_ship
+from repro_torch.core.placement import (COMMUNAL, PLACEMENT_POLICIES,
+                                        GatherCost, PlacementMap,
+                                        default_system, gather_cost)
 from repro_torch.device import resolve
 from repro_torch.obs.tracer import NULL_TRACER
+from repro_torch.serving.replica_api import PlacementReport
 
 
-def ceil_div(a: int, b: int) -> int:
-    return -(-a // b)
+#: every priced page movement goes through ``PagedCache.transfer_pages``
+TRANSFER_KINDS = ("migrate", "defrag", "ship")
 
 
 def num_blocks(n_tokens: int, page_size: int) -> int:
@@ -53,20 +66,59 @@ class PageAllocator:
     Pages are plain ints ``0..num_pages-1``.  ``alloc`` returns ``None``
     (allocating nothing) when the request cannot be satisfied — admission
     control, not an error.  Freshly allocated pages start at refcount 1;
-    ``decref``/``free`` return a page to the free list only when the last
-    reference drops.  The free list is LIFO and starts in descending
-    order, so the lowest free index is handed out first.
+    prefix sharing ``incref``s them when a second block table maps the same
+    page, and ``decref``/``free`` return a page to the free list only when
+    the last reference drops — no page is ever freed while its refcount is
+    still positive.
+
+    **Placement** (``placement`` + ``policy``): with a
+    :class:`~repro_torch.core.placement.PlacementMap` the allocator places
+    pages substrate-aware.  ``free-first`` keeps the legacy LIFO layout
+    (wherever the free list points); ``affinity`` prefers the caller's
+    ``home`` region (or the communal region for ``communal=True`` shared
+    prefix pages), spilling to the emptiest other region only when the
+    preferred one runs dry; ``interleave`` stripes pages round-robin
+    across slot regions.  Placement only changes WHICH free pages are
+    picked — success/failure depends solely on the global free count, so
+    admission control (and therefore scheduling) is identical across
+    policies.
     """
 
-    def __init__(self, num_pages: int):
+    def __init__(self, num_pages: int,
+                 placement: Optional[PlacementMap] = None,
+                 policy: str = "free-first"):
         if num_pages <= 0:
             raise ValueError("num_pages must be positive")
+        if policy not in PLACEMENT_POLICIES:
+            raise ValueError(f"unknown placement policy {policy!r}; "
+                             f"choose from {PLACEMENT_POLICIES}")
+        if placement is not None and placement.num_pages != num_pages:
+            raise ValueError(
+                f"placement map covers {placement.num_pages} pages, "
+                f"allocator has {num_pages}")
         self.num_pages = num_pages
+        self.placement = placement
+        self.policy = policy
+        self._rr = 0                    # interleave striping cursor
         self._refs: Dict[int, int] = {}
-        self._free: List[int] = list(range(num_pages - 1, -1, -1))
+        self._init_free()
+
+    def _init_free(self) -> None:
+        if self.placed:
+            # persistent per-region free lists (placed mode): descending
+            # so pop() hands out each region's lowest index first — the
+            # same LIFO invariant as the global list, at O(1) per page
+            self._region_lists: Dict[int, List[int]] = {
+                r: sorted(self.placement.region_pages(r), reverse=True)
+                for r in self.placement.regions()}
+            self._free: List[int] = []      # unused in placed mode
+        else:
+            self._free = list(range(self.num_pages - 1, -1, -1))
 
     @property
     def free_pages(self) -> int:
+        if self.placed:
+            return sum(len(v) for v in self._region_lists.values())
         return len(self._free)
 
     @property
@@ -88,14 +140,106 @@ class PageAllocator:
     def refcount(self, page: int) -> int:
         return self._refs.get(page, 0)
 
-    def alloc(self, n: int) -> Optional[List[int]]:
-        """Allocate ``n`` pages.  Atomic: returns ``None`` without
-        mutating when fewer than ``n`` pages are free."""
+    # -- placement geometry ------------------------------------------------
+    @property
+    def placed(self) -> bool:
+        """True when allocation actively steers placement (a map under a
+        non-legacy policy)."""
+        return self.placement is not None and self.policy != "free-first"
+
+    def region_free(self) -> Dict[int, int]:
+        """Free pages per region (requires a placement map)."""
+        assert self.placement is not None
+        if self.placed:
+            return {r: len(v) for r, v in self._region_lists.items()}
+        out = {r: 0 for r in self.placement.regions()}
+        for p in self._free:
+            out[self.placement.region_of(p)] += 1
+        return out
+
+    def region_used(self) -> Dict[int, int]:
+        """Allocated pages per region (requires a placement map)."""
+        assert self.placement is not None
+        out = {r: 0 for r in self.placement.regions()}
+        for p in self._refs:
+            out[self.placement.region_of(p)] += 1
+        return out
+
+    def _select(self, n: int, home: Optional[int],
+                n_communal: int) -> List[int]:
+        """Pop ``n`` free pages off the per-region lists under the
+        placement policy (caller has checked the global free count).
+        The first ``n_communal`` picks prefer the communal region; the
+        rest follow the policy.  O(1) per page."""
+        pmap = self.placement
+        lists = self._region_lists
+        picks: List[int] = []
+
+        def take_from(region: int, k: int) -> int:
+            pool = lists.get(region, [])
+            got = min(k, len(pool))
+            for _ in range(got):
+                picks.append(pool.pop())
+            return got
+
+        # shared (publishable) pages go communal under every placement
+        # policy: all slots read them, so no slot channel is favored —
+        # overflow falls through to the private-page policy below
+        want = n - take_from(COMMUNAL, min(n_communal, n)) \
+            if pmap.communal_pages else n
+        if self.policy == "interleave":
+            ring = list(range(pmap.n_regions))
+            while want > 0:
+                if not any(lists[r] for r in ring):
+                    want -= take_from(COMMUNAL, want)   # only communal left
+                    break
+                r = ring[self._rr % len(ring)]
+                self._rr += 1
+                want -= take_from(r, min(1, want)) if lists[r] else 0
+            return picks
+        # affinity: home region first, then spill to the emptiest-used
+        # (most-free) other regions, deterministic ties by region id
+        order = [home] if home is not None else []
+        order.extend(sorted(
+            (r for r in pmap.regions() if r not in order),
+            key=lambda r: (r == COMMUNAL, -len(lists[r]), r)))
+        for r in order:
+            want -= take_from(r, want)
+            if want == 0:
+                break
+        return picks
+
+    def alloc(self, n: int, *, home: Optional[int] = None,
+              communal: int = 0) -> Optional[List[int]]:
+        """Allocate ``n`` pages; ``home`` steers private pages and the
+        first ``communal`` of them prefer the communal region (both
+        ignored under the legacy free-first policy).  Atomic: returns
+        ``None`` without mutating when fewer than ``n`` pages are free."""
         if n < 0:
             raise ValueError("alloc size must be >= 0")
-        if n > len(self._free):
+        if n > self.free_pages:
             return None
-        pages = [self._free.pop() for _ in range(n)]
+        if not self.placed:
+            pages = [self._free.pop() for _ in range(n)]
+        else:
+            pages = self._select(n, home, communal)
+            assert len(pages) == n
+        for p in pages:
+            self._refs[p] = 1
+        return pages
+
+    def alloc_in(self, region: int, n: int = 1) -> Optional[List[int]]:
+        """Allocate ``n`` pages strictly from ``region`` (placed mode
+        only) — the page-migration primitive: unlike :meth:`alloc` it
+        never spills, returning ``None`` when the region cannot satisfy
+        the request in full.  Atomic."""
+        assert self.placed, "alloc_in needs active placement"
+        pool = self._region_lists.get(region, [])
+        if n < 0:
+            raise ValueError("alloc size must be >= 0")
+        if len(pool) < n:
+            return None
+        pages = [pool.pop() for _ in range(n)]
         for p in pages:
             self._refs[p] = 1
         return pages
@@ -113,7 +257,11 @@ class PageAllocator:
             raise ValueError(f"double free / foreign page {page}")
         if rc == 1:
             del self._refs[page]
-            self._free.append(page)
+            if self.placed:
+                self._region_lists[self.placement.region_of(page)] \
+                    .append(page)
+            else:
+                self._free.append(page)
             return True
         self._refs[page] = rc - 1
         return False
@@ -128,7 +276,9 @@ class PageAllocator:
 
         ``refcounts`` maps live page id -> its refcount.  The free list is
         rebuilt in descending index order, so subsequent allocations hand
-        out the lowest free indices first.
+        out the lowest free indices first — the same LIFO invariant a
+        freshly constructed allocator starts with; in placed mode each
+        region's list is rebuilt the same way.
         """
         for p, rc in refcounts.items():
             if not 0 <= p < self.num_pages:
@@ -136,8 +286,20 @@ class PageAllocator:
             if rc <= 0:
                 raise ValueError(f"page {p} has non-positive refcount {rc}")
         self._refs = dict(refcounts)
-        self._free = [p for p in range(self.num_pages - 1, -1, -1)
-                      if p not in self._refs]
+        if self.placed:
+            self._region_lists = {
+                r: [p for p in sorted(self.placement.region_pages(r),
+                                      reverse=True)
+                    if p not in self._refs]
+                for r in self.placement.regions()}
+        else:
+            self._free = [p for p in range(self.num_pages - 1, -1, -1)
+                          if p not in self._refs]
+
+    def reset(self) -> None:
+        self._refs.clear()
+        self._rr = 0
+        self._init_free()
 
 
 # ---------------------------------------------------------------------------
@@ -291,7 +453,8 @@ class PagedCache:
     its pool ``(L, P+1, page, ...)``; the ``lengths`` leaf keeps its dense
     slot layout.  ``max_seq`` is rounded up to a whole number of pages.
     ``share`` turns on refcounted prompt-prefix sharing with
-    copy-on-write.
+    copy-on-write; ``placement`` / ``placement_policy`` steer which
+    pages the allocator picks.
     """
     entry: Any
     max_batch: int
@@ -300,6 +463,8 @@ class PagedCache:
     num_pages: int
     tp: int = 1
     share: bool = False
+    placement: Optional[PlacementMap] = None
+    placement_policy: str = "free-first"
     device: Any = "cuda"
 
     def __post_init__(self):
@@ -311,7 +476,11 @@ class PagedCache:
             self.max_seq = num_blocks(self.max_seq,
                                       self.page_size) * self.page_size
         self.max_blocks = self.max_seq // self.page_size
-        self.alloc = PageAllocator(self.num_pages)
+        self.alloc = PageAllocator(self.num_pages,
+                                   placement=self.placement,
+                                   policy=self.placement_policy)
+        # per-slot home region (affinity placement)
+        self.home_region: Dict[int, int] = {}
         self.tables = np.full((self.max_batch, self.max_blocks), -1,
                               np.int32)
         self._tables_dev: Optional[torch.Tensor] = None
@@ -339,6 +508,15 @@ class PagedCache:
         self.shared_count = np.zeros((self.max_batch,), np.int64)
         self._pending_prompt: Dict[int, np.ndarray] = {}
         self.cow_forks = 0
+        # cross-region home migration (defrag's spilled-page repair pass)
+        self.migrated_pages = 0
+        self.migration_cost_s = 0.0
+        # in-pool compaction moves (defrag) and cross-pool shipments
+        # (tier handoff), all priced through transfer_pages
+        self.defrag_move_cost_s = 0.0
+        self.shipped_pages = 0
+        self.ship_cost_s = 0.0
+        self._bytes_per_page: Optional[int] = None
         # lifecycle-event sink; the engine rebinds it to its own tracer
         self.tracer = NULL_TRACER
 
@@ -393,11 +571,22 @@ class PagedCache:
 
     def fragmentation(self) -> float:
         """Fraction of holes below the high-water page index (0 = the live
-        set is compact at the lowest indices)."""
+        set is compact at the lowest indices).  With a placement map the
+        high-water mark is per region: affinity spreads slots across
+        regions on purpose, which is placement, not fragmentation."""
         used = self.alloc.used_pages
         if used == 0:
             return 0.0
-        return 1.0 - used / (self.alloc.highest_used() + 1)
+        if self.placement is None:
+            return 1.0 - used / (self.alloc.highest_used() + 1)
+        pmap = self.placement
+        high: Dict[int, int] = {}       # region -> high-water page
+        for p in self.alloc.live_pages():
+            r = pmap.region_of(p)
+            high[r] = max(high.get(r, p), p)
+        span = sum(hw - pmap.region_pages(r).start + 1
+                   for r, hw in high.items())
+        return 1.0 - used / span if span else 0.0
 
     def sharing_report(self) -> Dict[str, Any]:
         logical = self.logical_pages()
@@ -435,7 +624,16 @@ class PagedCache:
         shared: List[int] = []
         if self.share and tokens is not None and len(tokens):
             shared = self.prefix.match(np.asarray(tokens), self.page_size)
-        fresh = self.alloc.alloc(need - len(shared))
+        home = self._assign_home(slot)
+        # full prompt pages are publishable as trie edges, so they go
+        # communal (every later holder reads them); the ragged tail and
+        # the decode pages are private and go to the home region
+        n_communal = 0
+        if self.share and tokens is not None:
+            n_communal = max(0, len(tokens) // self.page_size
+                             - len(shared))
+        fresh = self.alloc.alloc(need - len(shared), home=home,
+                                 communal=n_communal)
         if fresh is None:
             return False
         for p in shared:
@@ -448,9 +646,22 @@ class PagedCache:
         self._mirror_row(slot)
         return True
 
+    def _assign_home(self, slot: int) -> Optional[int]:
+        """Pick (and remember) the slot's home region: the slot region
+        with the most free pages at admission, ties to the lowest id.
+        None without active placement."""
+        if not self.alloc.placed:
+            return None
+        free = self.alloc.region_free()
+        home = min((r for r in free if r != COMMUNAL),
+                   key=lambda r: (-free[r], r))
+        self.home_region[slot] = home
+        return home
+
     def extend_slot(self, slot: int, n_tokens: int) -> bool:
         """Grow a slot's mapping to cover ``n_tokens`` total (on-demand
-        decode growth).  No-op if already covered."""
+        decode growth).  Growth pages are private to the slot, so they
+        prefer its home region.  No-op if already covered."""
         if not self.has_seq:
             return True
         have = len(self.blocks_of(slot))
@@ -459,7 +670,8 @@ class PagedCache:
             return True
         if need > self.max_blocks:
             return False
-        pages = self.alloc.alloc(need - have)
+        pages = self.alloc.alloc(need - have,
+                                 home=self.home_region.get(slot))
         if pages is None:
             return False
         self.tables[slot, have:need] = pages
@@ -473,6 +685,7 @@ class PagedCache:
         self.tables[slot, :] = -1
         self.shared_count[slot] = 0
         self._pending_prompt.pop(slot, None)
+        self.home_region.pop(slot, None)
         self._mirror_row(slot)
 
     # -- copy-on-write -----------------------------------------------------
@@ -501,7 +714,8 @@ class PagedCache:
         pools (a captured CUDA graph holds their addresses)."""
         old = int(self.tables[slot, blk])
         assert old >= 0, "fork of unmapped table entry"
-        got = self.alloc.alloc(1)
+        # the fork is a private copy: it belongs in the slot's home region
+        got = self.alloc.alloc(1, home=self.home_region.get(slot))
         if got is None:
             return False
         new = got[0]
@@ -628,19 +842,112 @@ class PagedCache:
         self.prefix.register(tokens, self.blocks_of(slot)[:covered],
                              self.page_size)
 
-    def defrag(self) -> Dict[int, int]:
+    # -- priced page movement (the one code path) --------------------------
+    def transfer_pages(self, n_pages: int, *, sys=None, hops: int = 0,
+                       kind: str = "migrate") -> CollectiveCost:
+        """Price (and account) the movement of ``n_pages`` physical pages.
+
+        Every page movement in the cache goes through here, costed by
+        :func:`~repro_torch.core.noc.page_ship` on ``sys`` (the default
+        system when None): spilled-page re-homing (``kind="migrate"``,
+        ``hops=0``), defrag compaction moves (``kind="defrag"``,
+        ``hops=0``) and cross-stack shipments (``kind="ship"``,
+        ``hops>=1``; no caller until the tiers slice, so its counters
+        read 0).  Accumulates the matching counters and emits the
+        ``migrate`` event; ``defrag`` emits its own."""
+        if kind not in TRANSFER_KINDS:
+            raise ValueError(f"unknown transfer kind {kind!r}; "
+                             f"choose from {TRANSFER_KINDS}")
+        if n_pages <= 0:
+            return CollectiveCost(0, 0.0)
+        cost = page_ship(sys if sys is not None else default_system(),
+                         n_pages * self.bytes_per_page(), n_pages,
+                         hops=hops)
+        if kind == "migrate":
+            self.migrated_pages += n_pages
+            self.migration_cost_s += cost.time_s
+            if self.tracer.enabled:
+                self.tracer.emit("migrate", pages=n_pages,
+                                 cost_s=cost.time_s)
+        elif kind == "defrag":
+            self.defrag_move_cost_s += cost.time_s
+        else:
+            self.shipped_pages += n_pages
+            self.ship_cost_s += cost.time_s
+        return cost
+
+    def migrate_spilled(self, sys=None) -> int:
+        """Move exclusively owned pages that spilled out of their slot's
+        home region back home (placed mode only).
+
+        Under pressure ``alloc`` spills to a foreign region rather than
+        fail admission; once the pool relaxes, each spilled page whose
+        home region has room again is copied home, priced through
+        :meth:`transfer_pages` (``hops=0``).  The copy runs in place on
+        the existing pools (a captured CUDA graph holds their
+        addresses), and the device table is rebuilt at its next use.
+        Shared pages (refcount > 1) and trie-registered pages stay put.
+        Returns the number of pages moved.
+        """
+        if not (self.has_seq and self.alloc.placed):
+            return 0
+        moved = 0
+        for slot, home in sorted(self.home_region.items()):
+            for blk in range(self.max_blocks):
+                page = int(self.tables[slot, blk])
+                if (page < 0 or self.alloc.refcount(page) != 1
+                        or self.placement.region_of(page) == home):
+                    continue
+                if self.prefix is not None \
+                        and page in self.prefix._by_page:
+                    continue
+                got = self.alloc.alloc_in(home, 1)
+                if got is None:
+                    break                    # home is full again
+                new = got[0]
+                for pool, seq in zip(self.store, self.is_seq):
+                    if seq:
+                        pool[:, new].copy_(pool[:, page])
+                self.tables[slot, blk] = new
+                self.alloc.decref(page)
+                moved += 1
+        if moved:
+            self.transfer_pages(moved, sys=sys, hops=0, kind="migrate")
+            self._tables_dev = None
+        return moved
+
+    def defrag(self, sys=None) -> Dict[int, int]:
         """Compact live pages to the lowest indices.
 
         Returns the old->new mapping applied.  Pool data is permuted on
-        device, in place (each pool keeps its storage); block tables and
-        the allocator (refcounts preserved) are
-        renumbered, so the logical contents (``gather()``) are unchanged;
-        so is the prefix trie.
-        The reference also prices the moved pages on its near-memory
-        model; that accounting arrives with the placement slice.
+        device, in place (each pool keeps its storage); block tables, the
+        prefix trie and the allocator (refcounts preserved) are
+        renumbered, so the logical contents (``gather()``) are unchanged.
+        The moved pages are priced on ``sys`` through
+        :meth:`transfer_pages` (``kind="defrag"``).
+
+        With a placement map, compaction is region-preserving: each
+        region's live pages compact to that region's lowest indices and
+        never cross regions.  Under an active policy a
+        :meth:`migrate_spilled` pass runs first, so a slot squeezed
+        during a pressure spike is not left spread across regions.
         """
+        if self.alloc.placed:
+            self.migrate_spilled(sys)
         live = self.alloc.live_pages()
-        mapping = {old: new for new, old in enumerate(live)}
+        if self.placement is None:
+            mapping = {old: new for new, old in enumerate(live)}
+        else:
+            mapping = {}
+            for r in self.placement.regions():
+                live_r = [p for p in live
+                          if self.placement.region_of(p) == r]
+                for p, tgt in zip(live_r, self.placement.region_pages(r)):
+                    mapping[p] = tgt
+            assert all(self.placement.region_of(o)
+                       == self.placement.region_of(n)
+                       for o, n in mapping.items()), \
+                "defrag target crossed a placement region"
         if all(o == n for o, n in mapping.items()):
             return mapping
         perm = np.arange(self.num_pages + 1)
@@ -660,10 +967,12 @@ class PagedCache:
                                ).astype(np.int32)
         self.alloc.rebuild({mapping[p]: self.alloc.refcount(p)
                             for p in live})
+        moved_n = sum(1 for o, n in mapping.items() if o != n)
+        cost = self.transfer_pages(moved_n, sys=sys, hops=0,
+                                   kind="defrag")
         if self.tracer.enabled:
             self.tracer.emit("defrag", live_pages=len(live),
-                             moved=sum(1 for o, n in mapping.items()
-                                       if o != n))
+                             moved=moved_n, cost_s=cost.time_s)
         if self.prefix is not None:
             self.prefix.remap(mapping)
             # every registered page is still allocated after renumbering
@@ -672,6 +981,64 @@ class PagedCache:
                 "defrag left the prefix trie pointing at a dead page"
         self._tables_dev = None
         return mapping
+
+    # -- placement scoring -------------------------------------------------
+    def bytes_per_page(self) -> int:
+        """Bytes one physical page holds across all paged leaves and
+        layers (the per-page gather payload); cached, since the pool
+        shapes are fixed at construction."""
+        if self._bytes_per_page is None:
+            self._bytes_per_page = sum(
+                int(np.prod([d for i, d in enumerate(pool.shape)
+                             if i != 1])) * pool.element_size()
+                for pool, seq in zip(self.store, self.is_seq) if seq)
+        return self._bytes_per_page
+
+    def slot_region_counts(self, slot: int) -> Dict[int, int]:
+        """Region histogram of the slot's mapped pages (requires a
+        placement map)."""
+        assert self.placement is not None
+        counts: Dict[int, int] = {}
+        for p in self.blocks_of(slot):
+            r = self.placement.region_of(p)
+            counts[r] = counts.get(r, 0) + 1
+        return counts
+
+    def gather_cost_slot(self, sys, slot: int) -> Optional[GatherCost]:
+        """DMA/NoC cost of this slot's block-table gather on ``sys``
+        (None when the slot has no pages mapped), scored from the
+        majority region."""
+        if self.placement is None or not self.blocks_of(slot):
+            return None
+        counts = self.slot_region_counts(slot)
+        return gather_cost(sys, counts, self.bytes_per_page())
+
+    def gather_cost_mean(self, sys, slots: Optional[Sequence[int]] = None
+                         ) -> Tuple[float, float]:
+        """Mean (gather time, home-channel concentration) over the given
+        slots (default: every slot with pages mapped)."""
+        if slots is None:
+            slots = [s for s in range(self.max_batch) if self.blocks_of(s)]
+        costs = [c for c in (self.gather_cost_slot(sys, s) for s in slots)
+                 if c is not None]
+        if not costs:
+            return 0.0, 1.0
+        return (float(np.mean([c.time_s for c in costs])),
+                float(np.mean([c.concentration for c in costs])))
+
+    def placement_report(self) -> PlacementReport:
+        """Per-region pressure snapshot; empty without a placement map
+        (``to_dict()`` is then ``{}``)."""
+        if self.placement is None:
+            return PlacementReport()
+        used = self.alloc.region_used()
+        free = self.alloc.region_free()
+        return PlacementReport(
+            placement_policy=self.placement_policy,
+            n_regions=self.placement.n_regions,
+            communal_pages=self.placement.communal_pages,
+            region_used={str(r): used[r] for r in used},
+            region_free={str(r): free[r] for r in free})
 
 
 # ---------------------------------------------------------------------------

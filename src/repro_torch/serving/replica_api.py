@@ -1,5 +1,6 @@
 """The replica load report (the ``LoadReport`` of
-``repro.serving.replica_api``).
+``repro.serving.replica_api``), and the ``PlacementReport`` of
+stack-aware placement.
 
 A replica is what a scheduler drives: ``admit(req) -> bool``,
 ``tick()``, ``busy()``, ``load_report()`` and a ``requeue`` list of
@@ -9,7 +10,7 @@ router and tiers slice.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Dict, Tuple
 
 
@@ -40,3 +41,32 @@ class LoadReport:
         if self.region_free:
             d["region_free"] = list(self.region_free)
         return d
+
+
+@dataclass(frozen=True)
+class PlacementReport:
+    """Stack-aware placement occupancy (``PagedCache.placement_report``).
+
+    ``region_used`` / ``region_free`` map region id (as a string, the
+    reference's JSON key shape) to page counts; ``empty`` keeps the
+    "no placement configured -> {}" contract at the dict boundary.
+    """
+
+    placement_policy: str = ""
+    n_regions: int = 0
+    communal_pages: int = 0
+    region_used: Dict[str, int] = field(default_factory=dict)
+    region_free: Dict[str, int] = field(default_factory=dict)
+
+    @property
+    def empty(self) -> bool:
+        return not self.placement_policy
+
+    def to_dict(self) -> Dict[str, Any]:
+        if self.empty:
+            return {}
+        return {"placement_policy": self.placement_policy,
+                "n_regions": self.n_regions,
+                "communal_pages": self.communal_pages,
+                "region_used": dict(self.region_used),
+                "region_free": dict(self.region_free)}

@@ -78,13 +78,42 @@ CASES = {
                           max_new_tokens=16),
                      dict(maker="make_shared_prefix_trace", n_requests=4,
                           prefix_len=19, tail_len=0, seed=3)),
+    # stack-aware placement, 2 regions of 6 pages: decode growth spills
+    # out of a full home region, preemption relaxes the pool, and the
+    # defrag that follows copies the spilled page home (migrate event)
+    "placed_affinity": (dict(paged=True, page_size=8, num_pages=12,
+                             placement="affinity", placement_regions=2,
+                             max_new_tokens=12),
+                        dict(prompt_lens=SKEWED, seed=7)),
+    "placed_interleave": (dict(paged=True, page_size=8,
+                               placement="interleave",
+                               placement_regions=4),
+                          dict(prompt_lens=SKEWED, seed=3)),
+    # shared prompt pages go to the communal region
+    "placed_shared_fused": (dict(SHARED, prefill_chunk=4, fuse_steps=8,
+                                 max_new_tokens=16, placement="affinity",
+                                 placement_regions=4),
+                            dict(maker="make_shared_prefix_trace",
+                                 n_requests=4, prefix_len=19, tail_len=0,
+                                 seed=3)),
+    # live co-design pricing per tick (reconfigure events) ...
+    "codesign_chunked": (dict(paged=True, page_size=8, prefill_chunk=8,
+                              codesign=True),
+                         dict(prompt_lens=SKEWED, seed=3)),
+    # ... and per fused step, the prefill chunk riding step 0
+    "codesign_fused": (dict(paged=True, page_size=8, prefill_chunk=8,
+                            fuse_steps=8, codesign=True,
+                            placement="affinity", placement_regions=4),
+                       dict(prompt_lens=SKEWED, seed=3)),
 }
 # the port's kernel path (plain on the CPU) against the reference's
 # plain path of the same layout
 KERNEL_CASES = {"dense_kernel": "dense", "paged_kernel": "paged",
                 "shared_kernel": "shared",
                 "shared_chunked_kernel": "shared_chunked",
-                "shared_fused_kernel": "shared_fused"}
+                "shared_fused_kernel": "shared_fused",
+                "placed_affinity_kernel": "placed_affinity",
+                "codesign_fused_kernel": "codesign_fused"}
 # rwkv6 (ssm family): the state is slot-dense and prompts prefill whole
 # on both sides, with or without prefill_chunk; use_pallas_decode selects
 # the port's WKV6 kernel (plain on the CPU) and is a no-op in the
@@ -228,7 +257,7 @@ def test_engine_matches_reference(name, weights):
                 "finish_budget", "defrag_runs", "kv_peak_tokens",
                 "kv_logical_peak_pages", "kv_mode", "kv_shared_pages",
                 "kv_dedup_ratio_peak", "cow_forks",
-                "prefill_skipped_tokens"):
+                "prefill_skipped_tokens") + MODELED_METRICS:
         assert tm[key] == jm[key], key
     if ref_name.startswith("shared"):
         assert tm["kv_dedup_ratio_peak"] > 1.0
@@ -389,6 +418,21 @@ def test_rwkv_paged_engine_reports_slots_not_pages(rwkv_weights):
     assert "decode_step" in kinds and not kinds & {"grow", "defrag"}
 
 
+# Scheduler.metrics that are host arithmetic over the schedule (placement
+# and co-design pricing): equal to the reference's as Python floats
+MODELED_METRICS = ("kv_migrated_pages", "kv_migration_cost_s",
+                   "placement_policy", "kv_gather_cost_mean_s",
+                   "kv_gather_concentration", "kv_region_peak",
+                   "codesign_substrate", "modeled_time_s",
+                   "modeled_tokens_per_s", "reconfigurations",
+                   "substrate_configs", "array_util_mean")
+# the traced args that hold modeled seconds; every other ``*_s`` arg is
+# a wall time
+MODELED_ARGS = ("cost_s", "modeled_reconfig_s", "modeled_tokens_per_s")
+PRICED_CASES = sorted(n for n in CASES if n.startswith(("placed",
+                                                        "codesign")))
+
+
 def _events(tracer):
     """Each traced event as (kind, slot, rid, args), with the args that
     hold a time (``*_s``: wall or modeled seconds) left out."""
@@ -459,3 +503,35 @@ def test_new_arch_engine_matches_reference(arch, name, kernel):
     for i, (g, w) in enumerate(zip(got, want)):
         assert g == w, f"event {i}: port {g} != reference {w}"
     assert fd.LAUNCHES == {"flash_decode": 0, "paged_flash_decode": 0}
+
+
+@pytest.mark.parametrize("name", PRICED_CASES)
+def test_modeled_seconds_match_reference(name, weights):
+    """The placed and priced cases' modeled numbers equal the
+    reference's as floats: the kv_report and codesign_report values and
+    the modeled seconds each traced event carries (``_events`` leaves
+    them out with the wall times)."""
+    over, trace_kw = CASES[name]
+    ref = _reference(name)
+    port = _port(over, trace_kw, weights)
+    jeng, teng = ref[0], port[0]
+    jkv, tkv = jeng.kv_report(), teng.kv_report()
+    assert tkv == jkv
+    assert tkv["shipped_pages"] == 0 and tkv["ship_cost_s"] == 0.0
+    assert teng.codesign_report() == jeng.codesign_report()
+    want = [{k: e.args[k] for k in MODELED_ARGS if k in e.args}
+            for e in jeng.tracer.events]
+    got = [{k: e.args[k] for k in MODELED_ARGS if k in e.args}
+           for e in teng.tracer.events]
+    assert got == want
+    kinds = {e.kind for e in jeng.tracer.events}
+    if name == "placed_affinity":
+        assert jkv["migrated_pages"] > 0 and "migrate" in kinds
+        assert any("cost_s" in e.args for e in jeng.tracer.events
+                   if e.kind == "defrag")
+    if name == "codesign_chunked":
+        assert jeng.codesign_report()["reconfigurations"] > 0
+        assert "reconfigure" in kinds
+    if over.get("placement"):
+        assert tkv["gather_cost_mean_s"] > 0.0
+    assert teng.load_report().to_dict() == jeng.load_report().to_dict()

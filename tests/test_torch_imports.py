@@ -111,8 +111,7 @@ def test_cli_prefix_sharing_requires_paged(capsys):
     assert "--prefix-sharing requires --paged" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flag", [["--placement", "affinity"],
-                                  ["--codesign"], ["--replicas", "2"],
+@pytest.mark.parametrize("flag", [["--replicas", "2"],
                                   ["--tiers", "1:1"],
                                   ["--trace-out", "t.json"]])
 def test_cli_refuses_unported_flags(flag, capsys):
@@ -120,6 +119,65 @@ def test_cli_refuses_unported_flags(flag, capsys):
         serve.main(["--device", "cpu", *flag])
     assert exc.value.code == 2
     assert f"{flag[0]} is not ported yet" in capsys.readouterr().err
+
+
+def test_cli_unported_keeps_only_the_cluster_and_export_flags():
+    assert set(serve.UNPORTED) == {"replicas", "router_policy", "tiers",
+                                   "trace_out"}
+
+
+@pytest.mark.parametrize("argv", [
+    ["--placement", "affinity"],
+    ["--placement", "interleave", "--placement-regions", "2"],
+    ["--placement", "free-first"],
+    ["--codesign"],
+    ["--codesign", "--codesign-rows", "16"],
+    ["--codesign", "--reconfig-cost", "0.001"],
+    # everything at once on the fused tick with shared prompt pages
+    ["--placement", "affinity", "--codesign", "--prefix-sharing",
+     "--shared-prefix", "8", "--prefill-chunk", "4", "--fuse-steps", "4"],
+], ids=["affinity", "interleave_regions", "free_first", "codesign",
+        "codesign_rows", "reconfig_cost", "all_fused"])
+def test_cli_serves_placement_and_codesign_on_cpu(argv, capsys):
+    m = serve.main(["--device", "cpu", "--n-requests", "3", "--prompt-len",
+                    "12", "--max-new", "4", "--paged", "--page-size", "4",
+                    "--pallas", "--rate", "1e9", *argv])
+    assert m["requests"] == 3 and m["decoded_tokens"] == 12
+    if "--placement" in argv:
+        policy = argv[argv.index("--placement") + 1]
+        assert m["placement_policy"] == policy
+        assert m["kv_gather_cost_mean_s"] > 0.0
+    else:
+        assert m["placement_policy"] == "none"
+    if "--codesign" in argv:
+        assert m["modeled_time_s"] > 0.0
+        assert m["modeled_tokens_per_s"] > 0.0
+        if "--codesign-rows" in argv:
+            # the fixed 16 x (4096 / 16) array never reconfigures
+            assert m["codesign_substrate"] == "SA-16x256"
+            assert m["reconfigurations"] == 0
+        else:
+            assert m["codesign_substrate"] == "SNAKE"
+    else:
+        assert m["codesign_substrate"] == "none"
+    if "--fuse-steps" in argv:
+        assert m["fused_ticks"] > 0
+    assert "[serve] yi-6b on cpu" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("argv,error", [
+    (["--placement", "affinity"], "--placement requires --paged"),
+    (["--codesign-rows", "16"], "--codesign-rows requires --codesign"),
+    (["--reconfig-cost", "0.1"], "--reconfig-cost requires --codesign"),
+    (["--codesign", "--reconfig-cost", "-1"],
+     "--reconfig-cost must be >= 0"),
+], ids=["placement_paged", "rows_codesign", "cost_codesign",
+        "cost_negative"])
+def test_cli_reproduces_reference_argument_errors(argv, error, capsys):
+    with pytest.raises(SystemExit) as exc:
+        serve.main(["--device", "cpu", *argv])
+    assert exc.value.code == 2
+    assert error in capsys.readouterr().err
 
 
 def test_profile_step_runs_on_cpu(capsys):
