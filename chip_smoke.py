@@ -24,11 +24,15 @@ Phases, one line each; any failure raises and exits non-zero:
                768-778), garbage past every length and in the scratch
                page, rtol = atol = 2e-2 (the bf16 tolerance of
                tests/test_kernels.py), and at stablelm-3b's decode shape
-               (B=4, Hq=Hkv=32, D=80, the serve's lengths); the split
-               plan (C, n_split, blocks holding valid positions) of each
-               timed case; then every instantiation (f32 / bf16 x D
-               32/64/80/112/128 x G 1/4/6/7/8) on lengths at the chunk
-               edges, f32 within 2e-5;
+               (B=4, Hq=Hkv=32, D=80, the serve's lengths) and at
+               recurrentgemma-9b's (B=2, Hq=16, Hkv=1, D=256, lengths
+               300 and 287: two n8 tiles of heads); the split plan (C,
+               n_split, blocks holding valid positions) of each timed
+               case; then the reference's five flash-decode test shapes
+               (tests/test_kernels.py FD_SHAPES) in f32 and bf16, and
+               every instantiation (f32 / bf16 x D 32/64/80/112/128/256
+               x G 1/4/6/7/8/16) on lengths at the chunk edges, f32
+               within 2e-5;
              * WKV6 at rwkv6-7b shapes (H=64, hs=64): decode B=4, T=1 (the
                serial design) and whole-prompt prefills B=1, T=128, 768
                and 1024 (the chunked design), each with its plan (design,
@@ -66,7 +70,13 @@ Phases, one line each; any failure raises and exits non-zero:
              on a 14-page pool that spills and then migrates at defrag,
              against the same engine unplaced: identical tokens, at
              least one page migrated, the device table mirror
-             consistent.
+             consistent.  Then recurrentgemma-9b at 5 layers (one
+             (rec, rec, attn) group and a recurrent tail) and
+             whisper-small at 2 decoder and 2 encoder layers, full
+             width, float32: the dense and paged engines on the card
+             against the same engines on the host CPU with the same
+             parameters, teacher-forced: logits within 1e-3 and the same
+             greedy tokens (neither family runs a kernel of the port).
 4. serve   — full-width, full-depth models in bf16 (random weights from a
              seeded generator), 4 requests of 256-1024 prompt tokens and
              32 new tokens each through ``Scheduler.run_trace``: yi-6b on
@@ -100,7 +110,11 @@ Phases, one line each; any failure raises and exits non-zero:
              pricing (the same tokens), and rwkv6-7b on the paged
              engine with the WKV6 kernel (every prefill on the chunked
              design, every decode step on the serial one).  Then
-             stablelm-3b (D=80) on the paged and the dense engine, and,
+             stablelm-3b (D=80) on the paged and the dense engine;
+             recurrentgemma-9b (38 layers, ~21 GB of bf16 weights) and
+             whisper-small (1500 zero frames) on the paged and then the
+             dense engine, per tick: the same tokens in both, no kernel
+             launched, recurrentgemma's paged KV peak 0; and,
              with every earlier model, engine and graph freed,
              qwen3-30b-a3b (48 layers, 128 experts top-8, ~61 GB of
              bf16 weights) on the paged engine per tick and fusing up to
@@ -142,8 +156,15 @@ SERVE_LENGTHS, SERVE_CAP = [768, 771, 775, 778], 800
 # stablelm-3b's attention: MHA (Hq = Hkv = 32), D = 80
 STABLELM_HEADS, STABLELM_D = 32, 80
 # group sizes of the instantiation grid: yi-6b and qwen3 (8), mixtral and
-# dbrx (6), qwen2-vl (7), stablelm (1)
-GROUPS = (1, 4, 6, 7, 8)
+# dbrx (6), qwen2-vl (7), stablelm (1), recurrentgemma (16: two n8 tiles
+# of heads and a group capacity of 16 rows)
+GROUPS = (1, 4, 6, 7, 8, 16)
+# the reference's flash-decode test shapes (tests/test_kernels.py
+# FD_SHAPES): (B, Hq, Hkv, D, S), lengths max(1, S - 13 i); the fourth is
+# recurrentgemma-9b's attention (MQA, D = 256, G = 16), also timed
+FD_SHAPES = [(2, 8, 2, 64, 512), (1, 32, 4, 128, 2048), (3, 12, 12, 64, 600),
+             (2, 16, 1, 256, 300), (1, 128, 128, 64, 256)]
+RGEMMA_SHAPE = FD_SHAPES[3]
 # the shared-prefix serve: a system prompt of a whole number of pages and
 # of 128-token chunks, then an identical prompt with a ragged tail page
 SHARED_PREFIX, SHARED_TAIL, IDENTICAL_PROMPT = 768, 128, 777
@@ -250,7 +271,7 @@ def _fd_inputs(gen, lengths, cap, dtype=torch.bfloat16, d=D, hq=HQ,
     kp, vp = rand(n_pages + 1, page, hkv, d), rand(n_pages + 1, page, hkv, d)
     kp[n_pages] = GARBAGE
     vp[n_pages] = GARBAGE
-    tables = np.full((b, cap // page), n_pages, np.int32)
+    tables = np.full((b, -(-cap // page)), n_pages, np.int32)
     j = 0
     for i, n in enumerate(lengths):
         tables[i, :need[i]] = order[j:j + need[i]]
@@ -374,27 +395,50 @@ def _ragged_checks(fd, ref, gen):
     return worst
 
 
+def _reference_shape_checks(fd, ref, gen):
+    """Both kernels at the reference's five test shapes (FD_SHAPES) in
+    f32 and bf16, lengths max(1, S - 13 i), page 16, against their plain
+    versions; returns the largest |err| per dtype."""
+    worst = {}
+    for dt in (torch.float32, torch.bfloat16):
+        key = str(dt).replace("torch.", "")
+        for b, hq, hkv, d, s in FD_SHAPES:
+            lens = [max(1, s - 13 * i) for i in range(b)]
+            x = _fd_inputs(gen, lens, s, dt, d, hq, hkv)
+            errs = _fd_case(fd, ref, x, timed=False)
+            worst[key] = max(worst.get(key, 0.0), *errs.values())
+    return worst
+
+
 def phase_kernels(fd, ref):
     """Both flash-decode kernels at chip_smoke's ragged shape (B=8,
-    lengths 0..4096), at the serve's decode shape (B=4, lengths 768-778)
-    and at stablelm-3b's (the same lengths, Hq = Hkv = 32, D = 80), timed;
-    every instantiation on chunk-edge lengths."""
+    lengths 0..4096), at the serve's decode shape (B=4, lengths 768-778),
+    at stablelm-3b's (the same lengths, Hq = Hkv = 32, D = 80) and at
+    recurrentgemma-9b's (B=2, Hq=16, Hkv=1, D=256, lengths 300 and 287),
+    timed; the reference's five test shapes and every instantiation on
+    chunk-edge lengths."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     head = _fd_case(fd, ref, _fd_inputs(gen, LENGTHS, max(LENGTHS)))
     serve = _fd_case(fd, ref, _fd_inputs(gen, SERVE_LENGTHS, SERVE_CAP))
     stablelm = _fd_case(fd, ref, _fd_inputs(
         gen, SERVE_LENGTHS, SERVE_CAP, d=STABLELM_D, hq=STABLELM_HEADS,
         hkv=STABLELM_HEADS))
+    b, hq, hkv, d, s = RGEMMA_SHAPE
+    rgemma = _fd_case(fd, ref, _fd_inputs(
+        gen, [max(1, s - 13 * i) for i in range(b)], s, d=d, hq=hq,
+        hkv=hkv))
+    reference = _reference_shape_checks(fd, ref, gen)
     ragged = _ragged_checks(fd, ref, gen)
     keys = ("shape", "plan", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "library_ms")
     rows = []
     for name, row in head.items():
         cases = [{k: case[name][k] for k in keys}
-                 for case in (head, serve, stablelm)]
+                 for case in (head, serve, stablelm, rgemma)]
         del row["shape"], row["plan"]
         rows.append({**row, "cases": cases})
     print("[kernels] " + json.dumps({"ragged_max_abs_err": ragged,
+                                     "fd_shapes_max_abs_err": reference,
                                      "kernels": rows}))
     return rows
 
@@ -727,13 +771,15 @@ def _watch(eng):
     return seen
 
 
-def _lockstep(entry, params, ecfg_kw, trace):
-    """Plain engine and kernel engine ticked together on one trace; the
-    kernel run is teacher-forced on the plain run's tokens."""
+def _lockstep(entry, params, ecfg_kw, trace, engines=None):
+    """Plain engine and kernel engine (or the two ``engines`` given: the
+    reference side, then the tested one) ticked together on one trace;
+    the second is teacher-forced on the first's tokens, and their logits
+    compared on the host."""
     from repro_torch.serving.engine import EngineConfig, make_engine
-    engines = [make_engine(entry, EngineConfig(use_pallas_decode=kern,
-                                               **ecfg_kw), params=params)
-               for kern in (False, True)]
+    engines = engines or [
+        make_engine(entry, EngineConfig(use_pallas_decode=kern, **ecfg_kw),
+                    params=params) for kern in (False, True)]
     seen = [_watch(e) for e in engines]
     pending = [trace(), trace()]
     n, agree, total, err = len(pending[0]), 0, 0, 0.0
@@ -749,7 +795,7 @@ def _lockstep(entry, params, ecfg_kw, trace):
             raise AssertionError("engines fell out of lockstep")
         if ran[0]:
             rows = seen[0]["rows"]
-            lp, lk = (s["logits"][rows].float() for s in seen)
+            lp, lk = (s["logits"][rows].float().cpu() for s in seen)
             err = max(err, (lk - lp).abs().max().item())
             if not torch.allclose(lk, lp, **PARITY_TOL):
                 raise AssertionError(f"kernel logits off by {err}")
@@ -864,6 +910,46 @@ def _placed_parity(entry, params, sched):
                                  "kv_region_peak")}))
 
 
+def _device_parity(registry, sched, arch, over, base, trace_lens):
+    """``arch`` at full width with ``over`` cut (depth, f32): the engines
+    on the card against the same engines on the host CPU, on the same
+    parameters (drawn on the card, copied to the host), teacher-forced
+    in lockstep: logits within PARITY_TOL and the same greedy token at
+    every step, dense and paged.  These families run no kernel, so this
+    holds the card's PyTorch path to the host's."""
+    from repro_torch.serving.engine import EngineConfig, make_engine
+    entry = registry.get(arch, **over)
+    params = entry.module.init(entry.config, device="cuda", seed=1)
+    host = _tree_map(params, lambda t: t.cpu())
+
+    def trace():
+        return sched.make_trace(entry.config.vocab, rate_req_s=1e9,
+                                n_requests=len(trace_lens), prompt_len=0,
+                                seed=2, prompt_lens=trace_lens)
+
+    for paged in (True, False):
+        kw = dict(base, paged=paged)
+        engines = [make_engine(entry, EngineConfig(device=dev, **kw),
+                               params=p)
+                   for dev, p in (("cpu", host), ("cuda", params))]
+        agree, total, err = _lockstep(entry, None, kw, trace, engines)
+        if agree != total:
+            raise AssertionError(f"{arch} card vs CPU: greedy tokens agree "
+                                 f"{agree}/{total}")
+        print(f"[parity] {'paged' if paged else 'dense'} engine, card vs "
+              f"CPU, {arch} {json.dumps(over)} full width: max |logit "
+              f"err| {err:.3g} (tol {PARITY_TOL}), tokens {agree}/{total}")
+        del engines
+    del params, host
+    _free()
+
+
+def _tree_map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _tree_map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
 def phase_parity(registry, sched):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -894,6 +980,15 @@ def phase_parity(registry, sched):
             _placed_parity(entry, params, sched)
         del params
         _free()
+    # the recurrent hybrid at 5 layers (one (rec, rec, attn) group and a
+    # recurrent tail: 2 layers would hold no attention layer) and the
+    # encoder-decoder at 2 + 2 layers, 1500 frames
+    short = dict(base, max_new_tokens=8)
+    _device_parity(registry, sched, "recurrentgemma-9b",
+                   dict(num_layers=5, dtype="float32"), short, lens)
+    _device_parity(registry, sched, "whisper-small",
+                   dict(num_layers=2, encoder_layers=2, dtype="float32"),
+                   short, lens)
 
 
 def _serve(entry, params, ecfg, reqs, sched, kmods, kernel, smi):
@@ -903,9 +998,11 @@ def _serve(entry, params, ecfg, reqs, sched, kmods, kernel, smi):
     decode step (the WKV6 kernel also once per layer per prefill, there
     on the chunked design; a fused engine's steps are the bucketed
     ``n_steps`` of each horizon, counted through the graph replays),
-    every other kernel never.  A fused engine captures every bucket up
-    to its ``fuse_steps`` before the trace.  Returns the counts, the
-    metrics and each request's (tokens, finish reason)."""
+    every other kernel never (every kernel never, with ``kernel`` None:
+    a family whose path runs no kernel of the port).  A fused engine
+    captures every bucket up to its ``fuse_steps`` before the trace.
+    Returns the counts, the metrics and each request's (tokens, finish
+    reason)."""
     from repro_torch.serving.engine import EngineConfig, make_engine
     cfg = entry.config
     new = ecfg["max_new_tokens"]
@@ -947,7 +1044,7 @@ def _serve(entry, params, ecfg, reqs, sched, kmods, kernel, smi):
             eng.pricing_host_s / len(horizons) * 1e3)
     runs = (seen["steps"] + fused_steps
             + (len(prefills) if kernel == "wkv6" else 0))
-    want = {kernel: runs * cfg.num_layers}
+    want = {kernel: runs * cfg.num_layers} if kernel else {}
     if kernel == "wkv6":
         # every prompt (>= 256 tokens) takes the chunked design, every
         # decode step (T = 1) the serial one
@@ -971,8 +1068,8 @@ def _serve(entry, params, ecfg, reqs, sched, kmods, kernel, smi):
     if fuse > 1:
         mode += f" fused (fuse_steps {fuse})"
     print(f"[serve] {cfg.name} {cfg.num_layers} layers bf16, {mode} engine "
-          f"+ {kernel}: prompts {[len(r.prompt) for r in reqs]}, {new} new "
-          f"tokens, "
+          f"+ {kernel or 'no kernel'}: prompts "
+          f"{[len(r.prompt) for r in reqs]}, {new} new tokens, "
           f"{len(prefills)} whole-prompt prefills, {seen['steps']} per-tick "
           f"decode steps, {len(horizons)} fused horizons of "
           f"{fused_steps} bucketed steps, launches {counts}; "
@@ -1329,8 +1426,42 @@ def phase_serve(registry, sched, kmods, smi):
             = counts[kernel]
     del params
     _free()
+    for arch in ("recurrentgemma-9b", "whisper-small"):
+        _serve_no_kernel(registry, arch, sched, kmods, smi, base, trace)
     _serve_qwen3(registry, sched, kmods, smi, base, trace, launches)
     return launches
+
+
+def _serve_no_kernel(registry, arch, sched, kmods, smi, base, trace):
+    """``arch`` at full width and depth on the paged engine, then the
+    dense engine, per tick (whole-prompt prefill; whisper fed zero
+    frames): every request finishes its budget with finite logits, the
+    two engines give the same tokens, no kernel of the port launches (as
+    in the reference, these families take none), and recurrentgemma's
+    state holds no pages."""
+    torch.cuda.reset_peak_memory_stats()
+    entry, params = _init_full(registry, arch)
+    streams, keep = {}, {}
+    for paged in (True, False):
+        counts, metrics, streams[paged] = _serve(
+            entry, params, dict(base, paged=paged), trace(entry.config.vocab),
+            sched, kmods, None, smi)
+        keep["paged" if paged else "dense"] = {k: metrics[k] for k in (
+            "tokens_per_s", "tbt_mean_s", "tbt_p99_s", "ttft_mean_s",
+            "kv_peak_tokens", "wall_s")}
+        if paged and arch == "recurrentgemma-9b" \
+                and metrics["kv_peak_tokens"] != 0:
+            raise AssertionError(f"{arch} paged KV peak "
+                                 f"{metrics['kv_peak_tokens']} != 0")
+    _same_streams(f"{arch} dense serve vs paged", streams[False],
+                  streams[True])
+    print(f"[serve] {arch} " + json.dumps({
+        "runs": keep,
+        "tokens_identical": sum(len(t) for t, _ in streams[True].values()),
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "card": smi}))
+    del params
+    _free()
 
 
 def _serve_qwen3(registry, sched, kmods, smi, base, trace, launches):

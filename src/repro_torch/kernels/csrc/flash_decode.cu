@@ -8,7 +8,10 @@
 //       page pools (P+1, page, Hkv, D) read through a block table
 //       tables (B, nblk); page P is a scratch page
 //
-// Built for D in {32, 64, 80, 112, 128} and G = Hq / Hkv in 1..8.
+// Built for D in {32, 64, 80, 112, 128, 256} and G = Hq / Hkv in 1..16.
+// The group's heads take a capacity of 8 (G <= 8) or 16 (8 < G <= 16)
+// rows of shared memory, a template parameter, so a call at G <= 8 runs
+// the layout it always had.
 //
 // Function (exactly the Pallas kernels'): scale 1/sqrt(D); float32
 // scores, max, sum and accumulator; positions >= lengths[b] (clamped to
@@ -41,7 +44,8 @@
 //   * bf16 runs on the tensor cores (mma.sync m16n8k16, f32 accumulate):
 //     scores S^T[pos, g] = K[pos, :] . Q^T[:, g] with the chunk's
 //     positions as M, D as K and the group's heads as N = 8 (yi-6b has
-//     G = 8; fewer heads are zero-padded), then O^T[d, g] = V^T[d, pos] .
+//     G = 8; fewer heads are zero-padded; G = 9..16 takes two n8 tiles,
+//     recurrentgemma-9b's MQA has G = 16), then O^T[d, g] = V^T[d, pos] .
 //     P^T[pos, g] with V^T read through ldmatrix.trans and P rounded to
 //     bf16 (l sums the rounded P, so the weights stay consistent);
 //   * float32 keeps CUDA cores, for parity at 2e-5 (TF32 would not hold
@@ -71,7 +75,7 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxGroup = 8;       // query heads per kv head (G)
+constexpr int kMaxGroup = 16;      // query heads per kv head (G)
 constexpr int kMaxChunk = 256;     // positions per block
 constexpr int kMaxSmem = 232448;   // H100: opt-in shared memory per block
 constexpr float kNeg = -1e30f;     // the Pallas kernels' masked score
@@ -140,9 +144,9 @@ struct Args {
 };
 
 // Shared memory of one block: K and V rows of the chunk (each padded by
-// 16 bytes), the group's pre-scaled q rows, the chunk's scores and
-// (paged) the chunk's page ids.
-template <typename Tr, int D>
+// 16 bytes), the group's pre-scaled q rows and the chunk's scores (GC
+// rows each, GC the group capacity) and (paged) the chunk's page ids.
+template <typename Tr, int D, int GC>
 struct Smem {
   static constexpr int kRow = D * static_cast<int>(sizeof(typename Tr::raw))
                               + 16;
@@ -150,8 +154,7 @@ struct Smem {
   static constexpr int kPieces = D / kVec;   // 16-byte pieces per row
   static __host__ __device__ int score_stride(int chunk) { return chunk + 4; }
   static __host__ __device__ int page_ids(int chunk) {
-    return 2 * chunk * kRow + kMaxGroup * D * 4 +
-           kMaxGroup * score_stride(chunk) * 4;
+    return 2 * chunk * kRow + GC * D * 4 + GC * score_stride(chunk) * 4;
   }
   static __host__ __device__ int bytes(int chunk) {
     return page_ids(chunk) + (chunk + 1) * 4;
@@ -196,15 +199,16 @@ __device__ __forceinline__ void stage_rows(const Args& a, const void* base,
                                            unsigned char* dst, int b, int h,
                                            int start, int nvalid) {
   using raw = typename Tr::raw;
-  using S = Smem<Tr, D>;
-  constexpr int kLanes = pow2_at_least(S::kPieces);
+  constexpr int kPieces = D * static_cast<int>(sizeof(raw)) / 16;
+  constexpr int kVec = 16 / static_cast<int>(sizeof(raw));
+  constexpr int kRow = D * static_cast<int>(sizeof(raw)) + 16;
+  constexpr int kLanes = pow2_at_least(kPieces);
   constexpr int kStep = kThreads / kLanes;
   static_assert(kThreads % kLanes == 0, "whole rows per pass");
   const int c = threadIdx.x % kLanes;
-  if (c >= S::kPieces) return;       // a lane past the row's pieces
+  if (c >= kPieces) return;          // a lane past the row's pieces
   int r = threadIdx.x / kLanes;
-  const raw* src0 = static_cast<const raw*>(base) + h * a.kv_sh +
-                    c * S::kVec;
+  const raw* src0 = static_cast<const raw*>(base) + h * a.kv_sh + c * kVec;
   int blk = 0, off = 0;   // the row's entry in pages[] and offset in it
   long long page_base = 0;
   if (PAGED) {
@@ -219,7 +223,7 @@ __device__ __forceinline__ void stage_rows(const Args& a, const void* base,
       src += PAGED ? page_base + static_cast<long long>(off) * a.kv_s1
                    : b * a.kv_s0 + static_cast<long long>(start + r) * a.kv_s1;
     }
-    cp_async16(dst + r * S::kRow + c * 16, src, ok);
+    cp_async16(dst + r * kRow + c * 16, src, ok);
     if (PAGED && (off += kStep) >= a.page) {
       do {
         off -= a.page;
@@ -231,12 +235,13 @@ __device__ __forceinline__ void stage_rows(const Args& a, const void* base,
 }
 
 // grid (B, Hkv, n_split), kThreads threads, Smem::bytes(chunk) dynamic
-// shared memory: the partial (acc, l, m) of one chunk of one group.
-template <typename Tr, int D, bool PAGED>
+// shared memory: the partial (acc, l, m) of one chunk of one group of at
+// most GC heads.
+template <typename Tr, int D, int GC, bool PAGED>
 __global__ void __launch_bounds__(kThreads)
 decode_partial_kernel(const Args a) {
   using raw = typename Tr::raw;
-  using S = Smem<Tr, D>;
+  using S = Smem<Tr, D, GC>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.x;
   const int h = blockIdx.y;
@@ -261,7 +266,7 @@ decode_partial_kernel(const Args a) {
   unsigned char* sk = smem;
   unsigned char* sv = sk + C * S::kRow;
   float* sq = reinterpret_cast<float*>(sv + C * S::kRow);
-  float* ss = sq + kMaxGroup * D;
+  float* ss = sq + GC * D;
   int* pages = reinterpret_cast<int*>(smem + S::page_ids(C));
   const int sst = S::score_stride(C);
 
@@ -383,18 +388,18 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
 }
 
 // Shared memory of the bf16 tensor-core block: K and V rows (padded by
-// 16 bytes), the group's q rows in bf16 (8 rows, zero past G), the
-// chunk's f32 scores and its probabilities in bf16 (8 rows each), and
-// (paged) the chunk's page ids.
-template <int D>
+// 16 bytes), the group's q rows in bf16 (GC rows, zero past G), the
+// chunk's f32 scores and its probabilities in bf16 (GC rows each), and
+// (paged) the chunk's page ids.  GC, the group capacity, is 8 or 16.
+template <int D, int GC>
 struct MmaSmem {
   static constexpr int kRow = 2 * D + 16;
   static constexpr int kPieces = D / 8;
   static __host__ __device__ int score_stride(int chunk) { return chunk + 4; }
   static __host__ __device__ int p_row(int chunk) { return 2 * chunk + 16; }
   static __host__ __device__ int page_ids(int chunk) {
-    return (2 * chunk + kMaxGroup) * kRow +
-           kMaxGroup * (score_stride(chunk) * 4 + p_row(chunk));
+    return (2 * chunk + GC) * kRow +
+           GC * (score_stride(chunk) * 4 + p_row(chunk));
   }
   static __host__ __device__ int bytes(int chunk) {
     return page_ids(chunk) + (chunk + 1) * 4;
@@ -404,12 +409,14 @@ struct MmaSmem {
 // grid (B, Hkv, n_split), kThreads threads, MmaSmem::bytes(chunk)
 // dynamic shared memory: the partial of one chunk of one group, bf16.
 // Scores S^T[pos, g] = K[pos, :] . Q^T[:, g] (M = positions, N = the
-// group's heads padded to 8, K = D); O^T[d, g] = V^T[d, pos] . P^T[pos, g]
-// (M = D, N = heads, K = positions; V^T through ldmatrix.trans).
-template <int D, bool PAGED>
+// group's heads padded to GC, one n8 tile per 8 heads, K = D);
+// O^T[d, g] = V^T[d, pos] . P^T[pos, g] (M = D, N = heads, K = positions;
+// V^T through ldmatrix.trans, each V tile used by every head tile).
+template <int D, int GC, bool PAGED>
 __global__ void __launch_bounds__(kThreads)
 decode_partial_mma_kernel(const Args a) {
-  using S = MmaSmem<D>;
+  using S = MmaSmem<D, GC>;
+  constexpr int kNT = GC / 8;          // n8 tiles of heads
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.x;
   const int h = blockIdx.y;
@@ -435,9 +442,9 @@ decode_partial_mma_kernel(const Args a) {
   unsigned char* sk = smem;
   unsigned char* sv = sk + C * S::kRow;
   unsigned char* sq = sv + C * S::kRow;
-  float* ss = reinterpret_cast<float*>(sq + kMaxGroup * S::kRow);
+  float* ss = reinterpret_cast<float*>(sq + GC * S::kRow);
   unsigned char* sp = reinterpret_cast<unsigned char*>(
-      ss + kMaxGroup * S::score_stride(C));
+      ss + GC * S::score_stride(C));
   int* pages = reinterpret_cast<int*>(smem + S::page_ids(C));
   const int sst = S::score_stride(C);
   const int spr = S::p_row(C);
@@ -445,7 +452,7 @@ decode_partial_mma_kernel(const Args a) {
   // q rows (zero past G) join K's commit group; V is the second group
   const uint16_t* qp = static_cast<const uint16_t*>(a.q) + b * a.q_sb +
                        static_cast<long long>(h) * G * a.q_sh;
-  for (int i = threadIdx.x; i < kMaxGroup * S::kPieces; i += kThreads) {
+  for (int i = threadIdx.x; i < GC * S::kPieces; i += kThreads) {
     const int g = i / S::kPieces;
     const int c = i - g * S::kPieces;
     cp_async16(sq + g * S::kRow + c * 16,
@@ -461,41 +468,50 @@ decode_partial_mma_kernel(const Args a) {
 
   // scores: warp w takes the 16-position tiles w, w + kWarps, ...
   {
-    unsigned qf[D / 16][2];            // B fragments of all of D
+    unsigned qf[kNT][D / 16][2];       // B fragments of all of D
 #pragma unroll
-    for (int k0 = 0; k0 < D; k0 += 32) {
-      unsigned r[4];
-      ldmatrix_x4(r, sq + (lane & 7) * S::kRow + (k0 + (lane >> 3) * 8) * 2);
-      qf[k0 / 16][0] = r[0];
-      qf[k0 / 16][1] = r[1];
-      if (k0 + 16 < D) {
-        qf[k0 / 16 + 1][0] = r[2];
-        qf[k0 / 16 + 1][1] = r[3];
+    for (int nt = 0; nt < kNT; ++nt) {
+#pragma unroll
+      for (int k0 = 0; k0 < D; k0 += 32) {
+        unsigned r[4];
+        ldmatrix_x4(r, sq + (nt * 8 + (lane & 7)) * S::kRow +
+                           (k0 + (lane >> 3) * 8) * 2);
+        qf[nt][k0 / 16][0] = r[0];
+        qf[nt][k0 / 16][1] = r[1];
+        if (k0 + 16 < D) {
+          qf[nt][k0 / 16 + 1][0] = r[2];
+          qf[nt][k0 / 16 + 1][1] = r[3];
+        }
       }
     }
     for (int mt = warp; mt < ntile; mt += kWarps) {
-      float c[4] = {0.f, 0.f, 0.f, 0.f};
+      float c[kNT][4] = {};
       const unsigned char* arow = sk + (mt * 16 + (lane & 15)) * S::kRow +
                                   (lane >> 4) * 16;
 #pragma unroll
       for (int ks = 0; ks < D / 16; ++ks) {
         unsigned af[4];
         ldmatrix_x4(af, arow + ks * 32);
-        mma_bf16(c, af, qf[ks][0], qf[ks][1]);
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt)
+          mma_bf16(c[nt], af, qf[nt][ks][0], qf[nt][ks][1]);
       }
       const int p = mt * 16 + (lane >> 2);
-      const int g = (lane & 3) * 2;
-      ss[g * sst + p] = c[0] * a.scale;
-      ss[(g + 1) * sst + p] = c[1] * a.scale;
-      ss[g * sst + p + 8] = c[2] * a.scale;
-      ss[(g + 1) * sst + p + 8] = c[3] * a.scale;
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        const int g = nt * 8 + (lane & 3) * 2;
+        ss[g * sst + p] = c[nt][0] * a.scale;
+        ss[(g + 1) * sst + p] = c[nt][1] * a.scale;
+        ss[g * sst + p + 8] = c[nt][2] * a.scale;
+        ss[(g + 1) * sst + p + 8] = c[nt][3] * a.scale;
+      }
     }
   }
   __syncthreads();
 
   // the chunk's max and sum per head, one warp per head; P in bf16, zero
   // past nvalid and for the padding heads, so the P.V tiles add nothing
-  for (int g = warp; g < kMaxGroup; g += kWarps) {
+  for (int g = warp; g < GC; g += kWarps) {
     const float* row = ss + g * sst;
     uint16_t* prow = reinterpret_cast<uint16_t*>(sp + g * spr);
     if (g >= G) {
@@ -525,27 +541,34 @@ decode_partial_mma_kernel(const Args a) {
 
   // P.V: warp w takes the 16-wide slices of d w, w + kWarps, ...
   for (int dt = warp; dt < D / 16; dt += kWarps) {
-    float c[4] = {0.f, 0.f, 0.f, 0.f};
+    float c[kNT][4] = {};
     const unsigned char* vrow = sv + ((lane & 7) + (lane >> 4) * 8) * S::kRow +
                                 (dt * 16 + ((lane >> 3) & 1) * 8) * 2;
     const unsigned char* prow = sp + (lane & 7) * spr +
                                 ((lane >> 3) & 1) * 16;
     for (int k0 = 0; k0 < ntile * 16; k0 += 16) {
-      unsigned pf[2], vf[4];
-      ldmatrix_x2(pf, prow + k0 * 2);
+      unsigned vf[4];
       ldmatrix_x4_trans(vf, vrow + k0 * S::kRow);
-      mma_bf16(c, vf, pf[0], pf[1]);
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        unsigned pf[2];
+        ldmatrix_x2(pf, prow + nt * 8 * spr + k0 * 2);
+        mma_bf16(c[nt], vf, pf[0], pf[1]);
+      }
     }
     const int d = dt * 16 + (lane >> 2);
-    const int g = (lane & 3) * 2;
     float* dst = a.acc + part * G * D;
-    if (g < G) {
-      dst[g * D + d] = c[0];
-      dst[g * D + d + 8] = c[2];
-    }
-    if (g + 1 < G) {
-      dst[(g + 1) * D + d] = c[1];
-      dst[(g + 1) * D + d + 8] = c[3];
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      const int g = nt * 8 + (lane & 3) * 2;
+      if (g < G) {
+        dst[g * D + d] = c[nt][0];
+        dst[g * D + d + 8] = c[nt][2];
+      }
+      if (g + 1 < G) {
+        dst[(g + 1) * D + d] = c[nt][1];
+        dst[(g + 1) * D + d + 8] = c[nt][3];
+      }
     }
   }
 }
@@ -613,25 +636,25 @@ decode_combine_kernel(const Args a) {
 }
 
 // bf16 runs the tensor-core partial kernel, f32 the CUDA-core one
-template <typename Tr, int D, bool PAGED>
+template <typename Tr, int D, int GC, bool PAGED>
 constexpr auto partial_kernel() {
   if constexpr (std::is_same_v<Tr, BF16>)
-    return decode_partial_mma_kernel<D, PAGED>;
+    return decode_partial_mma_kernel<D, GC, PAGED>;
   else
-    return decode_partial_kernel<Tr, D, PAGED>;
+    return decode_partial_kernel<Tr, D, GC, PAGED>;
 }
 
-template <typename Tr, int D>
+template <typename Tr, int D, int GC>
 int partial_smem(int chunk) {
-  if constexpr (std::is_same_v<Tr, BF16>) return MmaSmem<D>::bytes(chunk);
-  else return Smem<Tr, D>::bytes(chunk);
+  if constexpr (std::is_same_v<Tr, BF16>) return MmaSmem<D, GC>::bytes(chunk);
+  else return Smem<Tr, D, GC>::bytes(chunk);
 }
 
-template <typename Tr, int D, bool PAGED>
+template <typename Tr, int D, int GC, bool PAGED>
 int launch(const Args& a, int batch, int hkv, cudaStream_t stream) {
-  const int smem = partial_smem<Tr, D>(a.chunk);
+  const int smem = partial_smem<Tr, D, GC>(a.chunk);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = partial_kernel<Tr, D, PAGED>();
+  const auto kernel = partial_kernel<Tr, D, GC, PAGED>();
   // above 48 KB a block's dynamic shared memory needs the opt-in, once
   static const cudaError_t opt_in = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
@@ -639,19 +662,29 @@ int launch(const Args& a, int batch, int hkv, cudaStream_t stream) {
   kernel<<<dim3(batch, hkv, a.n_split), kThreads, smem, stream>>>(a);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
+  // D = 256 gives 1024 threads, the most a block may have
   decode_combine_kernel<Tr, D>
       <<<dim3(batch, a.hq), kCombineWays * D, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
+// the group capacity: 8 rows of heads up to G = 8 (every layout the
+// kernels had before G = 16), 16 above
+template <typename Tr, int D, bool PAGED>
+int launch_g(const Args& a, int batch, int hkv, cudaStream_t s) {
+  if (a.group <= 8) return launch<Tr, D, 8, PAGED>(a, batch, hkv, s);
+  return launch<Tr, D, 16, PAGED>(a, batch, hkv, s);
+}
+
 template <typename Tr, bool PAGED>
 int launch_d(const Args& a, int batch, int hkv, int d, cudaStream_t s) {
   switch (d) {
-    case 32: return launch<Tr, 32, PAGED>(a, batch, hkv, s);
-    case 64: return launch<Tr, 64, PAGED>(a, batch, hkv, s);
-    case 80: return launch<Tr, 80, PAGED>(a, batch, hkv, s);
-    case 112: return launch<Tr, 112, PAGED>(a, batch, hkv, s);
-    case 128: return launch<Tr, 128, PAGED>(a, batch, hkv, s);
+    case 32: return launch_g<Tr, 32, PAGED>(a, batch, hkv, s);
+    case 64: return launch_g<Tr, 64, PAGED>(a, batch, hkv, s);
+    case 80: return launch_g<Tr, 80, PAGED>(a, batch, hkv, s);
+    case 112: return launch_g<Tr, 112, PAGED>(a, batch, hkv, s);
+    case 128: return launch_g<Tr, 128, PAGED>(a, batch, hkv, s);
+    case 256: return launch_g<Tr, 256, PAGED>(a, batch, hkv, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -26,9 +26,12 @@ LAUNCHES: Dict[str, int] = {"flash_decode": 0, "paged_flash_decode": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims the kernels are built for (80: stablelm-3b; 112:
-#: kimi-k2-1t-a32b), each a multiple of 16 for the bf16 tensor-core tiles
-HEAD_DIMS = (32, 64, 80, 112, 128)
-MAX_GROUP = 8
+#: kimi-k2-1t-a32b; 256: recurrentgemma-9b), each a multiple of 16 for
+#: the bf16 tensor-core tiles
+HEAD_DIMS = (32, 64, 80, 112, 128, 256)
+#: query heads per kv head; a group of more than 8 heads (recurrentgemma's
+#: MQA has 16) takes 16 rows of shared memory for its heads, 8 otherwise
+MAX_GROUP = 16
 #: context positions per block the plan chooses among, largest first
 CHUNKS = (256, 128, 64, 32)
 #: a chunk's K rows (and its V rows) take at most this much shared memory

@@ -11,11 +11,11 @@ of ``--context`` prompt tokens are prefilled whole (untimed), then
 step ends in the argmax fetch, a synchronisation), one more step runs
 under the profiler, and a separate request of the same length is
 prefilled in ``--chunk``-token chunks, each timed with a synchronise (a
-family without chunked prefill, rwkv6, prefills it whole, timed the
-same way).  One more prefill unit of another request (a chunk, or a
-whole prompt) then runs under the profiler.  Each profiled window lists
-its largest device ops with their share of its device time.  Prints one
-JSON line.
+family without chunked prefill, rwkv6, recurrentgemma-9b or
+whisper-small, prefills it whole, timed the same way).  One more
+prefill unit of another request (a chunk, or a whole prompt) then runs
+under the profiler.  Each profiled window lists its largest device ops
+with their share of its device time.  Prints one JSON line.
 
 Each profiled window also splits its device time by kind (GEMMs from
 cuBLAS, the port's attention kernels, everything else).  For an MoE
@@ -61,6 +61,10 @@ PORT_KERNELS = re.compile(r"wkv6_\w+|decode_\w+_kernel|snake_gemm_kernel")
 # attention kernels (flash decode); everything else is "other"
 KINDS = (("gemm", re.compile(r"gemm|nvjet|xmma|cutlass|cublas", re.I)),
          ("attention", re.compile(r"decode_\w+_kernel")))
+# parameters a decode step does not stream whole: the token table (a
+# gather of B rows; the head is counted on its own), and whisper's
+# encoder and decoder position table
+DECODE_SKIPS = ("embed", "enc", "ln_enc", "pos_dec")
 # the host's submissions of device work, by CUDA API name
 HOST_LAUNCHES = re.compile(r"^cu(da)?(LaunchKernel\w*|GraphLaunch|"
                            r"Memcpy\w*|Memset\w*)$")
@@ -226,10 +230,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
                     help="also time fused ticks of up to K steps, in "
                          "windows alternated with per-tick ones")
     args = ap.parse_args(argv)
-    try:
-        entry = registry.get(args.arch, reduced=not args.full)
-    except NotImplementedError as exc:   # an architecture not ported yet
-        ap.error(str(exc))
+    entry = registry.get(args.arch, reduced=not args.full)
     cfg = entry.config
     fuse = args.fuse_steps
     if fuse is not None and fuse < 1:
@@ -288,20 +289,25 @@ def main(argv: Optional[List[str]] = None) -> dict:
     else:
         prefill = _profile(lambda: chunked.submit(req), dev)
 
-    # least bytes a decode step moves: every layer's weights and the head
-    # once, and the batch's valid K/V once per layer (a recurrent state:
-    # all of it, read and written)
+    # least bytes a decode step moves: every decoder layer's weights and
+    # the head once (not the token table's rows, whisper's encoder or its
+    # position table), the batch's valid K/V once per layer and any
+    # slot-dense cache leaf once (whisper's cross K/V); a recurrent state:
+    # all of it, read and written
     emb = eng.params["embed"]
-    weight_bytes = _nbytes(eng.params["blocks"]) + _nbytes(
+    weight_bytes = _nbytes({k: v for k, v in eng.params.items()
+                            if k not in DECODE_SKIPS}) + _nbytes(
         emb["head"] if "head" in emb else emb["table"])
-    store = eng.paged.store
+    store, is_seq = eng.paged.store, eng.paged.is_seq
+    dense_bytes = sum(t.numel() * t.element_size()
+                      for t, seq in zip(store, is_seq)
+                      if not seq and t.ndim > 1)
     if eng.paged.has_seq:
         cache_bytes = (2 * args.batch * (args.context + args.steps)
                        * store[0][0, 0, 0].numel() * store[0].element_size()
-                       * cfg.num_layers)
+                       * cfg.num_layers) + dense_bytes
     else:
-        cache_bytes = 2 * sum(t.numel() * t.element_size()
-                              for t in store[:-1])
+        cache_bytes = 2 * dense_bytes
     out = {
         "arch": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype,
         "batch": args.batch, "context": args.context,

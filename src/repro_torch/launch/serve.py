@@ -5,6 +5,8 @@
       --paged --prefill-chunk 128 --pallas
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
       --full --paged --pallas
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch recurrentgemma-9b --full --paged
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-30b-a3b \
       --full --paged --prefill-chunk 128 --pallas --fuse-steps 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --full \
@@ -13,22 +15,24 @@
 
 Runs on the CUDA card by default (``--device cpu`` runs the plain
 PyTorch path on the host); the reduced config is the default and
-``--full`` serves the published widths.  The ported architectures are
-the dense, MoE and VLM-text transformers (every id but two, the extra
-Table 1 models included) and rwkv6-7b (ssm); recurrentgemma-9b and
-whisper-small are refused with an error naming their slice.  At full
+``--full`` serves the published widths.  Every reference id is served:
+the dense, MoE and VLM-text transformers (the extra Table 1 models
+included), rwkv6-7b (ssm), recurrentgemma-9b (hybrid) and whisper-small
+(audio, fed zero frames in place of the audio frontend).  At full
 width qwen1.5-110b, opt-66b, llama3-70b, mixtral-8x22b, dbrx-132b and
 kimi-k2-1t-a32b do not fit one 80 GB card (nothing is sharded yet).
 ``--pallas`` routes decode attention through the flash-decode CUDA
 kernel (the block-table kernel with ``--paged``) and, for rwkv6-7b, the
-recurrence of prefill and decode through the WKV6 CUDA kernel;
+recurrence of prefill and decode through the WKV6 CUDA kernel (the
+hybrid and audio families take no kernel, as in the reference);
 ``--paged`` switches KV residency to the page pool (``--page-size``,
-``--num-pages`` to oversubscribe; a recurrent state stays slot-dense)
-and ``--prefill-chunk`` interleaves Sarathi prefill chunks with the
-decode batch (attention families only: rwkv6 prefills whole prompts).
+``--num-pages`` to oversubscribe; a recurrent state stays slot-dense,
+whisper's cross-attention K/V too) and ``--prefill-chunk`` interleaves
+Sarathi prefill chunks with the decode batch (attention families only:
+the others prefill whole prompts).
 ``--fuse-steps K`` (with ``--paged``) fuses up to K decode steps per
 tick, each power-of-two horizon one CUDA graph on the card (attention
-families; rwkv6 decode stays per tick).  ``--prefix-sharing`` (with
+families; the others decode per tick).  ``--prefix-sharing`` (with
 ``--paged``) adds refcounted prompt-prefix pages with copy-on-write;
 ``--shared-prefix N`` drives a trace whose prompts share their first N
 tokens (``--groups G`` of them, Zipf ``--group-skew`` popularity).
@@ -197,10 +201,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
         if getattr(args, dest) != unused:
             ap.error(f"--{dest.replace('_', '-')} is not ported yet "
                      f"({feature} arrives with a later slice)")
-    try:
-        entry = registry.get(args.arch, reduced=not args.full)
-    except NotImplementedError as exc:   # an architecture not ported yet
-        ap.error(str(exc))
+    entry = registry.get(args.arch, reduced=not args.full)
     ecfg = EngineConfig(max_batch=args.max_batch,
                         max_seq=args.prompt_len + args.max_new + 2,
                         max_new_tokens=args.max_new,

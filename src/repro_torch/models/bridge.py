@@ -1,8 +1,10 @@
 """Parameter bridge: the reference's parameter tree as port parameters.
 
-A reference model's ``init`` (``repro.models.transformer`` or
-``repro.models.rwkv6``) returns a nested dict of arrays with the layer
-dim leading; converted leaf by leaf with ``np.asarray`` it is exactly the
+A reference model's ``init`` (``repro.models.transformer``,
+``repro.models.rwkv6``, ``repro.models.rglru`` or
+``repro.models.encdec``) returns a nested dict of arrays with the layer
+dims leading (``(G, 2, ...)`` for RecurrentGemma's grouped recurrent
+layers); converted leaf by leaf with ``np.asarray`` it is exactly the
 tree the port's module of the same family builds, so the two packages
 can be compared on identical weights.  This module takes numpy arrays
 only and never touches JAX.

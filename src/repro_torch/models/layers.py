@@ -140,16 +140,19 @@ def qkv_project(p: Params, x: torch.Tensor, hq: int, hkv: int, dh: int):
 # Blocked causal attention (prefill)
 # ---------------------------------------------------------------------------
 def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      causal: bool = True, q_block: int = 512,
-                      kv_block: int = 512, q_offset: int = 0
-                      ) -> torch.Tensor:
+                      causal: bool = True, window: int = 0,
+                      q_block: int = 512, kv_block: int = 512,
+                      q_offset: int = 0) -> torch.Tensor:
     """Online-softmax attention walked in (q_block, kv_block) tiles.
 
     q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) with Hq = G * Hkv.
+    ``window`` > 0 restricts each query to the last ``window`` positions
+    (``k_pos > q_pos - window``, RecurrentGemma's local attention).
     ``q_offset`` is the absolute position of q[0] relative to k[0]
     (prefill continuation).  The tiles and the fully-masked-row guards
     are the reference's; kv tiles lying wholly past the causal frontier
-    are skipped, which leaves the result unchanged (they add exactly 0).
+    or wholly before every query's window are skipped, which leaves the
+    result unchanged (they add exactly 0).
     """
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
@@ -162,21 +165,26 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for q0 in range(0, sq, qb):
         qblk = qr[:, q0:q0 + qb].float() * scale          # (B,qb,Hkv,G,D)
         n_q = qblk.shape[1]
-        q_pos = q_offset + q0 + torch.arange(n_q, device=q.device)
+        first_q = q_offset + q0
+        q_pos = first_q + torch.arange(n_q, device=q.device)
         m = torch.full((b, n_q, hkv, g), -math.inf, device=q.device)
         l = torch.zeros((b, n_q, hkv, g), device=q.device)
         acc = torch.zeros((b, n_q, hkv, g, d), device=q.device)
         for k0 in range(0, skv, kb):
-            if causal and k0 > q_offset + q0 + n_q - 1:
+            if causal and k0 > first_q + n_q - 1:
                 break
+            n_k = min(kb, skv - k0)
+            if window and k0 + n_k - 1 <= first_q - window:
+                continue
             kblk = k[:, k0:k0 + kb].float()               # (B,kb,Hkv,D)
             vblk = v[:, k0:k0 + kb].float()
             s_ = torch.einsum("bqhgd,bkhd->bqhgk", qblk, kblk)
-            k_pos = k0 + torch.arange(kblk.shape[1], device=q.device)
-            mask = torch.ones((n_q, kblk.shape[1]), dtype=torch.bool,
-                              device=q.device)
+            k_pos = k0 + torch.arange(n_k, device=q.device)
+            mask = torch.ones((n_q, n_k), dtype=torch.bool, device=q.device)
             if causal:
                 mask = q_pos[:, None] >= k_pos[None, :]
+            if window:
+                mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
             mask = mask[None, :, None, None, :]
             s_ = torch.where(mask, s_, -math.inf)
             m_new = torch.maximum(m, s_.amax(-1))

@@ -1,11 +1,10 @@
 """Architecture registry: ``--arch <id>`` resolution (port of
 ``repro.models.registry``).
 
-The port serves the transformer families (dense, MoE, and the VLM text
-backbone with M-RoPE) and the RWKV6 (``ssm``) family.  Asking for an
-architecture whose family has not been ported (the recurrent hybrid and
-the encoder-decoder) raises ``NotImplementedError`` naming the slice
-that brings it.
+Every reference id resolves, to the module of its family: the
+transformer (dense, MoE, and the VLM text backbone with M-RoPE), RWKV6
+(``ssm``), RecurrentGemma (``hybrid``) and the Whisper encoder-decoder
+(``audio``).
 """
 from __future__ import annotations
 
@@ -14,7 +13,7 @@ import importlib
 from dataclasses import dataclass
 from typing import Any
 
-from repro_torch.models import rwkv6, transformer
+from repro_torch.models import encdec, rglru, rwkv6, transformer
 from repro_torch.models.config import ArchConfig
 
 ARCH_IDS = [
@@ -27,7 +26,7 @@ ARCH_IDS = [
 # assigned sweep
 EXTRA_ARCH_IDS = ["opt-66b", "llama3-70b", "mixtral-8x22b", "qwen3-30b-a3b"]
 
-# configs ported so far (module name under repro_torch.configs)
+# module name under repro_torch.configs
 _CONFIG_MODULES = {
     "dbrx-132b": "dbrx_132b",
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
@@ -36,7 +35,9 @@ _CONFIG_MODULES = {
     "yi-6b": "yi_6b",
     "granite-3-8b": "granite_3_8b",
     "qwen1.5-110b": "qwen1_5_110b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
     "qwen2-vl-7b": "qwen2_vl_7b",
+    "whisper-small": "whisper_small",
     "opt-66b": "opt_66b",
     "llama3-70b": "llama3_70b",
     "mixtral-8x22b": "mixtral_8x22b",
@@ -46,9 +47,6 @@ _CONFIG_MODULES = {
 #: families served by the transformer module (the engines key their
 #: chunked prefill and flash-decode paths off this set too)
 TRANSFORMER_FAMILIES = ("dense", "moe", "vlm")
-# the slice (ROADMAP queue 1) that brings what is still to port
-_RECURRENT_SLICE = "recurrent and encoder-decoder families (queue 1, item 7)"
-_PENDING_FAMILIES = {"hybrid": _RECURRENT_SLICE, "audio": _RECURRENT_SLICE}
 
 
 @dataclass(frozen=True)
@@ -58,36 +56,34 @@ class ArchEntry:
 
     def cache_zeros(self, batch: int, max_seq: int, tp: int = 1,
                     device="cuda"):
-        if self.config.family == "ssm":
-            return rwkv6.RWKVState.zeros(self.config, batch, device=device)
-        return transformer.KVCache.zeros(self.config, batch, max_seq, tp,
+        cfg = self.config
+        if cfg.family == "ssm":
+            return rwkv6.RWKVState.zeros(cfg, batch, device=device)
+        if cfg.family == "hybrid":
+            return rglru.RGState.zeros(cfg, batch, device=device)
+        if cfg.family == "audio":
+            return encdec.EncDecCache.zeros(cfg, batch, max_seq, tp,
+                                            device=device)
+        return transformer.KVCache.zeros(cfg, batch, max_seq, tp,
                                          device=device)
+
+
+def _module_for(cfg: ArchConfig):
+    return {"ssm": rwkv6, "hybrid": rglru, "audio": encdec}.get(
+        cfg.family, transformer)
 
 
 def get_config(name: str) -> ArchConfig:
     if name not in _CONFIG_MODULES:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet: the port has configs for "
-            f"{sorted(_CONFIG_MODULES)}; the others arrive with: "
-            f"{_RECURRENT_SLICE}")
+        raise KeyError(f"unknown arch {name!r}; the ids are "
+                       f"{sorted(_CONFIG_MODULES)}")
     mod = importlib.import_module(
         f"repro_torch.configs.{_CONFIG_MODULES[name]}")
     return mod.CONFIG
 
 
 def from_config(cfg: ArchConfig) -> ArchEntry:
-    if cfg.family == "ssm":
-        return ArchEntry(config=cfg, module=rwkv6)
-    if cfg.family not in TRANSFORMER_FAMILIES:
-        slice_ = _PENDING_FAMILIES.get(cfg.family, "a later slice")
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet; it "
-            f"arrives with: {slice_}")
-    if cfg.window:
-        raise NotImplementedError(
-            f"{cfg.name}: windowed attention is not ported yet; it arrives "
-            f"with: {_RECURRENT_SLICE}")
-    return ArchEntry(config=cfg, module=transformer)
+    return ArchEntry(config=cfg, module=_module_for(cfg))
 
 
 def get(name: str, reduced: bool = False, **over) -> ArchEntry:

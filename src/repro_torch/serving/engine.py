@@ -13,13 +13,16 @@ Two KV residency modes, as in the reference:
   request.  Decode either gathers the slots' pages into the dense view
   (the plain path) or, with ``use_pallas_decode``, reads pages through
   the block table with the paged flash-decode kernel.  A recurrent
-  family (RWKV6, ``ssm``) has no sequence leaf: its state stays
-  slot-dense in the paged engine too, and no page is ever allocated.
+  family (RWKV6, ``ssm``; RecurrentGemma, ``hybrid``) has no sequence
+  leaf: its state stays slot-dense in the paged engine too, and no page
+  is ever allocated.  The encoder-decoder (``audio``) pages its
+  self-attention K/V and keeps the cross K/V slot-dense.
 
 With ``prefill_chunk`` set, prompts of the attention families advance
 one Sarathi chunk of ``transformer.extend_step`` per tick, co-scheduled
 with the decode batch; the paged engine writes those chunks straight
-into pages.  Families without ``extend_step`` prefill whole prompts.  The
+into pages.  Families without ``extend_step`` prefill whole prompts and
+decode per tick with no kernel but RWKV6's WKV6.  The
 trace-driving loop lives in ``serving/scheduler.py``.
 
 With ``fuse_steps`` > 1 the paged engine of an attention family fuses up
@@ -80,7 +83,8 @@ class EngineConfig:
     # the port's CUDA kernels (the name is the reference's): flash-decode
     # attention for the attention families; for the ssm family (RWKV6),
     # where the reference has no kernel to take, the WKV6 recurrence
-    # kernel in prefill and decode
+    # kernel in prefill and decode; nothing for the hybrid and audio
+    # families
     use_pallas_decode: bool = False
     prefill_chunk: Optional[int] = None   # Sarathi-style chunked prefill
     paged: bool = False               # block-table KV residency
@@ -164,18 +168,26 @@ class ServingEngine:
         self._init_codesign()
 
         mod, cfg = entry.module, self.cfg
-        # the kernel hook each family's steps take
+        # the kernel hook each family's steps take (the recurrent hybrid
+        # and the encoder-decoder have none, as in the reference)
         prefill_kw, decode_kw = {}, {}
         if cfg.family in _ATTN_FAMILIES:
             prefill_kw = {"chunk": ecfg.prefill_chunk}
             if ecfg.use_pallas_decode:
                 decode_kw = {"attn_fn": kops.attention_decode}
-        elif ecfg.use_pallas_decode:
+        elif cfg.family == "ssm" and ecfg.use_pallas_decode:
             prefill_kw = decode_kw = {"wkv_fn": kops.wkv6_scan}
 
         def _prefill(params, tokens):
+            kw = prefill_kw
+            if cfg.family == "audio":
+                # the frontend stub: zero frames, in float32 as the
+                # reference passes them
+                kw = {"frames": torch.zeros(
+                    (tokens.shape[0], cfg.encoder_frames, cfg.d_model),
+                    dtype=torch.float32, device=tokens.device)}
             return mod.prefill(params, cfg, tokens, tp=tp,
-                               max_seq=ecfg.max_seq, **prefill_kw)
+                               max_seq=ecfg.max_seq, **kw)
 
         def _decode(params, cache, tokens):
             return mod.decode_step(params, cfg, tokens, cache, tp=tp,
@@ -1083,7 +1095,7 @@ class PagedServingEngine(ServingEngine):
         self.pricing_host_s = 0.0
 
     def _pool_gauges(self) -> dict:
-        # a family with no sequence leaf (rwkv6) holds no pages: the
+        # a family with no sequence leaf (rwkv6, rglru) holds no pages: the
         # reference samples free_pages only where pages exist
         if not self.paged.has_seq:
             return {}

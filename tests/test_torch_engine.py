@@ -131,6 +131,27 @@ RWKV_CASES = {
 }
 RWKV_KERNEL = {"dense_kernel": "dense",
                "paged_chunked_kernel": "paged_chunked"}
+# recurrentgemma (hybrid: no sequence leaf, a rolling window of 64 at the
+# reduced width) and whisper (audio: paged self K/V, slot-dense cross
+# K/V): whole-prompt prefill, per-tick decode and no kernel on both
+# sides; use_pallas_decode changes nothing
+HYBRID_CASES = {
+    "dense": (dict(), dict(prompt_lens=SKEWED, seed=3)),
+    "paged": (dict(paged=True, page_size=8),
+              dict(prompt_lens=SKEWED, seed=3)),
+    # a 70-token prompt: prefill keeps its last 64 positions, and every
+    # decode step rolls the window
+    "window": (dict(paged=True, page_size=8, max_seq=80),
+               dict(prompt_lens=np.array([70, 9, 30]), seed=3)),
+}
+AUDIO_CASES = {
+    "dense": (dict(), dict(prompt_lens=SKEWED, seed=3)),
+    "paged": (dict(paged=True, page_size=8),
+              dict(prompt_lens=SKEWED, seed=3)),
+    "shared": CASES["shared"],
+}
+ARCH_CASES = {"rwkv6-7b": RWKV_CASES, "recurrentgemma-9b": HYBRID_CASES,
+              "whisper-small": AUDIO_CASES}
 
 
 @pytest.fixture(scope="module")
@@ -203,7 +224,7 @@ def _record_logits(eng) -> dict:
 
 @functools.lru_cache(maxsize=None)
 def _reference(name, arch="yi-6b"):
-    over, trace_kw = (RWKV_CASES if arch == "rwkv6-7b" else CASES)[name]
+    over, trace_kw = ARCH_CASES.get(arch, CASES)[name]
     eng = JE.make_engine(JR.get(arch, reduced=True),
                          JE.EngineConfig(**_ecfg(over)))
     eng.set_tracer(jtracer.Tracer())
@@ -471,8 +492,9 @@ NEW_ARCH_CASES = [("qwen3-30b-a3b", "paged_chunked"),
 
 @functools.lru_cache(maxsize=None)
 def _arch_weights(arch):
-    cfg = JR.get(arch, reduced=True).config
-    tree = jax.tree.map(np.asarray, JT.init(jax.random.PRNGKey(0), cfg))
+    entry = JR.get(arch, reduced=True)
+    tree = jax.tree.map(np.asarray, entry.module.init(jax.random.PRNGKey(0),
+                                                      entry.config))
     return params_from_numpy(tree, TR.get(arch, reduced=True).config,
                              device="cpu")
 
@@ -535,3 +557,50 @@ def test_modeled_seconds_match_reference(name, weights):
     if over.get("placement"):
         assert tkv["gather_cost_mean_s"] > 0.0
     assert teng.load_report().to_dict() == jeng.load_report().to_dict()
+
+
+@pytest.mark.parametrize("kernel", [False, True], ids=["plain", "kernel"])
+@pytest.mark.parametrize("arch,name",
+                         [("recurrentgemma-9b", n) for n in HYBRID_CASES]
+                         + [("whisper-small", n) for n in AUDIO_CASES])
+def test_hybrid_and_audio_engines_match_reference(arch, name, kernel):
+    """Streams, finish reasons, scheduler counts and traced events against
+    the reference's.  recurrentgemma holds no pages in the paged engine
+    (kv_peak_tokens 0); whisper pages its self K/V (with prefix sharing
+    mapping and forking its prompt pages) and keeps the cross K/V per
+    slot.  With use_pallas_decode no kernel is handed to either family:
+    nothing launches and the steps take no kernel hook."""
+    over, trace_kw = ARCH_CASES[arch][name]
+    if kernel:
+        over = dict(over, use_pallas_decode=True)
+    ref = _reference(name, arch)
+    fd.reset_launches()
+    wk.reset_launches()
+    port = _port(over, trace_kw, _arch_weights(arch), arch)
+    _assert_streams(ref, port)
+    jm, tm = ref[2], port[2]
+    assert set(tm) == set(jmetrics.SCHEDULER_METRIC_CONTRACT)
+    for key in ("requests", "decoded_tokens", "preemptions", "finish_eos",
+                "finish_budget", "defrag_runs", "kv_peak_tokens",
+                "kv_logical_peak_pages", "kv_mode", "kv_dedup_ratio_peak",
+                "cow_forks", "prefill_skipped_tokens"):
+        assert tm[key] == jm[key], key
+    teng = port[0]
+    assert not teng._chunkable() and teng._prefilling is None
+    if over.get("paged"):
+        assert teng.paged.has_seq == (arch == "whisper-small")
+        if arch == "recurrentgemma-9b":
+            assert tm["kv_peak_tokens"] == 0 and tm["kv_mode"] == "paged"
+        else:
+            assert tm["kv_peak_tokens"] > 0
+            # self K/V paged, cross K/V and lengths slot-dense
+            assert teng.paged.is_seq == [True, True, False, False, False]
+    if name == "shared":
+        assert tm["cow_forks"] > 0 and tm["kv_dedup_ratio_peak"] > 1.0
+    want = _events(ref[0].tracer)
+    got = _events(teng.tracer)
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g == w, f"event {i}: port {g} != reference {w}"
+    assert fd.LAUNCHES == {"flash_decode": 0, "paged_flash_decode": 0}
+    assert wk.LAUNCHES == {"wkv6": 0, "wkv6_chunked": 0}

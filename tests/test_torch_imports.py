@@ -44,19 +44,27 @@ def test_cuda_is_the_default_device():
 
 
 def test_unported_families_name_their_slice():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        registry.get("recurrentgemma-9b", reduced=True)
+    """Every family resolves to its module, as in the reference's
+    registry: the recurrent hybrid and the encoder-decoder (and a
+    windowed config) no longer raise; an unknown id raises naming the
+    ids there are."""
+    from repro_torch.models import encdec, rglru, rwkv6, transformer
     cfg = registry.get_config("yi-6b")
-    for family in ("hybrid", "audio"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            registry.from_config(dataclasses.replace(cfg, family=family))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        registry.from_config(dataclasses.replace(cfg, window=64))
-    # MoE and VLM (M-RoPE) resolve to the transformer module
+    for family, module in (("hybrid", rglru), ("audio", encdec),
+                           ("ssm", rwkv6), ("moe", transformer),
+                           ("vlm", transformer), ("dense", transformer)):
+        entry = registry.from_config(dataclasses.replace(cfg, family=family))
+        assert entry.module is module, family
+    assert registry.from_config(
+        dataclasses.replace(cfg, window=64)).module is transformer
     for arch in ("qwen3-30b-a3b", "qwen2-vl-7b"):
         entry = registry.from_config(registry.get_config(arch))
         assert entry.module.__name__ == "repro_torch.models.transformer"
     assert registry.get_config("qwen2-vl-7b").mrope
+    assert registry.get("recurrentgemma-9b", reduced=True).module is rglru
+    assert registry.get("whisper-small").module is encdec
+    with pytest.raises(KeyError, match="yi-6b"):
+        registry.get_config("not-a-model")
 
 
 def test_cli_serves_on_cpu(capsys):
@@ -246,28 +254,21 @@ def test_cli_knows_every_reference_flag(flag, capsys):
 
 
 def test_cli_names_the_slice_of_every_reference_arch(capsys):
-    """Every reference id is the port's: resolved with the reference's
-    config, or (the recurrent hybrid and the encoder-decoder) refused
-    naming queue 1, item 7."""
+    """Every reference id is the port's, with the reference's config
+    (full and reduced, field by field) and the module of its family."""
     from repro.models import registry as jregistry
     ids = jregistry.ARCH_IDS + jregistry.EXTRA_ARCH_IDS
     choices = serve.build_parser()._option_string_actions["--arch"].choices
     assert set(ids) <= set(choices)
     for arch in ids:
-        if arch not in ("recurrentgemma-9b", "whisper-small"):
-            cfg = registry.get_config(arch)
-            want = jregistry.get_config(arch)
+        for reduced in (False, True):
+            cfg = registry.get(arch, reduced=reduced).config
+            want = jregistry.get(arch, reduced=reduced).config
             assert dataclasses.asdict(cfg) == {
                 f.name: getattr(want, f.name)
-                for f in dataclasses.fields(cfg)}, arch
-            registry.get(arch, reduced=True)
-            continue
-        with pytest.raises(SystemExit) as exc:
-            serve.main(["--device", "cpu", "--arch", arch])
-        assert exc.value.code == 2
-        err = capsys.readouterr().err
-        assert f"{arch!r} is not ported yet" in err
-        assert "queue 1, item 7" in err
+                for f in dataclasses.fields(cfg)}, (arch, reduced)
+        got = registry.get(arch).module.__name__.rsplit(".", 1)[1]
+        assert got == jregistry.get(arch).module.__name__.rsplit(".", 1)[1]
 
 
 @pytest.mark.parametrize("arch,argv", [
@@ -277,6 +278,11 @@ def test_cli_names_the_slice_of_every_reference_arch(capsys):
     ("kimi-k2-1t-a32b", ["--prefix-sharing", "--shared-prefix", "8"]),
     ("qwen2-vl-7b", ["--prefill-chunk", "4"]),
     ("stablelm-3b", []),
+    # the recurrent hybrid: no pages; --prefill-chunk is ignored (whole
+    # prompts), as for rwkv6
+    ("recurrentgemma-9b", ["--prefill-chunk", "4"]),
+    # the encoder-decoder with prefix sharing: its self K/V pages shared
+    ("whisper-small", ["--prefix-sharing", "--shared-prefix", "8"]),
 ])
 def test_cli_serves_new_archs_on_cpu(arch, argv, capsys):
     m = serve.main(["--arch", arch, "--device", "cpu", "--n-requests", "3",
@@ -287,6 +293,8 @@ def test_cli_serves_new_archs_on_cpu(arch, argv, capsys):
         assert m["fused_ticks"] > 0
     if "--prefix-sharing" in argv:
         assert m["kv_dedup_ratio_peak"] > 1.0
+    if arch == "recurrentgemma-9b":
+        assert m["kv_peak_tokens"] == 0
     assert f"[serve] {arch} on cpu" in capsys.readouterr().out
 
 
@@ -301,3 +309,18 @@ def test_profile_step_splits_moe_on_cpu(capsys):
     assert set(out["device_ms_by_kind_per_step"]) == {"gemm", "attention",
                                                       "other"}
     assert '"arch": "qwen3-30b-a3b"' in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "whisper-small"])
+def test_profile_step_runs_hybrid_and_audio_on_cpu(arch, capsys):
+    """Both prefill whole prompts (no chunk), decode per tick with no
+    kernel of the port, and count the bytes a step moves: recurrentgemma's
+    whole state read and written, whisper's self K/V and cross K/V."""
+    from repro_torch.launch import profile_step
+    out = profile_step.main(["--arch", arch, "--device", "cpu", "--batch",
+                             "2", "--context", "20", "--steps", "2"])
+    assert out["chunk"] is None and len(out["prefill_chunk_ms"]) == 1
+    assert out["port_kernels_ms_per_step"] == {}
+    assert out["weight_bytes_per_step"] > 0 and out["cache_bytes_per_step"] > 0
+    assert out["moe_layer"] is None
+    assert f'"arch": "{arch}"' in capsys.readouterr().out

@@ -166,7 +166,7 @@ def _bad_inputs():
     return {
         "float16": (*half, tables, lengths),
         "head_dim_48": (wide[0], wide[1], wide[1], tables, lengths),
-        "group_16": (torch.zeros(3, 32, 32), kp, vp, tables, lengths),
+        "group_32": (torch.zeros(3, 64, 32), kp, vp, tables, lengths),
         "strided_last_dim": (q, kp.transpose(1, 3).contiguous()
                              .transpose(1, 3), vp, tables, lengths),
         "lengths_int64": (q, kp, vp, tables, lengths.long()),
@@ -325,6 +325,148 @@ def test_split_plan_keeps_a_chunk_in_shared_memory():
         fd.split_plan(4096, 8, 4, 16, 512, chunk=256)
     with pytest.raises(ValueError):                # the grid's z limit
         fd.split_plan(10**7, 1, 1, 16, 256, chunk=32)
+
+
+# the reference's flash-decode test shapes (tests/test_kernels.py
+# FD_SHAPES): (B, Hq, Hkv, D, S); (2, 16, 1, 256, 300) is
+# recurrentgemma-9b's MQA attention, D = 256 and G = 16
+FD_SHAPES = [
+    (2, 8, 2, 64, 512), (1, 32, 4, 128, 2048), (3, 12, 12, 64, 600),
+    (2, 16, 1, 256, 300), (1, 128, 128, 64, 256),
+]
+#: a block's opt-in shared memory on the H100 (flash_decode.cu kMaxSmem)
+MAX_SMEM = 232448
+
+
+def _smem_bytes(d, esize, chunk, group_cap):
+    """The partial kernel's dynamic shared memory, as flash_decode.cu
+    lays it out (``MmaSmem::bytes`` for bf16, ``Smem::bytes`` for f32):
+    K and V rows padded by 16 bytes, then the group's rows (q, scores and,
+    in bf16, the probabilities), then the chunk's page ids."""
+    row = d * esize + 16
+    scores = (chunk + 4) * 4
+    if esize == 2:
+        heads = group_cap * row + group_cap * (scores + 2 * chunk + 16)
+    else:
+        heads = group_cap * d * 4 + group_cap * scores
+    return 2 * chunk * row + heads + (chunk + 1) * 4
+
+
+def _reference_tol(dtype):
+    """tests/test_kernels.py's flash-decode tolerances."""
+    return (dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16"
+            else dict(rtol=5e-3, atol=1e-3))
+
+
+def _reference_case(b, hq, hkv, d, s, page=16, seed=0):
+    """q, dense k/v, page pools dealt in a shuffled order and the tables
+    over them (page ``page``, unmapped entries on the scratch page), and
+    the reference test's lengths ``max(1, s - 13 i)``; garbage past every
+    length and in the scratch page."""
+    rng = np.random.default_rng(seed)
+    lengths = np.asarray([max(1, s - 13 * i) for i in range(b)], np.int32)
+    q = rng.standard_normal((b, hq, d)).astype(np.float32)
+    k, v = rng.standard_normal((2, b, s, hkv, d)).astype(np.float32)
+    for i, n in enumerate(lengths):
+        k[i, n:] = v[i, n:] = GARBAGE
+    nblk = -(-s // page)
+    n_pages = b * nblk
+    order = rng.permutation(n_pages)
+    kp = np.full((n_pages + 1, page, hkv, d), GARBAGE, np.float32)
+    vp = kp.copy()
+    tables = np.full((b, nblk), n_pages, np.int32)
+    for i, n in enumerate(lengths):
+        for j in range(-(-n // page)):
+            pg = order[i * nblk + j]
+            tables[i, j] = pg
+            span = slice(j * page, min((j + 1) * page, s))
+            kp[pg, :span.stop - span.start] = k[i, span]
+            vp[pg, :span.stop - span.start] = v[i, span]
+    return q, k, v, kp, vp, tables, lengths
+
+
+@pytest.mark.parametrize("b,hq,hkv,d,s", FD_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernels_take_the_reference_shapes(b, hq, hkv, d, s, dtype):
+    """check_args accepts every reference shape in both layouts, and the
+    plan's chunk keeps a block inside the card's shared memory at the
+    group capacity the kernel picks (16 rows of heads above G = 8)."""
+    q, k, v, kp, vp, tables, lengths = (
+        torch.from_numpy(a) for a in _reference_case(b, hq, hkv, d, s))
+    q, k, v, kp, vp = (t.to(getattr(torch, dtype)) for t in (q, k, v, kp, vp))
+    fd.check_args(q, k, v, lengths)
+    fd.check_args(q, kp, vp, lengths, tables)
+    esize = q.element_size()
+    cap = 8 if hq // hkv <= 8 else 16
+    for page, ctx in ((1, s), (16, tables.shape[1] * 16)):
+        c, n_split = fd.split_plan(ctx, b, hkv, page, d * esize)
+        assert c % page == 0 and n_split * c >= ctx
+        assert _smem_bytes(d, esize, c, cap) <= MAX_SMEM
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_plan_fits_shared_memory_at_group_16(dtype):
+    """Every chunk split_plan may pick, at every head dim, fits one
+    block's shared memory with 16 rows of heads: at D = 256 a bf16 row is
+    512 B (chunks up to 128, ~157 KB) and an f32 row 1 KB (up to 64,
+    ~154 KB)."""
+    esize = 2 if dtype == "bfloat16" else 4
+    for d in fd.HEAD_DIMS:
+        fits = [c for c in fd.CHUNKS if c * d * esize <= fd.MAX_TILE_BYTES]
+        assert fits, d
+        for c in fits:
+            assert _smem_bytes(d, esize, c, 16) <= MAX_SMEM, (d, c)
+        for cap in (16, 300, 4096):
+            got, _ = fd.split_plan(cap, 2, 1, 16, d * esize)
+            assert got in fits
+    assert max(c for c in fd.CHUNKS if c * 256 * esize
+               <= fd.MAX_TILE_BYTES) == (128 if esize == 2 else 64)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wide_group_plain_matches_pallas(dtype):
+    """The plain versions at recurrentgemma-9b's attention (D = 256,
+    Hq = 16, Hkv = 1) against the Pallas kernels in interpret mode, dense
+    and paged."""
+    q, k, v, kp, vp, tables, lengths = _reference_case(2, 16, 1, 256, 300)
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(a, dtype) for a in (q, k, v))
+    (kpj, kpt), (vpj, vpt) = (_pair(a, dtype) for a in (kp, vp))
+    lt, tt = torch.from_numpy(lengths), torch.from_numpy(tables)
+    got = ref.flash_decode_ref(qt, kt, vt, lt)
+    want = flash_decode(qj, kj, vj, jnp.asarray(lengths), block_s=256,
+                        interpret=True)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               **_reference_tol(dtype))
+    got = ref.paged_flash_decode_ref(qt, kpt, vpt, tt, lt)
+    want = paged_flash_decode(qj, kpj, vpj, jnp.asarray(tables),
+                              jnp.asarray(lengths), interpret=True)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               **_reference_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,d,s", FD_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernels_hold_the_reference_shapes(b, hq, hkv, d, s, dtype):
+    """Both kernels at the reference's five test shapes, lengths
+    ``max(1, s - 13 i)``, paged at page 16, within tests/test_kernels.py's
+    tolerances of the plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    q, k, v, kp, vp, tables, lengths = (
+        torch.from_numpy(a).cuda() for a in _reference_case(b, hq, hkv, d, s))
+    q, k, v, kp, vp = (t.to(getattr(torch, dtype)) for t in (q, k, v, kp, vp))
+    tol = _reference_tol(dtype)
+    want = ref.flash_decode_ref(q, k, v, lengths).float()
+    torch.testing.assert_close(fd.flash_decode(q, k, v, lengths).float(),
+                               want, **tol)
+    got = fd.paged_flash_decode(q, kp, vp, tables, lengths).float()
+    torch.testing.assert_close(
+        got, ref.paged_flash_decode_ref(q, kp, vp, tables, lengths).float(),
+        **tol)
+    torch.testing.assert_close(got, want, **tol)
 
 
 def _dense_case(g, lengths, d=32, hkv=2, s=None, seed=3):

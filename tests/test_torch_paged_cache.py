@@ -131,6 +131,25 @@ def test_probe_finds_kv_seq_leaves():
         [True, True, False]
 
 
+@pytest.mark.parametrize("arch", ["yi-6b", "rwkv6-7b", "recurrentgemma-9b",
+                                  "whisper-small"])
+def test_probe_families_match_reference(arch):
+    """Which leaves page, family by family (ref tests/test_paged_cache.py
+    ::test_probe_families): none of RecurrentGemma's state; whisper's
+    self K/V, with its cross K/V slot-dense; the pools and the dense
+    leaves take the reference's shapes."""
+    j = JP.PagedCache(JR.get(arch, reduced=True), max_batch=2, max_seq=32,
+                      page_size=8, num_pages=8)
+    t = TP.PagedCache(TR.get(arch, reduced=True), max_batch=2, max_seq=32,
+                      page_size=8, num_pages=8, device="cpu")
+    assert t.is_seq == list(j.is_seq)
+    assert t.has_seq == j.has_seq == (arch in ("yi-6b", "whisper-small"))
+    assert [tuple(x.shape) for x in t.store] == \
+        [tuple(x.shape) for x in j.store]
+    assert [str(x.dtype).replace("torch.", "") for x in t.store] == \
+        [str(x.dtype) for x in j.store]
+
+
 def test_scatter_token_past_window_goes_to_scratch():
     _, t = _caches()
     assert t.alloc_slot(0, 8)                     # 2 pages, window 32
