@@ -105,7 +105,21 @@ Phases, one line each; any failure raises and exits non-zero:
              777-token prompts, shared, per tick and fused (identical
              tokens, copy-on-write forks of the ragged tail), and the
              cost of one fork at full width (host time of ``fork_page``;
-             device time of its in-place page copies).  Then yi-6b on the
+             device time of its in-place page copies).  Then the
+             cluster: yi-6b with prefix sharing behind the router, one
+             set of weights, on 8 requests of the 768 + 128 prompts in 2
+             groups (skew 0.8, 4 req/s): a bare engine (the token
+             baseline), 2 replicas under round robin and under prefix
+             affinity (per tick), and tiers 1:1 with the decode tier
+             fusing up to 16 steps, traced and exported (Perfetto JSON
+             and JSONL under build/): every run the bare engine's
+             tokens; 8 shipments of 56 pages into the decode tier's
+             pools at unmoved addresses; the paged kernel's launches
+             per replica ((per-tick steps + bucketed fused steps) x 32,
+             summing to the counted launches; 0 on the prefill tier);
+             the trace's phases summing to its makespan; then export +
+             import pairs of one 896-token slot between CUDA events
+             beside the bytes bound.  Then yi-6b on the
              dense engine (dense kernel), without and with co-design
              pricing (the same tokens), and rwkv6-7b on the paged
              engine with the WKV6 kernel (every prefill on the chunked
@@ -168,6 +182,13 @@ RGEMMA_SHAPE = FD_SHAPES[3]
 # the shared-prefix serve: a system prompt of a whole number of pages and
 # of 128-token chunks, then an identical prompt with a ragged tail page
 SHARED_PREFIX, SHARED_TAIL, IDENTICAL_PROMPT = 768, 128, 777
+# the cluster serve: make_grouped_prefix_trace at seed 0, 8 requests in 2
+# groups of the shared-prefix prompt (768 + 128 tokens), skew 0.8, 4 req/s
+CLUSTER_TRACE = dict(rate_req_s=4.0, n_requests=8, n_groups=2,
+                     prefix_len=SHARED_PREFIX, tail_len=SHARED_TAIL,
+                     skew=0.8, seed=0)
+# export + import pairs timed at full width (one 896-token slot each)
+SHIP_PAIRS = 6
 # the 2-layer placed run: affinity over 2 regions of 7 pages with prefix
 # sharing and the fused tick; decode growth spills out of a full home
 # region, preemption relaxes the pool, and the defrag that follows
@@ -1231,6 +1252,186 @@ def _serve_shared(entry, params, base, sched, kmods, smi, launches):
         **_fork_cost(entry), "card": smi}))
 
 
+def _cluster_run(label, engines, run, kmods, num_layers, launches):
+    """Drive ``run()`` (a bare engine's or a router's ``run_trace``) with
+    every count set to 0 just before it and read just after; return its
+    metrics, each request's (tokens, finish reason) and the paged
+    kernel's launches per replica: (per-tick decode steps + bucketed
+    fused steps) x layers, whose sum must be the counted launches."""
+    seen = [_watch(e) for e in engines]
+    _reset(kmods)
+    metrics = run()
+    counts = _launches(kmods)
+    per = [(s["steps"] + sum(1 << (k - 1).bit_length()
+                             for k in getattr(e, "fused_horizons", [])))
+           * num_layers for e, s in zip(engines, seen)]
+    want = {"paged_flash_decode": sum(per)}
+    if counts != {k: want.get(k, 0) for k in counts}:
+        raise AssertionError(f"{label}: launches {counts}, per replica "
+                             f"{per}")
+    if not all(bool(s["finite"]) for s in seen):
+        raise AssertionError(f"{label}: non-finite logits in a decode step")
+    launches["paged_flash_decode"][label] = sum(per)
+    streams = {r.rid: (r.tokens_out, r.finish_reason)
+               for e in engines for r in e.completed}
+    return metrics, streams, per
+
+
+def _ship_pair_ms(entry, params, ecfg, prompt):
+    """One request's finished prefill shipped between two engines at full
+    width, each export + import pair between CUDA events (host work
+    included), back and forth; the median, the pages moved and the HBM
+    bound of reading them once and writing them once."""
+    from repro_torch.serving.engine import EngineConfig, make_engine
+    from repro_torch.serving.scheduler import RequestState
+    engines = [make_engine(entry, EngineConfig(**ecfg), params=params)
+               for _ in range(2)]
+    src, dst = engines
+    src.role = "prefill"
+    if not src.admit(RequestState(0, prompt.copy())):
+        raise AssertionError("ship timing: admission refused")
+    while src._prefilling is not None:
+        src.tick()
+    ptrs = [[p.data_ptr() for p in e.paged.store] for e in engines]
+    times, pages = [], 0
+    for i in range(SHIP_PAIRS):
+        a, b = engines[i % 2], engines[1 - i % 2]
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        ship = a.export_slot_pages(0)
+        if not b.import_slot_pages(ship):
+            raise AssertionError("ship timing: import refused")
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        pages = ship.n_pages
+    if [[p.data_ptr() for p in e.paged.store] for e in engines] != ptrs:
+        raise AssertionError("ship timing: a pool moved")
+    page_bytes = src.paged.bytes_per_page()
+    nbytes = 2 * pages * page_bytes
+    return {"ship_pair_ms": statistics.median(times),
+            "ship_pair_ms_all": times, "pages": pages,
+            "page_bytes": page_bytes, "bytes_moved": nbytes,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "modeled_cost_s": ship.cost_s}
+
+
+def _serve_cluster(entry, params, base, sched, kmods, smi, launches):
+    """Full-width yi-6b behind the router, sharing one set of weights
+    (bf16, paged, page 16, chunks of 128, the paged kernel, prefix
+    sharing) on the grouped shared-prefix trace: a bare engine (the token
+    baseline), 2 replicas under round_robin and under prefix_affinity
+    (per tick), then tiers 1:1 with the decode tier fusing up to 16 steps
+    (every bucket captured before the run), traced and exported.  Every
+    run's tokens equal the baseline's; 8 shipments; the paged kernel
+    launched on every decoding replica (in the tiered run the decode
+    tier's, through its graph replays); the decode tier's pools at the
+    addresses they had before the imports; the trace's phases summing to
+    its makespan.  Then export + import pairs timed."""
+    from repro_torch.obs import (Tracer, export_perfetto, save_jsonl,
+                                 trace_report)
+    from repro_torch.serving.engine import EngineConfig, make_engine
+    from repro_torch.serving.router import make_cluster
+    cfg = entry.config
+
+    def trace():
+        return sched.make_grouped_prefix_trace(cfg.vocab, **CLUSTER_TRACE)
+
+    ecfg = dict(base, paged=True, prefix_sharing=True,
+                max_seq=SHARED_PREFIX + SHARED_TAIL
+                + base["max_new_tokens"] + 2)
+    n = CLUSTER_TRACE["n_requests"]
+    keep = ("tokens_per_s", "tbt_mean_s", "tbt_p99_s", "wall_s")
+    runs = {}
+    bare = make_engine(entry, EngineConfig(**ecfg), params=params)
+    t0 = time.perf_counter()       # the scheduler's origin, to within us
+    m, want, per = _cluster_run("yi-6b cluster bare", [bare],
+                                lambda: bare.run_trace(trace()), kmods,
+                                cfg.num_layers, launches)
+    if len(want) != n or any(len(t) != base["max_new_tokens"]
+                             for t, _ in want.values()):
+        raise AssertionError(f"bare run: {len(want)} of {n} requests")
+    # Router.metrics' e2e and aggregate dedup, for one replica
+    e2e = [r.finish_s - t0 - r.arrival_s for r in bare.completed]
+    runs["bare"] = dict(
+        {k: m[k] for k in keep}, ttft_mean_s=m["ttft_mean_s"],
+        e2e_p99_s=float(np.percentile(e2e, 99)),
+        dedup_ratio_agg=(m["kv_logical_peak_pages"]
+                         / (m["kv_peak_tokens"] // PAGE)),
+        launches_per_replica=per)
+    del bare
+    for policy in ("round_robin", "prefix_affinity"):
+        router = make_cluster(entry, EngineConfig(**ecfg), 2, policy=policy,
+                              params=params)
+        m, got, per = _cluster_run(f"yi-6b cluster {policy}",
+                                   router.engines,
+                                   lambda: router.run_trace(trace()), kmods,
+                                   cfg.num_layers, launches)
+        _same_streams(f"cluster {policy} vs bare", got, want)
+        if not all(per):
+            raise AssertionError(f"{policy}: a replica launched no paged "
+                                 f"kernel: {per}")
+        runs[policy] = dict({k: m[k] for k in keep + (
+            "e2e_p99_s", "dedup_ratio_agg")}, launches_per_replica=per,
+            requests_per_replica=[r["requests"] for r in m["per_replica"]])
+    tiered = make_cluster(entry, EngineConfig(**dict(ecfg,
+                                                     fuse_steps=PAGE)),
+                          2, tiers=(1, 1), params=params)
+    dec = tiered.engines[1]
+    t0 = time.perf_counter()
+    for k in range(1, PAGE.bit_length()):
+        dec._fused_fn(1 << k)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    ptrs = [p.data_ptr() for p, seq in zip(dec.paged.store, dec.paged.is_seq)
+            if seq]
+    tracer = Tracer()
+    tiered.set_tracer(tracer)
+    m, got, per = _cluster_run("yi-6b cluster tiers 1:1 fused",
+                               tiered.engines,
+                               lambda: tiered.run_trace(trace()), kmods,
+                               cfg.num_layers, launches)
+    _same_streams("tiered 1:1 fused vs bare", got, want)
+    moved = [p.data_ptr() for p, seq in zip(dec.paged.store, dec.paged.is_seq)
+             if seq] != ptrs
+    replays = {n_: g.replays for n_, g in dec._fused_graphs.items()}
+    if (m["shipments"] != n or moved or per[0] != 0 or not per[1]
+            or not dec.fused_horizons or not sum(replays.values())
+            or tiered.engines[0].completed):
+        raise AssertionError(f"tiered run: shipments {m['shipments']}, "
+                             f"pools moved {moved}, launches {per}, "
+                             f"replays {replays}")
+    out = Path(__file__).resolve().parent / "build"
+    out.mkdir(exist_ok=True)
+    path = str(out / "chip_smoke_cluster.trace.json")
+    export_perfetto(tracer.events, path)
+    save_jsonl(tracer.events, path + ".jsonl")
+    rep = trace_report(tracer.events)
+    phases = sum(rep["phases"].values())
+    if abs(phases - rep["makespan_s"]) > 1e-9 * max(1.0, rep["makespan_s"]) \
+            or rep["events"].get("ship") != n:
+        raise AssertionError(f"trace report off: {rep}")
+    runs["tiers 1:1 fused"] = dict(
+        {k: m[k] for k in keep + ("e2e_p99_s", "dedup_ratio_agg",
+                                  "shipments", "shipped_pages",
+                                  "ship_cost_s")},
+        launches_per_replica=per, capture_s=capture_s,
+        fused_horizons=len(dec.fused_horizons), replays=replays,
+        decode_pools_unmoved=not moved)
+    del tiered, dec
+    prompt = trace()[0].prompt
+    ship = _ship_pair_ms(entry, params, ecfg, prompt)
+    print("[serve] cluster " + json.dumps({
+        "trace": CLUSTER_TRACE, "runs": runs,
+        "tokens_identical": sum(len(t) for t, _ in want.values()),
+        "trace_report": rep, "trace_file": path, "ship": ship,
+        "note": "replicas share one card and tick in turn",
+        "card": smi}))
+    _free()
+
+
 def _policy_kernel_ms(fd):
     """The paged kernel at the serve's decode shape (B=4, lengths
     768-778, bf16) with its block table laid out by each placement
@@ -1393,6 +1594,7 @@ def phase_serve(registry, sched, kmods, smi):
                   fused_m, fused)
     _gpu_model_line(entry, params, sched, smi)
     _serve_shared(entry, params, base, sched, kmods, smi, launches)
+    _serve_cluster(entry, params, base, sched, kmods, smi, launches)
     counts, _, dense = _serve(entry, params, dict(base, paged=False),
                               trace(), sched, kmods, "flash_decode", smi)
     launches["flash_decode"] = {"yi-6b dense": counts["flash_decode"]}

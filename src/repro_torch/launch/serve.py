@@ -45,9 +45,20 @@ the modeled throughput beside the wall clock.
 ``--eos-rate`` samples per-request early-stop decode lengths;
 ``--trace-file`` replays a recorded JSON trace.
 
-Flags of features that later slices port (multi-replica routing, tiers
-and Perfetto export) are accepted by the parser and refused with an
-error that names them.
+``--replicas N`` stands up N engine replicas (one set of weights on the
+card) behind the front-end router, ``--router-policy`` picks the
+dispatch policy (``prefix_affinity`` needs ``--prefix-sharing``), and
+``--tiers P:D`` (with ``--paged``, ``P + D == N``) splits them into a
+prefill tier and a decode tier that KV pages are shipped to.  The
+replicas share the card and tick one after another.  ``--trace-out
+FILE`` writes a Perfetto timeline of the run (open it at
+https://ui.perfetto.dev), a lossless ``FILE.jsonl`` event log beside
+it, and prints the phase report:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --full --paged \
+      --pallas --prefill-chunk 128 --prefix-sharing --shared-prefix 768 \
+      --groups 2 --replicas 2 --tiers 1:1 --fuse-steps 16 \
+      --trace-out serve.trace.json
 """
 from __future__ import annotations
 
@@ -56,24 +67,26 @@ from typing import List, Optional
 
 from repro_torch.core.placement import PLACEMENT_POLICIES
 from repro_torch.models import registry
+from repro_torch.obs import Tracer, export_perfetto, save_jsonl, trace_report
 from repro_torch.serving.engine import EngineConfig, make_engine
+from repro_torch.serving.router import POLICIES, make_cluster
 from repro_torch.serving.scheduler import (load_trace,
                                           make_grouped_prefix_trace,
                                           make_shared_prefix_trace,
                                           make_trace)
 
-# flag -> (value that means "not used", the slice that ports it)
-UNPORTED = {
-    "replicas": (1, "router and tiers"),
-    "router_policy": ("round_robin", "router and tiers"),
-    "tiers": (None, "router and tiers"),
-    "trace_out": (None, "Perfetto export"),
-}
 
-
-# the reference router's dispatch policies (serving/router.py)
-ROUTER_POLICIES = ("round_robin", "least_loaded", "session_affinity",
-                   "prefix_affinity")
+def dump_trace(events, path: str, tag: str = "serve") -> dict:
+    """Write ``events`` as a Perfetto timeline at ``path`` and a lossless
+    event log at ``path.jsonl``; print and return the phase report."""
+    export_perfetto(events, path)
+    save_jsonl(events, path + ".jsonl")
+    rep = trace_report(events)
+    print(f"[{tag}] trace: {len(events)} events -> {path} "
+          f"(+ {path}.jsonl)")
+    print(f"[{tag}] phases: {rep['phases']} "
+          f"makespan={rep['makespan_s']:.3f}s")
+    return rep
 
 
 def build_trace(args, vocab: int):
@@ -167,12 +180,20 @@ def build_parser() -> argparse.ArgumentParser:
                     help="modeled-clock charge per substrate "
                          "reconfiguration (default: the pipeline "
                          "fill/drain cost of the array geometry)")
-    # not ported yet: refused in main()
-    ap.add_argument("--replicas", type=int, default=1)
-    ap.add_argument("--router-policy", default="round_robin",
-                    choices=ROUTER_POLICIES)
-    ap.add_argument("--tiers", type=str, default=None)
-    ap.add_argument("--trace-out", type=str, default=None)
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="engine replicas behind the front-end router")
+    ap.add_argument("--router-policy", choices=POLICIES,
+                    default="round_robin")
+    ap.add_argument("--tiers", type=str, default=None, metavar="P:D",
+                    help="disaggregate the cluster into P prefill and D "
+                         "decode replicas (P+D must equal --replicas; "
+                         "requires --paged): finished prefills ship their "
+                         "KV pages to the decode tier")
+    ap.add_argument("--trace-out", type=str, default=None,
+                    metavar="PERFETTO_JSON",
+                    help="write a Perfetto timeline of the run, a "
+                         "lossless .jsonl event log next to it, and print "
+                         "the phase-attribution report")
     return ap
 
 
@@ -182,6 +203,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
     if args.prefix_sharing and not args.paged:
         ap.error("--prefix-sharing requires --paged (the dense engine "
                  "has no page tables to share)")
+    if args.router_policy == "prefix_affinity" and not args.prefix_sharing:
+        ap.error("--router-policy prefix_affinity requires "
+                 "--prefix-sharing (nothing resident to probe otherwise)")
     if args.placement and not args.paged:
         ap.error("--placement requires --paged (the dense cache has no "
                  "page pool to partition)")
@@ -197,10 +221,21 @@ def main(argv: Optional[List[str]] = None) -> dict:
                  "modeled clock to charge otherwise)")
     if args.reconfig_cost is not None and args.reconfig_cost < 0:
         ap.error("--reconfig-cost must be >= 0")
-    for dest, (unused, feature) in UNPORTED.items():
-        if getattr(args, dest) != unused:
-            ap.error(f"--{dest.replace('_', '-')} is not ported yet "
-                     f"({feature} arrives with a later slice)")
+    tiers = None
+    if args.tiers is not None:
+        try:
+            p_n, d_n = (int(v) for v in args.tiers.split(":"))
+        except ValueError:
+            ap.error("--tiers must look like P:D, e.g. 1:3")
+        if not args.paged:
+            ap.error("--tiers requires --paged (page shipping moves "
+                     "block-table pages)")
+        if p_n < 1 or d_n < 1:
+            ap.error("--tiers needs at least one replica per tier")
+        if p_n + d_n != args.replicas:
+            ap.error(f"--tiers {p_n}:{d_n} must sum to --replicas "
+                     f"({args.replicas})")
+        tiers = (p_n, d_n)
     entry = registry.get(args.arch, reduced=not args.full)
     ecfg = EngineConfig(max_batch=args.max_batch,
                         max_seq=args.prompt_len + args.max_new + 2,
@@ -221,8 +256,27 @@ def main(argv: Optional[List[str]] = None) -> dict:
                         codesign_reconfig_cost_s=args.reconfig_cost,
                         device=args.device)
     reqs = build_trace(args, entry.config.vocab)
-    metrics = make_engine(entry, ecfg).run_trace(reqs)
-    print(f"[serve] {args.arch} on {args.device}: {metrics}")
+    tracer = Tracer() if args.trace_out else None
+    if args.replicas > 1:
+        router = make_cluster(entry, ecfg, args.replicas,
+                              policy=args.router_policy, tiers=tiers)
+        if tracer is not None:
+            router.set_tracer(tracer)
+        metrics = router.run_trace(reqs)
+        per = metrics.pop("per_replica")
+        print(f"[serve] {args.arch} x{args.replicas} "
+              f"({args.router_policy}) on {args.device}: {metrics}")
+        for rep in per:
+            print(f"[serve]   replica {rep['replica']}: {rep}")
+        metrics["per_replica"] = per
+    else:
+        eng = make_engine(entry, ecfg)
+        if tracer is not None:
+            eng.set_tracer(tracer)
+        metrics = eng.run_trace(reqs)
+        print(f"[serve] {args.arch} on {args.device}: {metrics}")
+    if tracer is not None:
+        dump_trace(tracer.events, args.trace_out)
     return metrics
 
 

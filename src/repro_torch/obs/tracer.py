@@ -2,8 +2,9 @@
 ``repro.obs.tracer``, so the engine's emitters stay as they are).
 
 One :class:`Tracer` collects typed :class:`TraceEvent` records from the
-``Scheduler`` (arrival / admit), the engines (prefill chunks, decode
-steps, growth / preemption, finishes) and ``PagedCache`` (defrag).  The
+``Router`` (dispatch, ship), the ``Scheduler`` (arrival / admit), the
+engines (prefill chunks, decode steps, fused ticks, growth / preemption,
+finishes) and ``PagedCache`` (CoW forks, defrag, migration).  The
 schema is the reference's, so an engine trace of either package can be
 diffed event by event.
 
@@ -13,8 +14,9 @@ no-op whose ``enabled`` attribute is a plain ``False``.
 
 Timestamps are seconds on ``time.perf_counter`` relative to the tracer's
 origin (the first event unless ``t0`` is given).  ``dur`` is the span
-length; instantaneous events carry ``dur == 0``.  The Perfetto exporter
-arrives with a later slice.
+length; instantaneous events carry ``dur == 0``.  The exporters
+(Perfetto JSON, JSONL save/replay, ``trace_report``) live in
+:mod:`repro_torch.obs.export`.
 """
 from __future__ import annotations
 

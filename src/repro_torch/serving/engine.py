@@ -42,8 +42,14 @@ spilled pages at defrag, and samples each decode iteration's block-table
 gather cost on that model.  With ``codesign`` either engine prices every
 tick's operator mix on the reconfigurable substrate
 (``core/serving_sim.TickLatencyModel``) and reports the modeled clock
-beside the wall clock; neither changes a token.  Page shipping between
-replicas arrives with the cluster-and-tiers slice.
+beside the wall clock; neither changes a token.
+
+For prefill/decode disaggregation (``serving/router.py`` tiers) an
+engine takes a ``role``: a ``"prefill"`` engine runs prompts but never
+decodes, and the router harvests its finished prefills with
+``export_slot_pages`` into a ``"decode"`` engine's pool
+(``import_slot_pages``); the shipped slot then joins that engine's
+decode batch, per tick or inside its fused horizons.
 """
 from __future__ import annotations
 
@@ -62,9 +68,10 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models import registry
 from repro_torch.obs.tracer import NULL_TRACER
 from repro_torch.serving.fused_graph import FusedGraph
-from repro_torch.serving.paged_cache import PagedCache, num_blocks
+from repro_torch.serving.paged_cache import (PagedCache, PageShipment,
+                                             num_blocks)
 from repro_torch.serving.replica_api import LoadReport
-from repro_torch.serving.scheduler import RequestState, Scheduler
+from repro_torch.serving.scheduler import RequestState, Scheduler, make_trace
 
 __all__ = ["EngineConfig", "ServingEngine", "PagedServingEngine",
            "make_engine"]
@@ -162,6 +169,11 @@ class ServingEngine:
         self.preemption_count = 0
         self.requeue: List[RequestState] = []   # preempted, awaiting re-admit
         self._prefilling: Optional[dict] = None   # chunk-scheduler state
+        # disaggregation tier: "mixed" engines prefill and decode (the
+        # colocated default); a "prefill" engine runs prompts but never
+        # decodes, its finished slots are harvested by the router and
+        # shipped to a "decode" engine's page pool
+        self.role = "mixed"
         # lifecycle tracing: NULL_TRACER keeps the hot path branch-cheap
         self.tracer = NULL_TRACER
         self._init_cache()
@@ -316,7 +328,9 @@ class ServingEngine:
 
     def step(self) -> int:
         """One decode iteration for all active slots; returns #finished."""
-        if not self.active:
+        if not self.active or self.role == "prefill":
+            # a prefill-tier engine holds finished prompts for harvest
+            # (export_slot_pages) instead of decoding them
             return 0
         t_step0 = time.perf_counter() if self.tracer.enabled else 0.0
         batch0 = len(self.active)
@@ -451,6 +465,10 @@ class ServingEngine:
         return take, st["pos"] + take
 
     def _active_ctxs(self) -> List[int]:
+        """Contexts of the decode batch about to run (none on a
+        prefill-tier engine, which never decodes)."""
+        if self.role == "prefill":
+            return []
         return [len(r.prompt) + len(r.tokens_out)
                 for r in self.active.values()]
 
@@ -516,10 +534,34 @@ class ServingEngine:
                          + len(self.requeue)),
             free_slots=free, free_pages=free, min_region_free=free)
 
+    # -- disaggregation hooks (the paged engine overrides them) ---------
+    def export_slot_pages(self, rid: int) -> Optional[PageShipment]:
+        raise RuntimeError("page shipping requires the paged engine "
+                           "(EngineConfig.paged)")
+
+    def import_slot_pages(self, shipment: PageShipment) -> bool:
+        raise RuntimeError("page shipping requires the paged engine "
+                           "(EngineConfig.paged)")
+
+    # -- single-replica trace loops ------------------------------------
     def run_trace(self, reqs: List[RequestState]) -> dict:
         """Drive an explicit request trace through a single-replica
         :class:`~repro_torch.serving.scheduler.Scheduler`."""
         return Scheduler(self).run_trace(reqs)
+
+    def run_workload(self, *, rate_req_s: float, n_requests: int,
+                     prompt_len: int, seed: int = 0,
+                     prompt_lens: Optional[np.ndarray] = None,
+                     **trace_kwargs) -> dict:
+        """Poisson arrivals, wall-clock continuous batching; returns the
+        metrics.  ``prompt_lens`` overrides the constant ``prompt_len``
+        per request; the other ``trace_kwargs`` (``eos_rate``,
+        ``sessions``) go to :func:`make_trace`."""
+        reqs = make_trace(self.cfg.vocab, rate_req_s=rate_req_s,
+                          n_requests=n_requests, prompt_len=prompt_len,
+                          seed=seed, prompt_lens=prompt_lens,
+                          **trace_kwargs)
+        return self.run_trace(reqs)
 
 
 # ---------------------------------------------------------------------------
@@ -680,6 +722,54 @@ class PagedServingEngine(ServingEngine):
 
     def prefix_residency(self, prompt: np.ndarray) -> int:
         return self.paged.prefix_residency(prompt)
+
+    # -- prefill/decode disaggregation ---------------------------------
+    def export_slot_pages(self, rid: int) -> Optional[PageShipment]:
+        """Package request ``rid``'s finished-prefill slot for shipment to
+        a decode-tier replica, and release the slot here.
+
+        ``None`` while the request is still mid chunked prefill (the
+        harvester retries next tick).  The shipment carries the request,
+        its first decoded token (produced at the prefill boundary here,
+        so the decode tier continues the exact greedy stream) and the
+        priced movement cost."""
+        st = self._prefilling
+        if st is not None and st["req"].rid == rid:
+            return None                 # mid-prefill: defer the handoff
+        slot = next((s for s, r in self.active.items() if r.rid == rid),
+                    None)
+        if slot is None:
+            raise KeyError(f"request {rid} is not resident")
+        req = self.active.pop(slot)
+        shipment = self.paged.export_slot_pages(
+            slot, int(self._lengths_host[slot]), tokens=req.prompt,
+            sys=self._hw, hops=1)
+        shipment.req = req
+        shipment.next_tok = int(self._next_tok[slot])
+        self._lengths_host[slot] = 0
+        self._maybe_defrag()
+        self.free_slots.append(slot)
+        return shipment
+
+    def import_slot_pages(self, shipment: PageShipment) -> bool:
+        """Splice a prefill-tier shipment into a free slot and join the
+        request to this replica's decode batch (the next per-tick step or
+        fused horizon reads its table row, length and next token).
+        ``False`` when no slot or too few pages are free; atomic either
+        way."""
+        if not self.free_slots:
+            return False
+        slot = self.free_slots.pop()
+        if not self.paged.import_slot_pages(slot, shipment):
+            self.free_slots.append(slot)
+            return False
+        req = shipment.req
+        self._lengths_host[slot] = shipment.n_tokens
+        self._next_tok[slot] = shipment.next_tok
+        req.slot = slot
+        self.active[slot] = req
+        self._note_pages()
+        return True
 
     # -- chunked prefill straight into block-table pages ---------------
     def _start_chunked(self, req: RequestState) -> bool:
@@ -867,10 +957,11 @@ class PagedServingEngine(ServingEngine):
 
     # -- fused multi-step decode (one CUDA graph per bucketed horizon) --
     def tick(self) -> int:
-        # the reference also keeps a prefill-role replica per tick; roles
-        # arrive with the router and tiers slice
+        # a prefill-tier engine never decodes: it stays on the per-tick
+        # path, whose step returns at once
         if (self.ecfg.fuse_steps <= 1 or not self.paged.has_seq
                 or self.cfg.family not in _ATTN_FAMILIES
+                or self.role == "prefill"
                 or not hasattr(self.entry.module, "decode_fused_paged")):
             return super().tick()
         return self._fused_tick()

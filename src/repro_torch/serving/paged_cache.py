@@ -1,7 +1,6 @@
 """Paged (block-table) KV cache for the serving engine (port of
 ``repro.serving.paged_cache``, with refcounted prefix sharing,
-copy-on-write and stack-aware placement; cross-pool page shipping comes
-with the cluster-and-tiers slice).
+copy-on-write, stack-aware placement and cross-pool page shipping).
 
 Sequence-bearing cache leaves live in a pool of fixed-size pages and each
 slot owns a block table mapping its logical context positions to pages,
@@ -24,6 +23,11 @@ places pages by channel region of the near-memory substrate (a slot's
 home region, a communal region for shared prompt pages), and every page
 movement (spilled-page migration, defrag compaction) is priced on that
 model through :meth:`PagedCache.transfer_pages`.
+
+:meth:`PagedCache.export_slot_pages` packages a slot's pages as a
+:class:`PageShipment` (the prefill tier's handoff) and
+:meth:`PagedCache.import_slot_pages` splices one into another pool (the
+decode tier's), written in place into that pool's existing pages.
 
 The reference copies and donates its pools through jitted helpers; here
 the pools are updated in place with indexed assignment (``index_put_``),
@@ -55,6 +59,48 @@ TRANSFER_KINDS = ("migrate", "defrag", "ship")
 
 def num_blocks(n_tokens: int, page_size: int) -> int:
     return ceil_div(n_tokens, page_size)
+
+
+# ---------------------------------------------------------------------------
+# Cross-pool page shipment (prefill -> decode tier handoff)
+# ---------------------------------------------------------------------------
+@dataclass
+class PageShipment:
+    """A slot's KV pages packaged for transfer between two pools.
+
+    Built by :meth:`PagedCache.export_slot_pages` (which also releases
+    the slot at the source) and consumed by
+    :meth:`PagedCache.import_slot_pages`:
+
+    * ``seq_payload`` — per cache leaf, the gathered page block
+      ``(L, n_pages, page, ...)`` for sequence leaves (``None`` for
+      dense leaves), on the source's device;
+    * ``slot_payload`` — per cache leaf, a copy of the slot column for
+      dense leaves (recurrent state, lengths; ``None`` for sequence
+      leaves);
+    * ``tokens`` — the prompt, so the destination consults its own
+      prefix trie and re-registers the coverage after import;
+    * ``cost_s`` / ``bytes_on_wire`` — the priced cross-stack movement
+      (:func:`~repro_torch.core.noc.page_ship`), charged once at export.
+
+    The engine layer annotates ``req`` (the live request), ``next_tok``
+    (the first decoded token, produced on the prefill tier) and
+    ``src`` / ``dst`` replica ids.
+    """
+
+    n_tokens: int
+    page_size: int
+    n_pages: int
+    tokens: Optional[np.ndarray]
+    seq_payload: List[Optional[torch.Tensor]]
+    slot_payload: List[Optional[torch.Tensor]]
+    bytes_on_wire: int = 0
+    cost_s: float = 0.0
+    # engine-layer annotations (router handoff)
+    req: Any = None
+    next_tok: int = -1
+    src: int = -1
+    dst: int = -1
 
 
 # ---------------------------------------------------------------------------
@@ -851,10 +897,10 @@ class PagedCache:
         :func:`~repro_torch.core.noc.page_ship` on ``sys`` (the default
         system when None): spilled-page re-homing (``kind="migrate"``,
         ``hops=0``), defrag compaction moves (``kind="defrag"``,
-        ``hops=0``) and cross-stack shipments (``kind="ship"``,
-        ``hops>=1``; no caller until the tiers slice, so its counters
-        read 0).  Accumulates the matching counters and emits the
-        ``migrate`` event; ``defrag`` emits its own."""
+        ``hops=0``) and cross-stack tier handoffs (``kind="ship"``,
+        ``hops>=1``, from :meth:`export_slot_pages`).  Accumulates the
+        matching counters and emits the ``migrate`` event; ``defrag``
+        emits its own."""
         if kind not in TRANSFER_KINDS:
             raise ValueError(f"unknown transfer kind {kind!r}; "
                              f"choose from {TRANSFER_KINDS}")
@@ -982,6 +1028,121 @@ class PagedCache:
         self._tables_dev = None
         return mapping
 
+    # -- cross-pool shipment (prefill -> decode tier) ----------------------
+    def export_slot_pages(self, slot: int, n_tokens: int,
+                          tokens: Optional[np.ndarray] = None, *,
+                          sys=None, hops: int = 1) -> PageShipment:
+        """Package ``slot``'s resident state for another pool and release
+        the slot here.
+
+        Sequence leaves gather the slot's first ``ceil(n_tokens / page)``
+        pages into a contiguous ``(L, n, page, ...)`` block on the device
+        (shared-prefix pages included: the destination decides what it
+        can dedup against its own trie); dense leaves copy the slot
+        column.  The movement is priced once, here, through
+        :meth:`transfer_pages` (``kind="ship"``).  The slot is then freed
+        as a finished request's would be: shared pages survive under
+        their other holders' references."""
+        pages = self.blocks_of(slot)
+        if self.has_seq:
+            need = num_blocks(n_tokens, self.page_size)
+            assert len(pages) >= need, \
+                "export_slot_pages of an under-mapped slot"
+            pages = pages[:need]
+        idx = torch.as_tensor(pages, dtype=torch.long).to(self.device)
+        seq_payload: List[Optional[torch.Tensor]] = []
+        slot_payload: List[Optional[torch.Tensor]] = []
+        for pool, seq in zip(self.store, self.is_seq):
+            if seq:
+                seq_payload.append(pool.index_select(1, idx)
+                                   if pages else None)
+                slot_payload.append(None)
+            else:
+                seq_payload.append(None)
+                # a copy: the source slot's column is reused in place
+                slot_payload.append((pool[slot] if pool.ndim == 1
+                                     else pool[:, slot]).clone())
+        cost = self.transfer_pages(len(pages), sys=sys, hops=hops,
+                                   kind="ship")
+        shipment = PageShipment(
+            n_tokens=n_tokens, page_size=self.page_size,
+            n_pages=len(pages),
+            tokens=(np.asarray(tokens).copy()
+                    if tokens is not None else None),
+            seq_payload=seq_payload, slot_payload=slot_payload,
+            bytes_on_wire=cost.bytes_on_wire, cost_s=cost.time_s)
+        self.free_slot(slot)
+        return shipment
+
+    def import_slot_pages(self, slot: int,
+                          shipment: PageShipment) -> bool:
+        """Splice a :class:`PageShipment` into an empty ``slot`` here.
+
+        The destination's own prefix trie is consulted first: leading
+        prompt pages already resident are mapped (incref) instead of
+        re-written, as a local admission would dedup; only the unshared
+        tail pages allocate (home region, communal steering for
+        publishable full prompt pages) and receive the payload.  The
+        coverage is then registered in this trie.  The payload is copied
+        into the existing pools in place (``index_copy_`` on the page
+        axis; a captured CUDA graph holds the pools' addresses), and the
+        dense leaves' slot columns are written into the tensors the next
+        step reads.  Atomic: returns ``False`` with nothing mapped,
+        incref'd or written when the pool cannot hold the unshared
+        pages."""
+        if shipment.page_size != self.page_size:
+            raise ValueError(
+                f"shipment page_size {shipment.page_size} != pool "
+                f"page_size {self.page_size} (tiers must agree)")
+        if not self.has_seq:
+            self._import_dense(slot, shipment)
+            return True
+        assert not self.blocks_of(slot), "import into a mapped slot"
+        need = shipment.n_pages
+        tokens = shipment.tokens
+        shared: List[int] = []
+        if self.share and tokens is not None and len(tokens):
+            shared = self.prefix.match(np.asarray(tokens),
+                                       self.page_size)[:need]
+        home = self._assign_home(slot)
+        n_communal = 0
+        if self.share and tokens is not None:
+            n_communal = max(0, len(tokens) // self.page_size
+                             - len(shared))
+        fresh = self.alloc.alloc(need - len(shared), home=home,
+                                 communal=n_communal)
+        if fresh is None:
+            self.home_region.pop(slot, None)
+            return False
+        for p in shared:
+            self.alloc.incref(p)
+        self.tables[slot, :need] = shared + fresh
+        self.shared_count[slot] = len(shared)
+        dst_idx = torch.as_tensor(fresh, dtype=torch.long).to(self.device)
+        for pool, seq, payload, col in zip(self.store, self.is_seq,
+                                           shipment.seq_payload,
+                                           shipment.slot_payload):
+            if seq:
+                if fresh:
+                    # the unshared tail of the payload (a view), straight
+                    # into the fresh pages
+                    pool.index_copy_(1, dst_idx,
+                                     payload[:, len(shared):need].to(
+                                         pool.device))
+            else:
+                _set_col(pool, col, slot)
+        if self.share and tokens is not None:
+            self._pending_prompt[slot] = np.asarray(tokens).copy()
+            self.commit_prefix(slot)
+        self._mirror_row(slot)
+        return True
+
+    def _import_dense(self, slot: int, shipment: PageShipment) -> None:
+        """Recurrent families: no pages, only the slot columns (in place,
+        into the tensors the next step reads)."""
+        for pool, col in zip(self.store, shipment.slot_payload):
+            _set_col(pool, col, slot)
+
     # -- placement scoring -------------------------------------------------
     def bytes_per_page(self) -> int:
         """Bytes one physical page holds across all paged leaves and
@@ -1051,12 +1212,18 @@ def _gather_pool(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
     return g.reshape((l, b, nblk * ps) + tuple(g.shape[4:]))
 
 
-def _set_slot(pool: torch.Tensor, leaf: torch.Tensor, slot: int) -> None:
-    """Dense batch-axis rule: rank-1 leaves batch on axis 0, else 1."""
+def _set_col(pool: torch.Tensor, col: torch.Tensor, slot: int) -> None:
+    """Write one slot column in place.  Dense batch-axis rule: rank-1
+    leaves batch on axis 0, else 1."""
     if pool.ndim == 1:
-        pool[slot] = leaf[0]
+        pool[slot] = col
     else:
-        pool[:, slot] = leaf[:, 0]
+        pool[:, slot] = col
+
+
+def _set_slot(pool: torch.Tensor, leaf: torch.Tensor, slot: int) -> None:
+    """Write request 0 of the batch-1 ``leaf`` into ``slot``."""
+    _set_col(pool, leaf[0] if pool.ndim == 1 else leaf[:, 0], slot)
 
 
 def _write_pages(pool, leaf, idx, skip: int, need: int,

@@ -1,17 +1,42 @@
-"""The replica load report (the ``LoadReport`` of
-``repro.serving.replica_api``), and the ``PlacementReport`` of
-stack-aware placement.
+"""The replica contract (a copy of ``repro.serving.replica_api``): one
+interface for every replica the router drives.
 
-A replica is what a scheduler drives: ``admit(req) -> bool``,
-``tick()``, ``busy()``, ``load_report()`` and a ``requeue`` list of
-preempted requests.  The reference's ``Replica`` protocol also names the
-page-shipping methods of disaggregated serving; it is ported with the
-router and tiers slice.
+Three implementations stay interchangeable behind the :class:`Replica`
+protocol: the engines of ``repro_torch.serving.engine``, the analytic
+cluster mirror ``repro_torch.core.serving_sim._Replica`` (modeled clock,
+no tensors), and the stub replicas of the router's policy tests.
+
+Contract
+--------
+``admit(req) -> bool``
+    Try to start ``req``; ``False`` means no capacity right now, and the
+    replica has not changed ``req``.
+``tick() -> None``
+    One scheduling quantum: at most one prefill chunk plus one decode
+    iteration (or one fused horizon).
+``busy() -> bool``
+    Whether any request is resident (active or mid-prefill).
+``load_report() -> LoadReport``
+    Dispatch-time load signals (see :class:`LoadReport`).
+``requeue``
+    List of preempted requests awaiting re-admission; the scheduler
+    drains it ahead of fresh arrivals.
+``export_slot_pages(rid) -> PageShipment | None``
+    Prefill tier: package a finished prefill's KV pages, block-table row
+    and prefix coverage for shipment.  ``None``: still mid chunked
+    prefill, the caller retries.
+``import_slot_pages(shipment) -> bool``
+    Decode tier: splice a shipment into the local page pool.  ``False``:
+    no capacity, the caller retries or picks another target.
+
+:class:`LoadReport` and :class:`PlacementReport` are the typed reports;
+``to_dict()`` is the JSON/metrics boundary.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, Tuple
+from typing import (Any, Dict, List, Optional, Protocol, Tuple,
+                    runtime_checkable)
 
 
 @dataclass(frozen=True)
@@ -70,3 +95,27 @@ class PlacementReport:
                 "communal_pages": self.communal_pages,
                 "region_used": dict(self.region_used),
                 "region_free": dict(self.region_free)}
+
+
+#: methods every replica implementation defines (the reference's list)
+REPLICA_METHODS = ("admit", "tick", "busy", "load_report",
+                   "export_slot_pages", "import_slot_pages")
+
+
+@runtime_checkable
+class Replica(Protocol):
+    """Structural type for a routable replica (see module docstring)."""
+
+    requeue: List[Any]
+
+    def admit(self, req: Any) -> bool: ...
+
+    def tick(self) -> None: ...
+
+    def busy(self) -> bool: ...
+
+    def load_report(self) -> LoadReport: ...
+
+    def export_slot_pages(self, rid: int) -> Optional[Any]: ...
+
+    def import_slot_pages(self, shipment: Any) -> bool: ...

@@ -1,8 +1,10 @@
 """Package rules of the PyTorch port: it imports neither JAX nor the JAX
 package, asks for the card unless told otherwise, and its CLI serves on
-the CPU when asked and refuses flags whose features are not ported."""
+the CPU when asked, with every flag of the reference's CLI, and makes
+the reference's argument errors."""
 import ast
 import dataclasses
+import json
 import pathlib
 
 import pytest
@@ -119,19 +121,56 @@ def test_cli_prefix_sharing_requires_paged(capsys):
     assert "--prefix-sharing requires --paged" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flag", [["--replicas", "2"],
-                                  ["--tiers", "1:1"],
-                                  ["--trace-out", "t.json"]])
-def test_cli_refuses_unported_flags(flag, capsys):
-    with pytest.raises(SystemExit) as exc:
-        serve.main(["--device", "cpu", *flag])
-    assert exc.value.code == 2
-    assert f"{flag[0]} is not ported yet" in capsys.readouterr().err
-
-
-def test_cli_unported_keeps_only_the_cluster_and_export_flags():
-    assert set(serve.UNPORTED) == {"replicas", "router_policy", "tiers",
-                                   "trace_out"}
+@pytest.mark.parametrize("argv", [
+    ["--replicas", "2"],
+    ["--replicas", "2", "--router-policy", "prefix_affinity", "--paged",
+     "--prefix-sharing", "--shared-prefix", "8", "--groups", "2"],
+    ["--replicas", "2", "--router-policy", "least_loaded", "--paged",
+     "--prefill-chunk", "4"],
+    ["--replicas", "2", "--paged", "--tiers", "1:1"],
+    ["--replicas", "3", "--paged", "--tiers", "1:2", "--prefill-chunk",
+     "4", "--fuse-steps", "4", "--prefix-sharing", "--shared-prefix", "8"],
+    ["--trace-out", "TRACE"],
+    ["--replicas", "2", "--paged", "--tiers", "1:1", "--trace-out",
+     "TRACE"],
+], ids=["replicas", "prefix_affinity", "least_loaded", "tiers",
+        "tiers_fused_shared", "trace_out", "tiers_trace_out"])
+def test_cli_serves_cluster_and_export_flags(argv, tmp_path, capsys):
+    """The cluster, tier and trace flags serve on the CPU: the reference's
+    router metric keys, every request decoded, the shipments of a tiered
+    run, and the trace's two files beside the printed phase report."""
+    from repro.obs.metrics import ROUTER_METRIC_CONTRACT
+    trace = str(tmp_path / "serve.trace.json")
+    argv = [trace if a == "TRACE" else a for a in argv]
+    m = serve.main(["--device", "cpu", "--n-requests", "4", "--prompt-len",
+                    "12", "--max-new", "4", "--page-size", "8", "--pallas",
+                    "--rate", "1e9", *argv])
+    out = capsys.readouterr().out
+    assert m["requests"] == 4 and m["decoded_tokens"] == 16
+    replicas = int(argv[argv.index("--replicas") + 1]) \
+        if "--replicas" in argv else 1
+    if replicas > 1:
+        assert set(m) == set(ROUTER_METRIC_CONTRACT)
+        assert m["replicas"] == replicas == len(m["per_replica"])
+        assert f"[serve] yi-6b x{replicas}" in out
+        assert out.count("[serve]   replica ") == replicas
+    if "--tiers" in argv:
+        assert m["tiers"] == argv[argv.index("--tiers") + 1]
+        assert m["shipments"] == 4 and m["shipped_pages"] == 8
+        assert m["ship_cost_s"] > 0.0
+        assert m["per_replica"][0]["requests"] == 0
+    if "--prefix-sharing" in argv and "--tiers" not in argv:
+        assert m["dedup_ratio_agg"] > 1.0
+    if "--trace-out" in argv:
+        doc = json.loads(pathlib.Path(trace).read_text())
+        assert any(e["ph"] == "X" for e in doc["traceEvents"])
+        lines = pathlib.Path(trace + ".jsonl").read_text().splitlines()
+        kinds = {json.loads(line)["kind"] for line in lines}
+        assert {"arrival", "admit", "finish"} <= kinds
+        assert ("ship" in kinds) == ("--tiers" in argv)
+        assert ("dispatch" in kinds) == (replicas > 1)
+        assert f"-> {trace} (+ {trace}.jsonl)" in out
+        assert "[serve] phases: {'prefill_s'" in out
 
 
 @pytest.mark.parametrize("argv", [
@@ -173,13 +212,51 @@ def test_cli_serves_placement_and_codesign_on_cpu(argv, capsys):
     assert "[serve] yi-6b on cpu" in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("argv", [
+    [],
+    ["--paged", "--pallas", "--prefill-chunk", "8"],
+    ["--share", "--fuse-steps", "4", "--trace-out", "TRACE"],
+    ["--share", "--replicas", "2", "--trace-out", "TRACE"],
+], ids=["dense", "paged_chunked", "shared_fused_traced", "router_traced"])
+def test_serve_decode_runs_on_cpu(argv, tmp_path, capsys):
+    """The port of ``examples/serve_decode.py``: both families, or yi-6b
+    behind the router, every request decoded; the trace files written."""
+    from repro_torch.launch import serve_decode
+    trace = str(tmp_path / "sd.trace.json")
+    argv = [trace if a == "TRACE" else a for a in argv]
+    out = serve_decode.main(["--device", "cpu", "--n-requests", "3",
+                             "--rate", "1e9", *argv])
+    text = capsys.readouterr().out
+    if "--replicas" in argv:
+        assert set(out) == {"yi-6b"} and out["yi-6b"]["replicas"] == 2
+        assert "[serve_decode] yi-6b x2 (prefix_affinity)" in text
+    else:
+        assert set(out) == {"yi-6b", "rwkv6-7b"}
+    for m in out.values():
+        assert m["requests"] == 3 and m["decoded_tokens"] == 36
+    if "--trace-out" in argv:
+        assert pathlib.Path(trace).exists()
+        assert pathlib.Path(trace + ".jsonl").exists()
+        assert "[serve_decode] phases:" in text
+
+
 @pytest.mark.parametrize("argv,error", [
+    (["--replicas", "2", "--router-policy", "prefix_affinity", "--paged"],
+     "--router-policy prefix_affinity requires --prefix-sharing"),
+    (["--replicas", "2", "--tiers", "1:1"], "--tiers requires --paged"),
+    (["--replicas", "2", "--paged", "--tiers", "1-1"],
+     "--tiers must look like P:D"),
+    (["--replicas", "3", "--paged", "--tiers", "1:1"],
+     "--tiers 1:1 must sum to --replicas (3)"),
+    (["--replicas", "2", "--paged", "--tiers", "0:2"],
+     "--tiers needs at least one replica per tier"),
     (["--placement", "affinity"], "--placement requires --paged"),
     (["--codesign-rows", "16"], "--codesign-rows requires --codesign"),
     (["--reconfig-cost", "0.1"], "--reconfig-cost requires --codesign"),
     (["--codesign", "--reconfig-cost", "-1"],
      "--reconfig-cost must be >= 0"),
-], ids=["placement_paged", "rows_codesign", "cost_codesign",
+], ids=["affinity_sharing", "tiers_paged", "tiers_form", "tiers_sum",
+        "tiers_empty", "placement_paged", "rows_codesign", "cost_codesign",
         "cost_negative"])
 def test_cli_reproduces_reference_argument_errors(argv, error, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -225,32 +302,11 @@ def _reference_flags():
                    and str(a.value).startswith("--")})
 
 
-def _non_default(action):
-    """Arguments that give ``action`` a value other than its default."""
-    if action.nargs == 0:
-        return []
-    if action.choices:
-        return [str(next(c for c in action.choices if c != action.default))]
-    if action.type is int:
-        return ["2"]
-    if action.type is float:
-        return ["0.5"]
-    return ["x.json"]
-
-
 @pytest.mark.parametrize("flag", _reference_flags())
-def test_cli_knows_every_reference_flag(flag, capsys):
-    """Each flag of the reference's CLI is the port's: ported, or refused
-    with an error that names it."""
-    ap = serve.build_parser()
-    action = ap._option_string_actions.get(flag)
+def test_cli_knows_every_reference_flag(flag):
+    """Each flag of the reference's CLI is the port's."""
+    action = serve.build_parser()._option_string_actions.get(flag)
     assert action is not None, f"{flag} is unknown to the port's parser"
-    if action.dest not in serve.UNPORTED:
-        return
-    with pytest.raises(SystemExit) as exc:
-        serve.main(["--device", "cpu", flag, *_non_default(action)])
-    assert exc.value.code == 2
-    assert f"{flag} is not ported yet" in capsys.readouterr().err
 
 
 def test_cli_names_the_slice_of_every_reference_arch(capsys):
