@@ -187,6 +187,9 @@ SHARED_PREFIX, SHARED_TAIL, IDENTICAL_PROMPT = 768, 128, 777
 CLUSTER_TRACE = dict(rate_req_s=4.0, n_requests=8, n_groups=2,
                      prefix_len=SHARED_PREFIX, tail_len=SHARED_TAIL,
                      skew=0.8, seed=0)
+# the tiered run's decode-tier horizon, and runs of each cluster
+# configuration in one process (their spread is reported)
+CLUSTER_FUSE_STEPS, CLUSTER_REPEATS = 16, 3
 # export + import pairs timed at full width (one 896-token slot each)
 SHIP_PAIRS = 6
 # the 2-layer placed run: affinity over 2 regions of 7 pages with prefix
@@ -1324,14 +1327,15 @@ def _serve_cluster(entry, params, base, sched, kmods, smi, launches):
     sharing) on the grouped shared-prefix trace: a bare engine (the token
     baseline), 2 replicas under round_robin and under prefix_affinity
     (per tick), then tiers 1:1 with the decode tier fusing up to 16 steps
-    (every bucket captured before the run), traced and exported.  Every
-    run's tokens equal the baseline's; 8 shipments; the paged kernel
-    launched on every decoding replica (in the tiered run the decode
-    tier's, through its graph replays); the decode tier's pools at the
-    addresses they had before the imports; the trace's phases summing to
-    its makespan.  Then export + import pairs timed."""
-    from repro_torch.obs import (Tracer, export_perfetto, save_jsonl,
-                                 trace_report)
+    (every bucket captured before the run), traced and exported; the four
+    runs ``CLUSTER_REPEATS`` times over, with each metric's median and
+    spread.  Every run's tokens equal the first baseline's; 8 shipments;
+    the paged kernel launched on every decoding replica (in the tiered run
+    the decode tier's, through its graph replays); the decode tier's pools
+    at the addresses they had before the imports; the trace's phases
+    summing to its makespan.  Then export + import pairs timed."""
+    from repro_torch.launch.serve import dump_trace
+    from repro_torch.obs import Tracer
     from repro_torch.serving.engine import EngineConfig, make_engine
     from repro_torch.serving.router import make_cluster
     cfg = entry.config
@@ -1343,90 +1347,111 @@ def _serve_cluster(entry, params, base, sched, kmods, smi, launches):
                 max_seq=SHARED_PREFIX + SHARED_TAIL
                 + base["max_new_tokens"] + 2)
     n = CLUSTER_TRACE["n_requests"]
-    keep = ("tokens_per_s", "tbt_mean_s", "tbt_p99_s", "wall_s")
-    runs = {}
-    bare = make_engine(entry, EngineConfig(**ecfg), params=params)
-    t0 = time.perf_counter()       # the scheduler's origin, to within us
-    m, want, per = _cluster_run("yi-6b cluster bare", [bare],
-                                lambda: bare.run_trace(trace()), kmods,
-                                cfg.num_layers, launches)
-    if len(want) != n or any(len(t) != base["max_new_tokens"]
-                             for t, _ in want.values()):
-        raise AssertionError(f"bare run: {len(want)} of {n} requests")
-    # Router.metrics' e2e and aggregate dedup, for one replica
-    e2e = [r.finish_s - t0 - r.arrival_s for r in bare.completed]
-    runs["bare"] = dict(
-        {k: m[k] for k in keep}, ttft_mean_s=m["ttft_mean_s"],
-        e2e_p99_s=float(np.percentile(e2e, 99)),
-        dedup_ratio_agg=(m["kv_logical_peak_pages"]
-                         / (m["kv_peak_tokens"] // PAGE)),
-        launches_per_replica=per)
-    del bare
-    for policy in ("round_robin", "prefix_affinity"):
-        router = make_cluster(entry, EngineConfig(**ecfg), 2, policy=policy,
-                              params=params)
-        m, got, per = _cluster_run(f"yi-6b cluster {policy}",
-                                   router.engines,
-                                   lambda: router.run_trace(trace()), kmods,
-                                   cfg.num_layers, launches)
-        _same_streams(f"cluster {policy} vs bare", got, want)
-        if not all(per):
-            raise AssertionError(f"{policy}: a replica launched no paged "
-                                 f"kernel: {per}")
-        runs[policy] = dict({k: m[k] for k in keep + (
-            "e2e_p99_s", "dedup_ratio_agg")}, launches_per_replica=per,
-            requests_per_replica=[r["requests"] for r in m["per_replica"]])
-    tiered = make_cluster(entry, EngineConfig(**dict(ecfg,
-                                                     fuse_steps=PAGE)),
-                          2, tiers=(1, 1), params=params)
-    dec = tiered.engines[1]
-    t0 = time.perf_counter()
-    for k in range(1, PAGE.bit_length()):
-        dec._fused_fn(1 << k)
-    torch.cuda.synchronize()
-    capture_s = time.perf_counter() - t0
-    ptrs = [p.data_ptr() for p, seq in zip(dec.paged.store, dec.paged.is_seq)
-            if seq]
-    tracer = Tracer()
-    tiered.set_tracer(tracer)
-    m, got, per = _cluster_run("yi-6b cluster tiers 1:1 fused",
-                               tiered.engines,
-                               lambda: tiered.run_trace(trace()), kmods,
-                               cfg.num_layers, launches)
-    _same_streams("tiered 1:1 fused vs bare", got, want)
-    moved = [p.data_ptr() for p, seq in zip(dec.paged.store, dec.paged.is_seq)
-             if seq] != ptrs
-    replays = {n_: g.replays for n_, g in dec._fused_graphs.items()}
-    if (m["shipments"] != n or moved or per[0] != 0 or not per[1]
-            or not dec.fused_horizons or not sum(replays.values())
-            or tiered.engines[0].completed):
-        raise AssertionError(f"tiered run: shipments {m['shipments']}, "
-                             f"pools moved {moved}, launches {per}, "
-                             f"replays {replays}")
+    keep = ("tokens_per_s", "tbt_mean_s", "tbt_p99_s", "e2e_p99_s",
+            "wall_s")
+    runs = {k: [] for k in ("bare", "round_robin", "prefix_affinity",
+                            "tiers 1:1 fused")}
     out = Path(__file__).resolve().parent / "build"
     out.mkdir(exist_ok=True)
-    path = str(out / "chip_smoke_cluster.trace.json")
-    export_perfetto(tracer.events, path)
-    save_jsonl(tracer.events, path + ".jsonl")
-    rep = trace_report(tracer.events)
-    phases = sum(rep["phases"].values())
-    if abs(phases - rep["makespan_s"]) > 1e-9 * max(1.0, rep["makespan_s"]) \
-            or rep["events"].get("ship") != n:
-        raise AssertionError(f"trace report off: {rep}")
-    runs["tiers 1:1 fused"] = dict(
-        {k: m[k] for k in keep + ("e2e_p99_s", "dedup_ratio_agg",
-                                  "shipments", "shipped_pages",
-                                  "ship_cost_s")},
-        launches_per_replica=per, capture_s=capture_s,
-        fused_horizons=len(dec.fused_horizons), replays=replays,
-        decode_pools_unmoved=not moved)
-    del tiered, dec
+    want, reports = None, []
+    for rep in range(CLUSTER_REPEATS):
+        tag = f" #{rep + 1}" if rep else ""
+        bare = make_engine(entry, EngineConfig(**ecfg), params=params)
+        t0 = time.perf_counter()       # the scheduler's origin, to within us
+        m, got, per = _cluster_run("yi-6b cluster bare" + tag, [bare],
+                                   lambda: bare.run_trace(trace()), kmods,
+                                   cfg.num_layers, launches)
+        if want is None:
+            want = got
+            if len(want) != n or any(len(t) != base["max_new_tokens"]
+                                     for t, _ in want.values()):
+                raise AssertionError(f"bare run: {len(want)} of {n} "
+                                     f"requests")
+        _same_streams(f"bare{tag} vs bare", got, want)
+        # Router.metrics' e2e and aggregate dedup, for one replica
+        e2e = [r.finish_s - t0 - r.arrival_s for r in bare.completed]
+        runs["bare"].append(dict(
+            {k: m[k] for k in keep if k in m}, ttft_mean_s=m["ttft_mean_s"],
+            e2e_p99_s=float(np.percentile(e2e, 99)),
+            dedup_ratio_agg=(m["kv_logical_peak_pages"]
+                             / (m["kv_peak_tokens"] // PAGE)),
+            launches_per_replica=per))
+        del bare
+        _free()
+        for policy in ("round_robin", "prefix_affinity"):
+            router = make_cluster(entry, EngineConfig(**ecfg), 2,
+                                  policy=policy, params=params)
+            m, got, per = _cluster_run(f"yi-6b cluster {policy}{tag}",
+                                       router.engines,
+                                       lambda: router.run_trace(trace()),
+                                       kmods, cfg.num_layers, launches)
+            _same_streams(f"cluster {policy}{tag} vs bare", got, want)
+            if not all(per):
+                raise AssertionError(f"{policy}: a replica launched no "
+                                     f"paged kernel: {per}")
+            runs[policy].append(dict(
+                {k: m[k] for k in keep + ("dedup_ratio_agg",)},
+                launches_per_replica=per,
+                requests_per_replica=[r["requests"]
+                                      for r in m["per_replica"]]))
+            del router
+            _free()
+        tiered = make_cluster(
+            entry, EngineConfig(**dict(ecfg, fuse_steps=CLUSTER_FUSE_STEPS)),
+            2, tiers=(1, 1), params=params)
+        dec = tiered.engines[1]
+        t0 = time.perf_counter()
+        for k in range(1, CLUSTER_FUSE_STEPS.bit_length()):
+            dec._fused_fn(1 << k)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        ptrs = [p.data_ptr() for p, seq in zip(dec.paged.store,
+                                               dec.paged.is_seq) if seq]
+        tracer = Tracer()
+        tiered.set_tracer(tracer)
+        m, got, per = _cluster_run(f"yi-6b cluster tiers 1:1 fused{tag}",
+                                   tiered.engines,
+                                   lambda: tiered.run_trace(trace()), kmods,
+                                   cfg.num_layers, launches)
+        _same_streams(f"tiered 1:1 fused{tag} vs bare", got, want)
+        moved = [p.data_ptr() for p, seq in zip(dec.paged.store,
+                                                dec.paged.is_seq)
+                 if seq] != ptrs
+        replays = {n_: g.replays for n_, g in dec._fused_graphs.items()}
+        if (m["shipments"] != n or moved or per[0] != 0 or not per[1]
+                or not dec.fused_horizons or not sum(replays.values())
+                or tiered.engines[0].completed):
+            raise AssertionError(f"tiered run: shipments {m['shipments']}, "
+                                 f"pools moved {moved}, launches {per}, "
+                                 f"replays {replays}")
+        path = str(out / f"chip_smoke_cluster{rep + 1}.trace.json")
+        rep_ = dump_trace(tracer.events, path, tag="smoke")
+        phases = sum(rep_["phases"].values())
+        if abs(phases - rep_["makespan_s"]) > 1e-9 * max(
+                1.0, rep_["makespan_s"]) or rep_["events"].get("ship") != n:
+            raise AssertionError(f"trace report off: {rep_}")
+        reports.append(dict(rep_, trace_file=path, prefill_share=(
+            rep_["phases"]["prefill_s"] / rep_["makespan_s"])))
+        runs["tiers 1:1 fused"].append(dict(
+            {k: m[k] for k in keep + ("dedup_ratio_agg", "shipments",
+                                      "shipped_pages", "ship_cost_s")},
+            launches_per_replica=per, capture_s=capture_s,
+            fused_horizons=len(dec.fused_horizons), replays=replays,
+            decode_pools_unmoved=not moved))
+        del tiered, dec
+        _free()
+    spread = {name: {k: {"median": statistics.median(r[k] for r in rs),
+                         "max_over_min": (max(r[k] for r in rs)
+                                          / min(r[k] for r in rs))}
+                     for k in keep}
+              for name, rs in runs.items()}
     prompt = trace()[0].prompt
     ship = _ship_pair_ms(entry, params, ecfg, prompt)
     print("[serve] cluster " + json.dumps({
-        "trace": CLUSTER_TRACE, "runs": runs,
+        "trace": CLUSTER_TRACE, "repeats": CLUSTER_REPEATS, "runs": runs,
+        "spread": spread,
         "tokens_identical": sum(len(t) for t, _ in want.values()),
-        "trace_report": rep, "trace_file": path, "ship": ship,
+        "trace_reports": reports, "ship": ship,
         "note": "replicas share one card and tick in turn",
         "card": smi}))
     _free()

@@ -83,9 +83,8 @@ class PageShipment:
     * ``cost_s`` / ``bytes_on_wire`` — the priced cross-stack movement
       (:func:`~repro_torch.core.noc.page_ship`), charged once at export.
 
-    The engine layer annotates ``req`` (the live request), ``next_tok``
-    (the first decoded token, produced on the prefill tier) and
-    ``src`` / ``dst`` replica ids.
+    The engine layer annotates ``req`` (the live request) and
+    ``next_tok`` (the first decoded token, produced on the prefill tier).
     """
 
     n_tokens: int
@@ -99,8 +98,6 @@ class PageShipment:
     # engine-layer annotations (router handoff)
     req: Any = None
     next_tok: int = -1
-    src: int = -1
-    dst: int = -1
 
 
 # ---------------------------------------------------------------------------

@@ -346,9 +346,8 @@ class Router:
         }
 
 
-def make_cluster(entry, ecfg, n_replicas: int, tp: int = 1,
+def make_cluster(entry, ecfg, n_replicas: int,
                  policy: str = "round_robin",
-                 share_compiled: bool = True,
                  tiers: Optional[Tuple[int, int]] = None,
                  params: Optional[Dict[str, Any]] = None) -> Router:
     """Build N identical engine replicas behind a :class:`Router`.
@@ -356,10 +355,9 @@ def make_cluster(entry, ecfg, n_replicas: int, tp: int = 1,
     Each replica gets its own ``EngineConfig`` copy (the paged engine
     adopts the page-rounded ``max_seq`` in place), its own page pool,
     slots and fused-graph cache.  ``params`` are the weights (default:
-    ``entry.module.init`` seeded with 0, as ``make_engine``); with
-    ``share_compiled`` the first replica's weights and its prefill /
-    decode / extend callables serve every replica, so the weights sit on
-    the device once.
+    ``entry.module.init`` seeded with 0, as ``make_engine``); the first
+    replica's weights serve every replica, so they sit on the device
+    once.
 
     ``tiers=(P, D)`` disaggregates the cluster (``P + D == n_replicas``;
     requires a paged config: page shipping moves block-table rows).
@@ -368,14 +366,8 @@ def make_cluster(entry, ecfg, n_replicas: int, tp: int = 1,
     if tiers is not None and not ecfg.paged:
         raise ValueError("tiers requires a paged EngineConfig "
                          "(page shipping moves KV pages)")
-    first = make_engine(entry, replace(ecfg), tp=tp, params=params)
-    engines = [first]
-    for _ in range(n_replicas - 1):
-        eng = make_engine(entry, replace(ecfg), tp=tp,
-                          params=first.params if share_compiled else params)
-        if share_compiled:
-            eng._prefill = first._prefill
-            eng._decode = first._decode
-            eng._extend = first._extend
-        engines.append(eng)
+    first = make_engine(entry, replace(ecfg), params=params)
+    engines = [first] + [make_engine(entry, replace(ecfg),
+                                     params=first.params)
+                         for _ in range(n_replicas - 1)]
     return Router(engines, policy=policy, tiers=tiers)

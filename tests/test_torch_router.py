@@ -321,20 +321,22 @@ def test_prefix_affinity_dedup_at_least_round_robin(weights):
 
 
 def test_cluster_shares_weights_and_nothing_else(weights):
-    """One set of weights and step callables; every replica its own
-    pool, slots and fused-graph cache."""
+    """One set of weights, given or made by the first replica; every
+    replica its own pool, slots and fused-graph cache."""
     router = TRT.make_cluster(
         TR.get("yi-6b", reduced=True),
         TE.EngineConfig(device="cpu", fuse_steps=4, **ENG_KW), 3,
         params=weights)
     a, b, c = router.engines
     assert a.params is b.params is c.params is weights
-    assert a._decode is b._decode and a._extend is c._extend
     assert a.ecfg is not b.ecfg
     pools = [[p.data_ptr() for p in e.paged.store] for e in router.engines]
     assert len({tuple(p) for p in pools}) == 3
     assert a._fused_graphs is not b._fused_graphs
     assert len(router.schedulers) == 3
+    made = TRT.make_cluster(TR.get("yi-6b", reduced=True),
+                            TE.EngineConfig(device="cpu", **ENG_KW), 2)
+    assert made.engines[0].params is made.engines[1].params
 
 
 def test_run_workload_eos_aware_finish_reasons(weights):
