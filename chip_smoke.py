@@ -139,6 +139,24 @@ Phases, one line each; any failure raises and exits non-zero:
              counter is set to 0 just before each run and read just after
              it; the decode GEMM is not wired into any model (as in the
              reference), so its count on these runs is 0.
+5. train   — the training path (no kernel of the port is on it: the
+             reference's kernels have no backward): the train step of
+             ``launch.steps`` on the card against the same step on the
+             host CPU, reduced yi-6b and qwen3-30b-a3b in float32 (TF32
+             off), the same port-initialized parameters on both, 5 steps
+             of TokenPipeline batches (global batch 4, seq 64): losses
+             within 1e-4 and gradient norms within 1e-3, relative; then
+             stablelm-3b at full width and depth in bf16 through
+             ``launch.train.train`` (global batch 8, seq 512, 8 steps):
+             finite losses, the last below the first; its parameters,
+             peak allocated memory, median step time with max/min over
+             steps 2-8, tokens/s, the FLOP bound of a step (6 x matmul
+             parameters x tokens plus the causal attention, at 989
+             TFLOP/s bf16) and the step's share of it, the busy share of
+             one profiled step and the step's two halves (gradients,
+             update) between CUDA events; then reduced stablelm-3b's
+             exact resume (10 steps, against 6 and a resume from the
+             checkpoint: final losses within 1e-4).  Prints its time.
 
 The last three lines are the kernels' JSON, the card's name and power
 limit as nvidia-smi reports them, and the result JSON.  Exits non-zero
@@ -149,6 +167,7 @@ from __future__ import annotations
 import gc
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -220,6 +239,11 @@ WKV_SWEEP_T = (1, 8, 32, 48, 64, 96, 128, 512, 1024)
 # rwkv6-7b's decode products at a batch of 4: (M, N, K), IS then OS twice
 GEMM_SHAPES = [(4, 14336, 4096), (4, 4096, 14336), (4, 4096, 4096)]
 GEMM_SPLITS = (1, 2, 3, 4, 5, 6, 8, 12, 16, 17, 18, 24, 32, 48, 64)
+# the train phase: card-vs-host parity of the train step (reduced, f32),
+# and the full-width run (arch, global batch, seq, steps)
+TRAIN_PARITY_STEPS, TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 5, 4, 64
+TRAIN_PARITY_OCFG = dict(lr=1e-3, warmup_steps=2, total_steps=10)
+TRAIN_FULL = ("stablelm-3b", 8, 512, 8)
 
 
 def card() -> str:
@@ -1727,6 +1751,178 @@ def _serve_qwen3(registry, sched, kmods, smi, base, trace, launches):
     _free()
 
 
+def _train_parity(registry, steps_mod, axw, pipeline):
+    """The train step on the card against the same step on the host CPU:
+    reduced yi-6b and qwen3-30b-a3b in float32 (TF32 off), the same
+    port-initialized parameters on both, TRAIN_PARITY_STEPS steps of
+    TokenPipeline batches; per-step losses within 1e-4 and gradient
+    norms within 1e-3, relative."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for arch in ("yi-6b", "qwen3-30b-a3b"):
+        entry = registry.get(arch, reduced=True)
+        ocfg = axw.AdamWConfig(**TRAIN_PARITY_OCFG)
+        data = pipeline.TokenPipeline(pipeline.DataConfig(
+            vocab=entry.config.vocab, seq_len=TRAIN_PARITY_SEQ,
+            global_batch=TRAIN_PARITY_BATCH))
+        host = entry.module.init(entry.config, device="cpu", seed=0)
+        curves = {}
+        for dev in ("cpu", "cuda"):
+            # a copy on each side: the step trains its parameters in place
+            params = _tree_map(host, lambda t: t.to(dev, copy=True))
+            opt = axw.init(params, ocfg)
+            step = steps_mod.make_train_step(entry, ocfg)
+            curve = []
+            for i in range(TRAIN_PARITY_STEPS):
+                batch = {k: v for k, v in data.batch_at(i).items()
+                         if k != "mask"}
+                params, opt, m = step(params, opt, batch)
+                curve.append((float(m["loss"]), float(m["grad_norm"])))
+            curves[dev] = curve
+        for i, ((lc, gc), (lg, gg)) in enumerate(zip(curves["cpu"],
+                                                     curves["cuda"])):
+            if not (np.isfinite(lg) and abs(lg - lc) <= 1e-4 * abs(lc)
+                    and abs(gg - gc) <= 1e-3 * abs(gc)):
+                raise AssertionError(
+                    f"{arch} train step {i}: card loss {lg} / grad norm "
+                    f"{gg} against the host's {lc} / {gc}")
+        out[arch] = {"loss_card": [l for l, _ in curves["cuda"]],
+                     "loss_cpu": [l for l, _ in curves["cpu"]],
+                     "max_loss_rel_err": max(
+                         abs(a[0] - b[0]) / abs(b[0])
+                         for a, b in zip(curves["cuda"], curves["cpu"])),
+                     "max_grad_norm_rel_err": max(
+                         abs(a[1] - b[1]) / abs(b[1])
+                         for a, b in zip(curves["cuda"], curves["cpu"]))}
+    print("[train] parity card vs cpu " + json.dumps(out))
+
+
+def _train_bound_ms(cfg, params, batch: int, seq: int) -> dict:
+    """The step's least time on the card: 6 x the matmul parameters x
+    tokens (forward, and backward at twice that) plus the causal
+    attention's products (QK^T and PV over the S(S+1)/2 pairs each query
+    sees, forward and backward), at the bf16 tensor rate."""
+    blocks = _leaves(params["blocks"])
+    n_matmul = sum(t.numel() for t in blocks if t.dim() == 3)
+    n_matmul += cfg.padded_vocab(1) * cfg.d_model            # the head
+    tokens = batch * seq
+    attn = 3 * 4 * batch * cfg.num_q_heads * cfg.d_head \
+        * seq * (seq + 1) // 2 * cfg.num_layers
+    flops = 6 * n_matmul * tokens + attn
+    return {"n_matmul": n_matmul, "model_flops": flops,
+            "bound_ms": flops / BF16_FLOP_PER_S * 1e3}
+
+
+def _train_full(registry, steps_mod, train_mod, profile_mod, axw, pipeline,
+                smi):
+    """stablelm-3b at full width and depth, bf16, through
+    ``launch.train.train``: finite losses that fall, and its step time,
+    tokens/s, peak memory and share of the FLOP bound; then one step of
+    the same trainer's step function under ``torch.profiler`` for the
+    card's busy share."""
+    arch, batch, seq, steps = TRAIN_FULL
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    out = train_mod.train(arch, steps=steps, global_batch=batch, seq=seq,
+                          ckpt_dir=None, reduced=False, log_every=1,
+                          device="cuda")
+    peak = torch.cuda.max_memory_allocated()
+    losses = out["losses"]
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"{arch} full-width losses {losses}")
+    timed = out["step_s"][1:]                 # steps 2-8: warm
+    med = statistics.median(timed)
+    entry = registry.get(arch)
+    params = entry.module.init(entry.config, device="cuda", seed=0)
+    n_params = sum(t.numel() for t in _leaves(params))
+    bound = _train_bound_ms(entry.config, params, batch, seq)
+    # one warm step, then one profiled, of the trainer's step function
+    ocfg = axw.AdamWConfig(total_steps=max(steps, 10),
+                           warmup_steps=min(20, steps))
+    opt = axw.init(params, ocfg)
+    step = steps_mod.make_train_step(entry, ocfg)
+    data = pipeline.TokenPipeline(pipeline.DataConfig(
+        vocab=entry.config.vocab, seq_len=seq, global_batch=batch))
+    params, opt, _ = step(params, opt, train_mod.model_batch(
+        entry.config, data, 0))
+    torch.cuda.synchronize()
+    b1 = train_mod.model_batch(entry.config, data, 1)
+    prof = profile_mod._profile(lambda: step(params, opt, b1),
+                                torch.device("cuda"))
+    # the step's two halves between CUDA events: loss and gradients
+    # (forward, recompute, backward), then the AdamW update
+    b2 = steps_mod._on(train_mod.model_batch(entry.config, data, 2), "cuda")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    _, grads = steps_mod._grads(entry.module, entry.config, params, b2, 1)
+    ev[1].record()
+    axw.update(axw.tree_unflatten(params, grads), opt, params, ocfg)
+    ev[2].record()
+    torch.cuda.synchronize()
+    del grads
+    print(f"[train] {arch} full width " + json.dumps({
+        "parameters": n_params, "batch": batch, "seq": seq,
+        "dtype": entry.config.dtype, "losses": losses,
+        "max_memory_allocated_gb": peak / 1e9,
+        "step_ms_median": med * 1e3, "step_ms_max": max(timed) * 1e3,
+        "step_ms_min": min(timed) * 1e3, "first_step_ms":
+        out["step_s"][0] * 1e3,
+        "tokens_per_s": batch * seq / med,
+        "matmul_parameters": bound["n_matmul"],
+        "model_flops": bound["model_flops"],
+        "bound_ms": bound["bound_ms"],
+        "share_of_bound": bound["bound_ms"] / (med * 1e3),
+        "profiled_step_wall_ms": prof["wall_ms"],
+        "profiled_step_device_busy_ms": prof["device_busy_ms"],
+        "device_busy_share": prof["device_busy_ms"] / prof["wall_ms"],
+        "device_ms_by_kind": prof["device_ms_by_kind"],
+        "grads_ms": ev[0].elapsed_time(ev[1]),
+        "update_ms": ev[1].elapsed_time(ev[2]),
+        "top_device_ops": prof["top"], "card": smi}))
+    del params, opt, step
+    _free()
+
+
+def _train_resume(train_mod):
+    """Reduced stablelm-3b on the card, as the reference's
+    ``test_train_resume_is_exact`` runs it: 10 steps, then 6 and a
+    resume from the checkpoint; the final losses within 1e-4."""
+    ckpt = Path(__file__).resolve().parent / "build" / "train_resume"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    kw = dict(steps=10, global_batch=2, seq=32, log_every=100, seed=3,
+              device="cuda")
+    a = train_mod.train("stablelm-3b", ckpt_dir=None, **kw)
+    train_mod.train("stablelm-3b", stop_step=6, ckpt_dir=str(ckpt),
+                    save_every=6, **kw)
+    b = train_mod.train("stablelm-3b", ckpt_dir=str(ckpt), save_every=100,
+                        **kw)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    if b["steps"] != 4 or not abs(b["final_loss"] - a["final_loss"]) \
+            <= 1e-4 * abs(a["final_loss"]):
+        raise AssertionError(f"resume: {b['steps']} steps to "
+                             f"{b['final_loss']} against {a['final_loss']}")
+    print("[train] resume " + json.dumps({
+        "uninterrupted_final_loss": a["final_loss"],
+        "resumed_final_loss": b["final_loss"], "resumed_steps": b["steps"]}))
+
+
+def phase_train(registry, smi):
+    """The training path on the card; no kernel of the port is on it (the
+    reference's kernels have no backward, and it trains without them)."""
+    from repro_torch.data import pipeline
+    from repro_torch.launch import profile_step as profile_mod
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim import adamw as axw
+    t0 = time.perf_counter()
+    _train_parity(registry, steps_mod, axw, pipeline)
+    _train_full(registry, steps_mod, train_mod, profile_mod, axw, pipeline,
+                smi)
+    _train_resume(train_mod)
+    print(f"[train] phase {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -1752,6 +1948,7 @@ def main() -> None:
     rows = phase_kernels(fd, ref) + phase_kernels_rwkv(wk, sg, ref)
     phase_parity(registry, sched)
     launches = phase_serve(registry, sched, (fd, wk, sg), smi)
+    phase_train(registry, smi)
     for row in rows:
         # the decode GEMM is on no serving path: every serve run above
         # asserted its counts stayed 0

@@ -131,39 +131,45 @@ def _layer(params: Params, stack: str, li: int) -> Params:
 # Encoder / decoder
 # ---------------------------------------------------------------------------
 def encode(params: Params, cfg: ArchConfig, frames: torch.Tensor,
-           tp: int = 1) -> torch.Tensor:
+           tp: int = 1, remat: bool = False) -> torch.Tensor:
     """frames: (B, F, d_model) precomputed embeddings (frontend stub) ->
     (B, F, d_model) in the dtype the frames promote to with the
-    weights."""
+    weights.  ``remat`` recomputes each layer in backward (the
+    reference's per-layer ``jax.checkpoint``)."""
     hq, hkv = cfg.padded_heads(tp)
     b, f, d = frames.shape
     x = frames + _sinusoid(f, d, frames.device)[None].to(frames.dtype)
     x = x.to(torch.promote_types(x.dtype, L._dtype(cfg.dtype)))
-    for li in range(cfg.encoder_layers):
-        lp = _promoted(_layer(params, "enc", li), x.dtype)
+
+    def block(x, lp):
+        lp = _promoted(lp, x.dtype)
         h = L.apply_norm("layernorm", lp["ln1"], x)
         q, k, v = L.qkv_project(lp["attn"], h, hq, hkv, cfg.d_head)
         a = L.blocked_attention(q, k, v, causal=False, q_block=min(512, f),
                                 kv_block=min(512, f))
         x = x + a.reshape(b, f, hq * cfg.d_head) @ lp["attn"]["wo"]
         h = L.apply_norm("layernorm", lp["ln2"], x)
-        x = x + L.apply_ffn(lp["ffn"], h, "gelu")
+        return x + L.apply_ffn(lp["ffn"], h, "gelu")
+
+    for lp in L.unstack(params["enc"]):
+        x = L.remat(block, x, lp) if remat else block(x, lp)
     return L.apply_norm("layernorm", params["ln_enc"], x)
 
 
 def _decoder_seq(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
-                 enc_out: torch.Tensor, tp: int, collect_cache: bool = False):
+                 enc_out: torch.Tensor, tp: int, collect_cache: bool = False,
+                 remat: bool = False):
     """The decoder over the whole sequence; returns (final-normed hidden,
-    (self_k, self_v, cross_k, cross_v) stacked over layers | None)."""
+    (self_k, self_v, cross_k, cross_v) stacked over layers | None).
+    ``remat`` recomputes each layer in backward."""
     hq, hkv = cfg.padded_heads(tp)
     dh = cfg.d_head
     b, s = tokens.shape
     f = enc_out.shape[1]
     x = L.embed(params["embed"], tokens) + \
         params["pos_dec"][None, :s].to(L._dtype(cfg.dtype))
-    caches = []
-    for li in range(cfg.num_layers):
-        lp = _layer(params, "dec", li)
+
+    def block(x, lp):
         sa, xa = lp["self_attn"], lp["cross_attn"]
         h = L.apply_norm("layernorm", lp["ln1"], x)
         q, k, v = L.qkv_project(sa, h, hq, hkv, dh)
@@ -178,13 +184,29 @@ def _decoder_seq(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
                                  q_block=min(512, s), kv_block=min(512, f))
         x = x + ax.reshape(b, s, hq * dh) @ xa["wo"]
         h = L.apply_norm("layernorm", lp["ln2"], x)
-        x = x + L.apply_ffn(lp["ffn"], h, "gelu")
+        return x + L.apply_ffn(lp["ffn"], h, "gelu"), (k, v, kx, vx)
+
+    caches = []
+    for lp in L.unstack(params["dec"]):
+        x, kv = L.remat(block, x, lp) if remat else block(x, lp)
         if collect_cache:
-            caches.append((k, v, kx, vx))
+            caches.append(kv)
     out = None
     if collect_cache:
         out = tuple(torch.stack(leaf) for leaf in zip(*caches))
     return L.apply_norm("layernorm", params["ln_f"], x), out
+
+
+def loss(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
+         tp: int = 1) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch`` (``frames``,
+    ``tokens``, ``labels``, optional ``mask``), the encoder and the
+    decoder both recomputed per layer in backward."""
+    enc_out = encode(params, cfg, batch["frames"], tp=tp, remat=True)
+    h, _ = _decoder_seq(params, cfg, batch["tokens"], enc_out, tp,
+                        remat=True)
+    return L.lm_loss_chunked(params["embed"], h, batch["labels"],
+                             batch.get("mask"))
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 Params = Dict[str, Any]
 
@@ -396,3 +397,72 @@ def unembed(p: Params, h: torch.Tensor) -> torch.Tensor:
     if w is None:
         w = p["table"].T
     return h @ w
+
+
+# ---------------------------------------------------------------------------
+# Training helpers
+# ---------------------------------------------------------------------------
+def unstack(tree: Params) -> list:
+    """A stacked tree (leading layer axis on every leaf) as one dict of
+    views per layer.  Each leaf is unbound once, so a backward pass
+    stacks the layers' gradients into the leaf's in one copy, where a
+    per-layer ``select`` would add a full-size gradient per layer."""
+    def unbind(t):
+        return {k: unbind(v) for k, v in t.items()} \
+            if isinstance(t, dict) else t.unbind(0)
+
+    def take(t, i):
+        return {k: take(v, i) for k, v in t.items()} \
+            if isinstance(t, dict) else t[i]
+
+    first = tree
+    while isinstance(first, dict):
+        first = next(iter(first.values()))
+    parts = unbind(tree)
+    return [take(parts, i) for i in range(first.shape[0])]
+
+
+def remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in backward instead of
+    saved (the reference's ``jax.checkpoint``) when autograd records."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _chunk_ce(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+              mask: torch.Tensor):
+    logits = h.float() @ w
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    ce = (lse - gold) * mask
+    return ce.sum(), mask.sum()
+
+
+def lm_loss_chunked(p_embed: Params, h: torch.Tensor, labels: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None,
+                    chunk: int = 512) -> torch.Tensor:
+    """Mean masked cross-entropy over the head without materializing
+    (B, S, V) logits: the sequence is walked in chunks whose float32
+    (B, chunk, V) logits are recomputed in backward."""
+    b, s, _ = h.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of the loss "
+                         f"chunk {chunk}")
+    w = p_embed.get("head")
+    if w is None:
+        w = p_embed["table"].T
+    w = w.float()
+    labels = labels.long()
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.float32, device=h.device)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, s, chunk):
+        part = slice(c0, c0 + chunk)
+        ce, n = remat(_chunk_ce, h[:, part], w, labels[:, part],
+                      mask[:, part].float())
+        tot = tot + ce
+        cnt = cnt + n
+    return tot / torch.clamp(cnt, min=1.0)

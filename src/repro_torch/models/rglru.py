@@ -138,11 +138,12 @@ def _take(tree: Params, *idx) -> Params:
 
 def _rec_layers(params: Params, cfg: ArchConfig):
     """The recurrent layers' parameters in state order: the groups' two
-    layers each, then the tail."""
+    layers each, then the tail (unbound once per leaf, see
+    ``layers.unstack``)."""
     groups, tail = _pattern_counts(cfg)
-    out = [_take(params["rec_groups"], g, i)
-           for g in range(groups) for i in range(2)]
-    return out + [_take(params["rec_tail"], t) for t in range(tail)]
+    out = [lp for gp in (L.unstack(params["rec_groups"]) if groups else [])
+           for lp in L.unstack(gp)]
+    return out + (L.unstack(params["rec_tail"]) if tail else [])
 
 
 # ---------------------------------------------------------------------------
@@ -227,10 +228,12 @@ def _attn_block_seq(cfg: ArchConfig, lp: Params, x: torch.Tensor,
 
 
 def _layers_seq(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
-                tp: int):
+                tp: int, remat: bool = False):
     """Every layer over the whole sequence from a zero state: the
     final-normed hidden states, each attention layer's (k, v) and each
-    recurrent layer's (h_S, conv lookback), in state order."""
+    recurrent layer's (h_S, conv lookback), in state order.  ``remat``
+    recomputes each (rec, rec, attn) group in backward (the reference's
+    per-group ``jax.checkpoint``; the tail is not checkpointed)."""
     hq, hkv = cfg.padded_heads(tp)
     groups, _ = _pattern_counts(cfg)
     x = L.embed(params["embed"], tokens)
@@ -241,15 +244,23 @@ def _layers_seq(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     conv0 = torch.zeros((b, cfg.conv_width - 1, w), dtype=x.dtype,
                         device=x.device)
     rec = _rec_layers(params, cfg)
+    attn = L.unstack(params["attn_groups"]) if groups else []
+
+    def group(x, g):
+        x, h1, c1 = _rec_block_seq(cfg, rec[2 * g], x, h0, conv0)
+        x, h2, c2 = _rec_block_seq(cfg, rec[2 * g + 1], x, h0, conv0)
+        x, k, v = _attn_block_seq(cfg, attn[g], x, positions, hq, hkv)
+        return x, k, v, h1, c1, h2, c2
+
     kvs, states = [], []
-    for j, lp in enumerate(rec):
+    for g in range(groups):
+        x, k, v, h1, c1, h2, c2 = L.remat(group, x, g) if remat \
+            else group(x, g)
+        kvs.append((k, v))
+        states += [(h1, c1), (h2, c2)]
+    for lp in rec[2 * groups:]:
         x, h_last, conv = _rec_block_seq(cfg, lp, x, h0, conv0)
         states.append((h_last, conv))
-        if j < 2 * groups and j % 2:        # a group's attention layer
-            x, k, v = _attn_block_seq(cfg, _take(params["attn_groups"],
-                                                 j // 2),
-                                      x, positions, hq, hkv)
-            kvs.append((k, v))
     return L.apply_norm(cfg.norm, params["ln_f"], x), kvs, states
 
 
@@ -257,14 +268,23 @@ def _layers_seq(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
 # Entry points
 # ---------------------------------------------------------------------------
 def forward_seq(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
-                tp: int = 1):
+                tp: int = 1, remat: bool = True):
     """tokens (B, S) -> (hidden (B, S, d), (k, v) stacked over the
     attention layers)."""
-    x, kvs, _ = _layers_seq(params, cfg, tokens, tp)
+    x, kvs, _ = _layers_seq(params, cfg, tokens, tp, remat)
     if not kvs:
         return x, None
     return x, (torch.stack([k for k, _ in kvs]),
                torch.stack([v for _, v in kvs]))
+
+
+def loss(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
+         tp: int = 1) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch`` (``tokens``,
+    ``labels``, optional ``mask``)."""
+    h, _ = forward_seq(params, cfg, batch["tokens"], tp=tp)
+    return L.lm_loss_chunked(params["embed"], h, batch["labels"],
+                             batch.get("mask"))
 
 
 def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor,

@@ -15,7 +15,8 @@ run each layer over the whole sequence at once: the norms, token shift
 and projections are (B*T, d) products, and the recurrence is one call of
 ``wkv_fn`` over T (``kernels.ref.wkv6_ref`` by default; the engine passes
 the WKV6 kernel).  Decode is the same with T = 1.  The new state is
-written into the ``RWKVState`` tensors that were passed in, in place.
+written into the ``RWKVState`` tensors that were passed in, in place;
+``loss`` runs the same layers from a zero state and writes nothing.
 """
 from __future__ import annotations
 
@@ -141,9 +142,12 @@ def _shifted(prev: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
 
 
 def _time_mix(cfg: ArchConfig, lp: Params, h: torch.Tensor,
-              prev: torch.Tensor, wkv: torch.Tensor, wkv_fn):
+              prev: torch.Tensor, wkv0: torch.Tensor, wkv_fn,
+              state_out: Optional[torch.Tensor]):
     """The time-mix block over a whole sequence.  h, prev: (B, T, d);
-    the layer's recurrence state ``wkv`` is advanced in place."""
+    the recurrence starts from ``wkv0`` and its final state is written
+    into ``state_out`` when one is given (serving passes the layer's own
+    state, advancing it in place)."""
     b, t, d = h.shape
     hs = cfg.rwkv_head_size
     heads = d // hs
@@ -155,7 +159,7 @@ def _time_mix(cfg: ArchConfig, lp: Params, h: torch.Tensor,
     wd = lp["w_decay"]
     w = wd["w0"] + (torch.tanh(xw @ wd["a"]) @ wd["b"]).float()
     w = torch.exp(-torch.exp(w)).reshape(b, t, heads, hs)  # decay in (0,1)
-    y, _ = wkv_fn(r, k, v, w, lp["u_bonus"], wkv, wkv)
+    y, _ = wkv_fn(r, k, v, w, lp["u_bonus"], wkv0, state_out)
     y = _group_norm(lp["gn"], y.reshape(b * t, d), heads).reshape(b, t, d)
     return (y.to(g.dtype) * g) @ lp["wo"]
 
@@ -169,20 +173,30 @@ def _channel_mix(lp: Params, h: torch.Tensor,
     return torch.sigmoid(xr @ lp["wr"]) * k
 
 
+def _block(cfg: ArchConfig, lp: Params, x: torch.Tensor, tm0: torch.Tensor,
+           cm0: torch.Tensor, wkv0: torch.Tensor, wkv_fn,
+           state_out: Optional[torch.Tensor] = None):
+    """One layer over x (B, T, d) from the shift inputs ``tm0`` / ``cm0``
+    (B, d) and recurrence state ``wkv0``; returns (x, the time-mix and
+    channel-mix inputs of the last token)."""
+    h = L.apply_norm("layernorm", lp["ln1"], x)
+    x1 = x + _time_mix(cfg, lp, h, _shifted(tm0, h), wkv0, wkv_fn,
+                       state_out)
+    h2 = L.apply_norm("layernorm", lp["cm"]["ln"], x1)
+    x = x1 + _channel_mix(lp["cm"], h2, _shifted(cm0, h2))
+    return x, h[:, -1], h2[:, -1]
+
+
 def _layers(params: Params, cfg: ArchConfig, x: torch.Tensor,
             state: RWKVState, wkv_fn) -> torch.Tensor:
     """Every layer over x (B, T, d), updating ``state`` in place; returns
     the final-normed hidden states."""
     wkv_fn = wkv_fn or ref.wkv6_ref
     for li in range(cfg.num_layers):
-        lp = layer_params(params, li)
-        h = L.apply_norm("layernorm", lp["ln1"], x)
-        x1 = x + _time_mix(cfg, lp, h, _shifted(state.tm_x[li], h),
-                           state.wkv[li], wkv_fn)
-        h2 = L.apply_norm("layernorm", lp["cm"]["ln"], x1)
-        x = x1 + _channel_mix(lp["cm"], h2, _shifted(state.cm_x[li], h2))
-        state.tm_x[li] = h[:, -1]
-        state.cm_x[li] = h2[:, -1]
+        wkv = state.wkv[li]             # advanced in place by wkv_fn
+        x, state.tm_x[li], state.cm_x[li] = _block(
+            cfg, layer_params(params, li), x, state.tm_x[li],
+            state.cm_x[li], wkv, wkv_fn, wkv)
     return L.apply_norm("layernorm", params["ln_f"], x)
 
 
@@ -203,6 +217,34 @@ def forward_seq(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
         state = RWKVState.zeros(cfg, x.shape[0], device=x.device)
     h = _layers(params, cfg, x, state, wkv_fn)
     return h, state._replace(lengths=state.lengths + tokens.shape[1])
+
+
+def loss(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
+         tp: int = 1) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch`` (``tokens``,
+    ``labels``, optional ``mask``).
+
+    The layers run from a zero state and write nothing: each layer's
+    activations are recomputed in backward (the reference's per-layer
+    ``jax.checkpoint``), and a recomputed layer must see the state it
+    saw the first time.  The recurrence is the plain ``wkv6_ref``, as
+    the reference trains through its ``lax.scan`` (the kernel has no
+    backward)."""
+    x = L.embed(params["embed"], batch["tokens"])
+    b, _, d = x.shape
+    hs = cfg.rwkv_head_size
+    shift0 = x.new_zeros((b, d))
+    wkv0 = torch.zeros((b, d // hs, hs, hs), dtype=torch.float32,
+                       device=x.device)
+
+    def layer(x, lp):
+        return _block(cfg, lp, x, shift0, shift0, wkv0, ref.wkv6_ref)[0]
+
+    for lp in L.unstack(params["blocks"]):
+        x = L.remat(layer, x, lp)
+    h = L.apply_norm("layernorm", params["ln_f"], x)
+    return L.lm_loss_chunked(params["embed"], h, batch["labels"],
+                             batch.get("mask"))
 
 
 def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor,

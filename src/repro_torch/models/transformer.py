@@ -3,7 +3,8 @@
 
 ``init`` builds the reference's stacked-parameter tree (layer dim
 leading; ``moe`` in place of ``ffn`` when the config has experts) as
-torch tensors; ``prefill`` / ``extend_step`` /
+torch tensors; ``loss`` is the training objective (autograd through
+``forward_seq`` with per-block recomputation); ``prefill`` / ``extend_step`` /
 ``decode_step`` / ``decode_step_paged`` walk the layers in a Python loop,
 and ``decode_fused_paged`` loops ``decode_step_paged`` over a horizon.
 Where the reference threads caches and pools through ``lax`` loops and
@@ -122,32 +123,52 @@ def _qkv_rope(cfg: ArchConfig, lp: Params, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Forward (prefill)
+# Forward (training / prefill)
 # ---------------------------------------------------------------------------
 def forward_seq(params: Params, cfg: ArchConfig,
                 tokens: Optional[torch.Tensor],
                 positions: Optional[torch.Tensor] = None,
                 embeds: Optional[torch.Tensor] = None, tp: int = 1,
-                collect_cache: bool = False):
+                collect_cache: bool = False, remat: bool = True):
     """Full-sequence forward over ``tokens`` or precomputed ``embeds``
-    (B, S, d).  Returns (hidden, (k_stack, v_stack) | None)."""
+    (B, S, d).  Returns (hidden, (k_stack, v_stack) | None).
+
+    ``remat`` recomputes each block's activations in backward instead of
+    saving them (the reference's per-block ``jax.checkpoint``); it only
+    acts while autograd records, and serving passes ``remat=False`` as
+    the reference's ``prefill`` does."""
     hq, hkv = cfg.padded_heads(tp)
     x = embeds if embeds is not None else L.embed(params["embed"], tokens)
     b, s, _ = x.shape
     if positions is None:
         positions = _positions(cfg, 0, s, b, x.device)
-    ks, vs = [], []
-    for li in range(cfg.num_layers):
-        lp = layer_params(params, li)
+
+    def block(x, lp):
         q, k, v = _qkv_rope(cfg, lp, x, positions, hq, hkv)
         attn = L.blocked_attention(q, k, v, causal=True)
-        x = _attn_ffn_tail(cfg, lp, x, attn)
+        return _attn_ffn_tail(cfg, lp, x, attn), k, v
+
+    ks, vs = [], []
+    for lp in L.unstack(params["blocks"]):
+        x, k, v = L.remat(block, x, lp) if remat else block(x, lp)
         if collect_cache:
             ks.append(k)
             vs.append(v)
     x = L.apply_norm(cfg.norm, params["ln_f"], x)
     kv = (torch.stack(ks), torch.stack(vs)) if collect_cache else None
     return x, kv
+
+
+def loss(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
+         tp: int = 1) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch`` (``tokens`` or the
+    VLM's ``embeds``, ``labels``, optional ``mask`` and
+    ``positions``)."""
+    h, _ = forward_seq(params, cfg, batch.get("tokens"),
+                       positions=batch.get("positions"),
+                       embeds=batch.get("embeds"), tp=tp)
+    return L.lm_loss_chunked(params["embed"], h, batch["labels"],
+                             batch.get("mask"))
 
 
 def prefill(params: Params, cfg: ArchConfig,
@@ -167,7 +188,7 @@ def prefill(params: Params, cfg: ArchConfig,
             and embeds is None:
         return _prefill_chunked(params, cfg, tokens, tp, max_seq, chunk)
     h, (k, v) = forward_seq(params, cfg, tokens, embeds=embeds, tp=tp,
-                            collect_cache=True)
+                            collect_cache=True, remat=False)
     if max_seq is not None and max_seq > s:
         pad = (0, 0, 0, 0, 0, max_seq - s)
         k = torch.nn.functional.pad(k, pad)

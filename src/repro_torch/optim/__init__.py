@@ -1,0 +1,1 @@
+"""See the ``repro`` package for the reference of each module."""

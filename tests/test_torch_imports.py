@@ -7,6 +7,8 @@ import dataclasses
 import json
 import pathlib
 
+import numpy as np
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -380,3 +382,47 @@ def test_profile_step_runs_hybrid_and_audio_on_cpu(arch, capsys):
     assert out["weight_bytes_per_step"] > 0 and out["cache_bytes_per_step"] > 0
     assert out["moe_layer"] is None
     assert f'"arch": "{arch}"' in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# The training entry points
+# ---------------------------------------------------------------------------
+def test_train_defaults_to_the_card():
+    from repro_torch.launch import train
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the default device is usable")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.train("yi-6b", steps=1, global_batch=2, seq=32, ckpt_dir=None)
+
+
+def test_train_cli_trains_on_cpu(tmp_path, capsys):
+    from repro_torch.launch import train
+    out = train.main(["--device", "cpu", "--arch", "yi-6b", "--steps", "4",
+                      "--global-batch", "2", "--seq", "32", "--ckpt-dir",
+                      str(tmp_path)])
+    assert out["steps"] == 4 and np.isfinite(out["final_loss"])
+    assert "[train] done" in capsys.readouterr().out
+    assert (tmp_path / "step_0000000004" / "manifest.json").exists()
+
+
+@pytest.mark.parametrize("flag", ["--data", "--model"])
+def test_train_cli_refuses_a_mesh(flag, capsys):
+    from repro_torch.launch import train
+    with pytest.raises(SystemExit) as exc:
+        train.main(["--device", "cpu", flag, "2"])
+    assert exc.value.code == 2
+    assert "item 9" in capsys.readouterr().err
+
+
+def test_quickstart_and_train_lm_run_on_cpu(tmp_path, capsys):
+    from repro_torch.launch import quickstart, train_lm
+    gen = quickstart.main(["--device", "cpu"])
+    assert np.asarray(gen).shape == (2, 4)
+    out = train_lm.main(["--device", "cpu", "--steps", "6", "--seq", "32",
+                         "--ckpt-dir", str(tmp_path)])
+    assert out["final_loss"] < out["first_loss"]
+    text = capsys.readouterr().out
+    assert "SNAKE speedup vs MAC tree" in text and "size=10m" in text
+    # the custom size resolved through the registry only while it ran
+    with pytest.raises(KeyError):
+        registry.get("lm-10m")
