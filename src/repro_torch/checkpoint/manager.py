@@ -143,7 +143,7 @@ class CheckpointManager:
             shutil.rmtree(os.path.join(self.dir, f"step_{s:010d}"),
                           ignore_errors=True)
 
-    # ---- restore --------------------------------------------------------------
+    # ---- restore ------------------------------------------------------------
     def all_steps(self):
         out = []
         for d in os.listdir(self.dir):

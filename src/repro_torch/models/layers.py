@@ -8,7 +8,9 @@ and page pools ``(P+1, page, Hkv, D)`` with scratch page ``P``.  Norms,
 rope and attention compute in float32 and cast back, as the reference
 does.  The MoE layer is the reference's single-device dispatch (one
 chunk; the expert-parallel ``shard_map`` form arrives with the
-distribution slice).
+distribution slice).  ``lm_loss_chunked``, ``unstack`` and ``remat`` are
+the training helpers: the chunked loss, one unbind of every stacked
+leaf per forward, and per-block recomputation in backward.
 """
 from __future__ import annotations
 
@@ -138,7 +140,7 @@ def qkv_project(p: Params, x: torch.Tensor, hq: int, hkv: int, dh: int):
 
 
 # ---------------------------------------------------------------------------
-# Blocked causal attention (prefill)
+# Blocked causal attention (training / prefill)
 # ---------------------------------------------------------------------------
 def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: int = 0,

@@ -47,18 +47,37 @@ def _leaves_by_key(step_dir):
 
 
 def test_reference_checkpoint_restores_and_trains_on_in_port(tmp_path):
-    """The reference stops at step 3; the port restores its checkpoint
-    (same keys, same values) and trains steps 3-5 to the reference's
-    uninterrupted loss."""
+    """The reference stops at step 3, and its manager writes that step
+    again with one bf16 leaf beside the float32 tree; the port restores
+    it (same keys, same values, the bf16 leaf bit for bit) and trains
+    steps 3-5 to the reference's uninterrupted loss."""
     full = JT.train("yi-6b", ckpt_dir=None, **RUN)
     JT.train("yi-6b", ckpt_dir=str(tmp_path), stop_step=3, **RUN)
-    step_dir = tmp_path / "step_0000000003"
-    files, man = _leaves_by_key(step_dir)
-    tree, extra = TM(str(tmp_path)).restore(3, _like(), device="cpu")
+    entry = JT.registry.get("yi-6b", reduced=True)
+
+    def jlike():
+        params = entry.module.init(jax.random.PRNGKey(0), entry.config)
+        return {"params": params,
+                "opt": JT.axw.init(params, JT.axw.AdamWConfig())}
+
+    mgr = JM(str(tmp_path))
+    jtree, jextra = mgr.restore(3, jax.eval_shape(jlike))
+    ema = jnp.asarray(np.random.default_rng(0).standard_normal((4, 8)),
+                      jnp.bfloat16)
+    mgr.save(3, dict(jtree, ema=ema), extra=jextra)
+    files, man = _leaves_by_key(tmp_path / "step_0000000003")
+    assert man["leaves"]["ema"]["dtype"] == "bfloat16"
+    like = dict(_like(), ema=torch.zeros((4, 8), dtype=torch.bfloat16))
+    tree, extra = TM(str(tmp_path)).restore(3, like, device="cpu")
     flat = {"/".join(p): t for p, t in _walk(tree)}
     assert sorted(flat) == sorted(files)
     assert extra["next_step"] == 3
     for key, arr in files.items():
+        if key == "ema":
+            assert flat[key].dtype == torch.bfloat16
+            np.testing.assert_array_equal(flat[key].view(torch.int16).numpy(),
+                                          arr.view(np.int16))
+            continue
         assert flat[key].dtype == torch.from_numpy(arr).dtype, key
         np.testing.assert_array_equal(flat[key].numpy(), arr)
     out = TT.train("yi-6b", ckpt_dir=str(tmp_path), device="cpu", **RUN)
