@@ -139,7 +139,40 @@ Phases, one line each; any failure raises and exits non-zero:
              counter is set to 0 just before each run and read just after
              it; the decode GEMM is not wired into any model (as in the
              reference), so its count on these runs is 0.
-5. train   — the training path (no kernel of the port is on it: the
+5. dist    — the distribution layer (``repro_torch.distributed``,
+             ``launch.mesh``, ``launch.steps.build_cell``): first the
+             flash-decode partial entry (``ops.attention_decode_partial``,
+             acc / l / m of one context shard, un-normalised) against
+             its plain version (``layers.decode_attention_core``) on
+             every shard of yi-6b's decode shape (B=4, Hq=32, Hkv=4,
+             D=128, lengths 768-778 over 800 positions) split 2 and 4
+             ways (acc / l, l and m each within the tolerance), of a split that leaves shards empty for some lanes
+             (acc = l = m = 0 exactly there) and of a ragged one, in
+             bf16 (2e-2) and float32 (2e-5), each shard set also
+             combined by the log-sum-exp rule against flash_decode_ref
+             on the whole cache; the partial timed at the first shard of
+             the 2-way and the 4-way split beside its bytes bound.  Then (a) an in-process NCCL group
+             of world size 1, mesh (1, 1): full-width, full-depth yi-6b
+             in bf16, the prefill step (96-token prompts, B=4, into a
+             128-deep cache) and build_cell's serve step with the
+             sequence-sharded attention give the unsharded prefill's and
+             decode_step's (flash-decode kernel) greedy tokens over 16
+             decode steps, bitwise; both steps' median times and the
+             partial kernel's launches (16 x 32, counted from 0).  The
+             ranks below hold float32 weights (TF32 off), where sharding
+             changes only float32 rounding (bf16 greedy tokens of a
+             random-weight model do not survive it).  (b) two ranks
+             spawned on the one card (gloo, mesh (1, 2)), yi-6b at full
+             width and depth: the tokens of the unsharded port in this
+             process.  (c) four ranks (gloo, mesh (2, 2)),
+             qwen3-30b-a3b at full width and 4 of its 48 layers: the
+             expert-parallel MoE, and the tokens of the same model run in
+             this one process under the mesh description (the same
+             per-chunk capacities).  Each rank draws the full weights in
+             turn and keeps its shards.  A failed rank fails the phase;
+             times of ranks sharing one card are correctness runs and
+             measure no collective bandwidth.
+6. train   — the training path (no kernel of the port is on it: the
              reference's kernels have no backward): the train step of
              ``launch.steps`` on the card against the same step on the
              host CPU, reduced yi-6b and qwen3-30b-a3b in float32 (TF32
@@ -244,6 +277,22 @@ GEMM_SPLITS = (1, 2, 3, 4, 5, 6, 8, 12, 16, 17, 18, 24, 32, 48, 64)
 TRAIN_PARITY_STEPS, TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 5, 4, 64
 TRAIN_PARITY_OCFG = dict(lr=1e-3, warmup_steps=2, total_steps=10)
 TRAIN_FULL = ("stablelm-3b", 8, 512, 8)
+# the dist phase: B prompts of DIST_PROMPT tokens into a DIST_SEQ-deep
+# cache, then DIST_STEPS greedy decode steps; the kernel check's cases
+# (global lengths over a cache of cap positions, split P ways)
+DIST_BATCH, DIST_PROMPT, DIST_SEQ, DIST_STEPS = 4, 96, 128, 16
+DIST_CASES = [("serve split 2", SERVE_LENGTHS, SERVE_CAP, 2),
+              ("serve split 4", SERVE_LENGTHS, SERVE_CAP, 4),
+              ("empty shards", [0, 100, 300, 800], 800, 4),
+              ("ragged", [1, 17, 255, 999], 1000, 4)]
+# the multi-rank runs hold float32 weights with TF32 off: a bf16 model's
+# greedy tokens do not survive the re-association sharding brings (two
+# ranks of bf16 yi-6b left three of four lanes within 3-7 steps on the
+# H100), while float32 changes only float32 rounding.  qwen3-30b-a3b on
+# four ranks: full width, this many of its 48 layers, so each rank's
+# float32 shard (6.2 GB) stays under the reference's FSDP residency rule
+DIST_QWEN3_LAYERS = 4
+DIST_TIMEOUT_S = 600
 
 
 def card() -> str:
@@ -1751,6 +1800,354 @@ def _serve_qwen3(registry, sched, kmods, smi, base, trace, launches):
     _free()
 
 
+def _partial_case(fd, ref, gen, lengths, cap, p, dtype):
+    """``fd.flash_decode_partial`` on each of the ``p`` context shards of
+    one set of inputs against ``ref.flash_decode_partial_ref``; the
+    shards combined by the log-sum-exp rule against flash_decode_ref on
+    the whole cache; empty lanes exactly 0.  Returns the max |err| and
+    the first shard's inputs."""
+    x = _fd_inputs(gen, lengths, cap, dtype=dtype)
+    q, k, v, glob = x["q"], x["k"], x["v"], x["lengths"]
+    tol = KERNEL_TOL if dtype == torch.bfloat16 else F32_KERNEL_TOL
+    sl = cap // p
+    parts, err, first = [], 0.0, None
+    for i in range(p):
+        ks, vs = (t[:, i * sl:(i + 1) * sl].contiguous() for t in (k, v))
+        local = (glob - i * sl).clamp(0, sl).to(torch.int32)
+        got = fd.flash_decode_partial(q, ks, vs, local)
+        want = ref.flash_decode_partial_ref(q, ks, vs, local)
+        # acc is un-normalised (a sum of up to S/P weighted rows), so it
+        # is held as acc / l, the shard's attention output, at the
+        # kernel tolerance; l and m as they are
+        norm = [a / torch.clamp(l, min=1e-20)[..., None] for a, l, _ in
+                (got, want)]
+        for name, g, w in (("acc / l", *norm), ("l", got[1], want[1]),
+                           ("m", got[2], want[2])):
+            err = max(err, _check(f"flash_decode_partial {name} shard {i}"
+                                  f"/{p} lengths {local.tolist()}", g, w,
+                                  tol))
+        empty = local == 0
+        if any((t[empty] != 0).any() for t in got):
+            raise AssertionError("flash_decode_partial: an empty shard's "
+                                 "acc / l / m is not 0")
+        parts.append(got)
+        first = first or (q, ks, vs, local)
+    m_max = torch.stack([m for _, _, m in parts]).amax(0)
+    acc = sum(a * torch.exp(m - m_max)[..., None] for a, _, m in parts)
+    l_sum = sum(l * torch.exp(m - m_max) for _, l, m in parts)
+    out = (acc / torch.clamp(l_sum, min=1e-20)[..., None]).reshape(q.shape)
+    err = max(err, _check(f"combined partials lengths {glob.tolist()}",
+                          out.to(q.dtype), ref.flash_decode_ref(q, k, v,
+                                                                glob), tol))
+    return err, first
+
+
+def _partial_timed(fd, ref, q, ks, vs, local):
+    """The partial's time at one shard beside its bound and its plain
+    version's time (no PyTorch call computes acc / l / m)."""
+    b, hq, d = q.shape
+    hkv = ks.shape[2]
+    ctx = int(local.sum())
+    nbytes = (q.numel() * 2 + 2 * ctx * hkv * d * 2 + b * 4
+              + (b * hq * d + 2 * b * hq) * 4)
+    bound, by = _bound(nbytes, 4 * hq * d * ctx, BF16_FLOP_PER_S)
+    return {"ms": time_ms(lambda: fd.flash_decode_partial(q, ks, vs, local)),
+            "plain_ms": time_ms(lambda: ref.flash_decode_partial_ref(
+                q, ks, vs, local)),
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "shape": {"B": b, "Hq": hq, "Hkv": hkv, "D": d,
+                      "shard": ks.shape[1], "lengths": local.tolist(),
+                      "dtype": "bfloat16"}}
+
+
+def _partial_row(fd, ref):
+    """The partial entry's checks (every DIST_CASES case in bf16 and
+    float32) and its row, timed at the serve shape's first shard split 2
+    ways (the two-rank run's shard) and 4 ways."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    errs, timed = {}, []
+    for label, lengths, cap, p in DIST_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            err, first = _partial_case(fd, ref, gen, lengths, cap, p, dtype)
+            errs[f"{label} {str(dtype)[6:]}"] = err
+            if label.startswith("serve") and dtype == torch.bfloat16:
+                timed.append(_partial_timed(fd, ref, *first))
+    return {"name": "flash_decode_partial", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+            "replaces": "src/repro/kernels/flash_decode.py:169",
+            "launches": None, "max_abs_err": max(errs.values()),
+            **{k: timed[0][k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")},
+            "cases": timed, "cases_max_abs_err": errs}
+
+
+def _greedy(prefill, step, vocab):
+    """(tokens (B, 1 + DIST_STEPS), prefill seconds, step seconds): the
+    prefill's argmax, then DIST_STEPS steps fed their own argmax."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill()
+    tok = logits[:, :vocab].argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    toks, times = [tok], []
+    for _ in range(DIST_STEPS):
+        t0 = time.perf_counter()
+        logits, cache = step(cache, tok)
+        tok = logits[:, :vocab].argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        toks.append(tok)
+    return torch.stack(toks, 1), pre_s, times
+
+
+def _dist_prompts(vocab):
+    return torch.from_numpy(np.random.default_rng(7).integers(
+        0, vocab, (DIST_BATCH, DIST_PROMPT)).astype(np.int32))
+
+
+def _dist_cells(entry, mesh, tp):
+    """The prefill step (the prompt into a DIST_SEQ-deep cache) and
+    build_cell's serve cell with the sequence-sharded attention."""
+    from repro_torch.launch import steps
+    from repro_torch.models.config import ShapeCell
+    cell, _ = steps.build_cell(
+        entry, mesh, ShapeCell("dist", DIST_SEQ, DIST_BATCH, "decode"),
+        seq_sharded_attn=True)
+    prefill = steps.make_prefill_step(
+        entry, tp, mesh, max_seq=DIST_SEQ,
+        shape=ShapeCell("dist", DIST_SEQ, DIST_BATCH, "prefill"))
+    return cell, prefill
+
+
+def _sharded_run(entry, params_l, cell, prefill, mesh, fd):
+    """The sharded prefill + serve loop on this rank's shards: (the
+    tokens gathered, prefill s, step s, launches in the run)."""
+    from repro_torch.distributed import sharding as S
+    rows = cell.in_specs[2] + (None,)
+    prompts = S.shard_tensor(_dist_prompts(entry.config.vocab).cuda(), rows,
+                             mesh)
+    fd.reset_launches()
+    toks, pre_s, step_s = _greedy(
+        lambda: prefill(params_l, {"tokens": prompts}),
+        lambda cache, tok: cell.step(params_l, cache, tok),
+        entry.config.vocab)
+    launches = dict(fd.LAUNCHES)
+    return S.gather_tensor(toks, rows, mesh), pre_s, step_s, launches
+
+
+def _unsharded_run(entry, params, tp, mesh=None):
+    """The port's unsharded prefill and decode_step (flash-decode kernel)
+    on the same prompts; under ``mesh`` (a description) where given."""
+    from repro_torch.distributed import context
+    from repro_torch.kernels import ops
+    mod, cfg = entry.module, entry.config
+    prompts = _dist_prompts(cfg.vocab).cuda()
+    with context.use_mesh(mesh):
+        return _greedy(
+            lambda: mod.prefill(params, cfg, prompts, tp=tp,
+                                max_seq=DIST_SEQ),
+            lambda cache, tok: mod.decode_step(
+                params, cfg, tok, cache, tp=tp,
+                attn_fn=ops.attention_decode),
+            cfg.vocab)
+
+
+def _dist_entry(registry, arch, layers):
+    over = {"dtype": "float32"}
+    if layers:
+        over["num_layers"] = layers
+    return registry.get(arch, **over)
+
+
+def _dist_rank(rank, world, port, arch, layers, shape, out):
+    """One spawned rank: gloo over CUDA tensors on the one card, the
+    mesh bound; the ranks draw the full float32 parameters from the seed
+    one at a time and keep their shards; then the sharded run.  Writes
+    its result to ``out``."""
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as S
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import registry
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = M.bind(M.make_mesh(shape, ("data", "model")), "cuda")
+        entry = _dist_entry(registry, arch, layers)
+        tp = mesh.shape["model"]
+        cell, prefill = _dist_cells(entry, mesh, tp)
+        params_l = None
+        for turn in range(world):
+            if turn == rank:
+                full = entry.module.init(entry.config, tp, device="cuda",
+                                         seed=0)
+                params_l = S.shard_tree(full, cell.in_specs[0], mesh)
+                del full
+                torch.cuda.empty_cache()
+            dist.barrier()
+        toks, pre_s, step_s, launches = _sharded_run(
+            entry, params_l, cell, prefill, mesh, fd)
+        Path(out.format(rank)).write_text(json.dumps({
+            "tokens": toks.tolist(), "prefill_s": pre_s,
+            "step_median_s": statistics.median(step_s),
+            "launches": launches,
+            "gather_by_reduce": mesh.gather_by_reduce,
+            "held_gb": torch.cuda.memory_allocated() / 1e9}))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_ranks(label, world, arch, layers, shape):
+    """``world`` ranks of ``_dist_rank`` (start method spawn); a rank that
+    raises, or a run past DIST_TIMEOUT_S, fails the phase.  Returns each
+    rank's result."""
+    import socket
+
+    import torch.multiprocessing as mp
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_dist"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    out = str(out_dir / f"{label}-rank{{}}.json")
+    ctx = mp.start_processes(_dist_rank, args=(world, port, arch, layers,
+                                               shape, out),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + DIST_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"[dist] {label}: ranks still running "
+                                   f"after {DIST_TIMEOUT_S} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join()
+    return [json.loads(Path(out.format(r)).read_text())
+            for r in range(world)]
+
+
+def _world_one(registry, fd, smi):
+    """(a): an in-process NCCL group of world size 1, bf16 yi-6b."""
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as M
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = M.bind(M.make_mesh((1, 1), ("data", "model")), "cuda")
+        entry, params = _init_full(registry, "yi-6b")
+        base, base_pre, base_steps = _unsharded_run(entry, params, 1)
+        cell, prefill = _dist_cells(entry, mesh, 1)
+        from repro_torch.distributed import sharding as S
+        params_l = S.shard_tree(params, cell.in_specs[0], mesh)
+        toks, pre_s, step_s, launches = _sharded_run(
+            entry, params_l, cell, prefill, mesh, fd)
+    finally:
+        dist.destroy_process_group()
+    want = entry.config.num_layers * DIST_STEPS
+    if not torch.equal(toks.cpu(), base.cpu()):
+        raise AssertionError(f"[dist] world size 1: sharded tokens "
+                             f"{toks.tolist()} != unsharded "
+                             f"{base.tolist()}")
+    if launches["flash_decode_partial"] != want:
+        raise AssertionError(f"[dist] world size 1: flash_decode_partial "
+                             f"launched {launches['flash_decode_partial']} "
+                             f"times, want {want}")
+    print("[dist] (a) yi-6b bf16 world size 1 (nccl, mesh (1, 1)) "
+          + json.dumps({
+              "tokens_identical": toks.numel(), "prompt": DIST_PROMPT,
+              "cache": DIST_SEQ, "batch": DIST_BATCH,
+              "sharded_prefill_ms": pre_s * 1e3,
+              "sharded_serve_step_median_ms":
+                  statistics.median(step_s) * 1e3,
+              "unsharded_prefill_ms": base_pre * 1e3,
+              "unsharded_decode_step_median_ms":
+                  statistics.median(base_steps) * 1e3,
+              "launches": launches, "card": smi}))
+    del params, params_l
+    _free()
+    return launches["flash_decode_partial"]
+
+
+def _single_process(registry, arch, layers, tp, mesh=None):
+    """The float32 model's unsharded tokens in this process (the same
+    seed as the ranks' parameters), under ``mesh`` (a description) where
+    given."""
+    entry = _dist_entry(registry, arch, layers)
+    params = entry.module.init(entry.config, tp, device="cuda", seed=0)
+    toks, _, _ = _unsharded_run(entry, params, tp, mesh)
+    del params
+    _free()
+    return toks.cpu()
+
+
+def _check_ranks(label, results, want, per_rank):
+    for r, res in enumerate(results):
+        if res["tokens"] != want.tolist():
+            raise AssertionError(f"[dist] {label} rank {r}: tokens "
+                                 f"{res['tokens']} != {want.tolist()}")
+        if res["launches"]["flash_decode_partial"] != per_rank:
+            raise AssertionError(
+                f"[dist] {label} rank {r}: flash_decode_partial launched "
+                f"{res['launches']['flash_decode_partial']} times, want "
+                f"{per_rank}")
+
+
+def phase_dist(registry, fd, ref, smi):
+    """The distribution layer on the card; returns the partial entry's
+    kernel row (launches by run)."""
+    from repro_torch.launch import mesh as M
+    t0 = time.perf_counter()
+    row = _partial_row(fd, ref)
+    print("[dist] flash_decode_partial " + json.dumps(
+        {**row, "card": smi}))
+    launches_a = _world_one(registry, fd, smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yi = registry.get_config("yi-6b")
+    base = _single_process(registry, "yi-6b", 0, 2)
+    two = _spawn_ranks("yi-6b-1x2", 2, "yi-6b", 0, (1, 2))
+    _check_ranks("(b) yi-6b 2 ranks", two, base,
+                 yi.num_layers * DIST_STEPS)
+    # (c)'s single-process run: under the (2, 2) description, so the MoE
+    # caps each data chunk and runs each model rank's experts in turn
+    qbase = _single_process(registry, "qwen3-30b-a3b", DIST_QWEN3_LAYERS,
+                            2, M.make_mesh((2, 2), ("data", "model")))
+    four = _spawn_ranks("qwen3-30b-a3b-2x2", 4, "qwen3-30b-a3b",
+                        DIST_QWEN3_LAYERS, (2, 2))
+    _check_ranks("(c) qwen3-30b-a3b 4 ranks", four, qbase,
+                 DIST_QWEN3_LAYERS * DIST_STEPS)
+    for label, results in (
+            ("(b) yi-6b float32, 2 ranks, mesh (1, 2)", two),
+            (f"(c) qwen3-30b-a3b float32, {DIST_QWEN3_LAYERS} layers, 4 "
+             f"ranks, mesh (2, 2)", four)):
+        print(f"[dist] {label} on one card (gloo; correctness runs, no "
+              f"collective bandwidth) " + json.dumps({
+                  "tokens_identical": len(results[0]["tokens"])
+                  * len(results[0]["tokens"][0]),
+                  "gloo_all_gather_on_cuda": not results[0][
+                      "gather_by_reduce"],
+                  "ranks": results, "card": smi}))
+    row["launches_by_run"] = {
+        "yi-6b world 1": launches_a,
+        "yi-6b 2 ranks": sum(r["launches"]["flash_decode_partial"]
+                             for r in two),
+        "qwen3-30b-a3b 4 ranks": sum(r["launches"]["flash_decode_partial"]
+                                     for r in four)}
+    row["launches"] = sum(row["launches_by_run"].values())
+    print(f"[dist] phase {time.perf_counter() - t0:.1f} s")
+    return row
+
+
 def _train_parity(registry, steps_mod, axw, pipeline):
     """The train step on the card against the same step on the host CPU:
     reduced yi-6b and qwen3-30b-a3b in float32 (TF32 off), the same
@@ -1948,6 +2345,7 @@ def main() -> None:
     rows = phase_kernels(fd, ref) + phase_kernels_rwkv(wk, sg, ref)
     phase_parity(registry, sched)
     launches = phase_serve(registry, sched, (fd, wk, sg), smi)
+    dist_row = phase_dist(registry, fd, ref, smi)
     phase_train(registry, smi)
     for row in rows:
         # the decode GEMM is on no serving path: every serve run above
@@ -1955,6 +2353,7 @@ def main() -> None:
         by_run = launches.get(row["name"], {})
         row["launches"] = sum(by_run.values())
         row["launches_by_run"] = by_run
+    rows.append(dist_row)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -16,10 +16,11 @@ Everything here is calibrated to the paper's §6.1/§6.2 setup:
 * Logic-die power envelope 62 W (85C cap): 38.5 W matrix, 14.2 W vector,
   4.4 W PE control, 4.8 W NoC at peak -> used to calibrate energy constants.
 
-This is the port's copy of the reference's ``core/hw.py``.  It leaves out
-the reference's TPU constants: only its TPU roofline and mesh planner read
-them, and those belong to the distribution slice.  The port states no TPU
-number.
+This is the port's copy of the reference's ``core/hw.py``.  The TPU v5e
+constants at the bottom are the reference's model inputs, copied as they
+are: the partition planner (``repro_torch.distributed.planner``) prices
+its collectives with ``TPU_V5E_ICI_BW``.  They describe no card the port
+runs on, and no measurement of the port is stated against them.
 """
 from __future__ import annotations
 
@@ -288,6 +289,13 @@ class GPUConfig:
 
 
 H100 = GPUConfig()
+
+# TPU v5e constants: the reference's inputs to its partition planner and
+# TPU roofline (not this port's hardware).
+TPU_V5E_PEAK_FLOPS = 197e12     # bf16
+TPU_V5E_HBM_BW = 819e9          # bytes/s
+TPU_V5E_ICI_BW = 50e9           # bytes/s per link
+TPU_V5E_HBM_GB = 16.0
 
 
 def area_model() -> dict:

@@ -13,6 +13,14 @@
 // rows of shared memory, a template parameter, so a call at G <= 8 runs
 // the layout it always had.
 //
+// repro_flash_decode_partial is the dense kernel's partials launch with a
+// combine that merges the splits but does not normalise: the un-normalised
+// f32 output acc (B, Hq, D) and the softmax statistics l, m (B, Hq) of the
+// call's context, the contract of layers.decode_attention_core over one
+// shard of a sequence-sharded cache (distributed/seq_attention.py combines
+// the shards).  An empty lane gives acc = 0, l = 0 and m = 0, the
+// reference's m_safe.
+//
 // Function (exactly the Pallas kernels'): scale 1/sqrt(D); float32
 // scores, max, sum and accumulator; positions >= lengths[b] (clamped to
 // the cap) contribute nothing; the output is acc / max(l, 1e-20), so a
@@ -141,6 +149,9 @@ struct Args {
   int hq, group, cap, page;   // cap: S (dense) or nblk * page (paged)
   int chunk, n_split;         // C positions per block, ceil(cap / C)
   float scale;
+  float* l_out;         // partial entry: (B, Hq) sum of exp(s - m), and
+  float* m_out;         // (B, Hq) max score (0 for an empty lane); null
+                        // for the normalised output
 };
 
 // Shared memory of one block: K and V rows of the chunk (each padded by
@@ -579,9 +590,12 @@ decode_partial_mma_kernel(const Args a) {
 // (every load of the pass is independent of the others), and the
 // kCombineWays running (max, l, acc) are merged once in shared memory:
 // out = sum_j e_j acc_j / max(sum_j e_j l_j, 1e-20), e_j = exp(m_j - max m).
+// NORM = false writes the numerator and denominator instead: out (f32)
+// = sum_j e_j acc_j, l_out = sum_j e_j l_j, m_out = max m (0 when the
+// lane is empty), from the same arithmetic.
 constexpr int kCombineWays = 4;
 
-template <typename Tr, int D>
+template <typename Tr, int D, bool NORM>
 __global__ void __launch_bounds__(kCombineWays * D)
 decode_combine_kernel(const Args a) {
   __shared__ float sm[kCombineWays], sl[kCombineWays];
@@ -630,9 +644,17 @@ decode_combine_kernel(const Args a) {
     lsum = fmaf(sl[w], e, lsum);
     asum = fmaf(sacc[w][d], e, asum);
   }
-  static_cast<typename Tr::raw*>(a.out)[(static_cast<long long>(b) * a.hq +
-                                         hq) * D + d] =
-      Tr::store(asum / fmaxf(lsum, 1e-20f));
+  const long long o = static_cast<long long>(b) * a.hq + hq;
+  if constexpr (NORM) {
+    static_cast<typename Tr::raw*>(a.out)[o * D + d] =
+        Tr::store(asum / fmaxf(lsum, 1e-20f));
+  } else {
+    static_cast<float*>(a.out)[o * D + d] = asum;
+    if (d == 0) {
+      a.l_out[o] = lsum;
+      a.m_out[o] = n > 0 ? mmax : 0.f;
+    }
+  }
 }
 
 // bf16 runs the tensor-core partial kernel, f32 the CUDA-core one
@@ -663,8 +685,12 @@ int launch(const Args& a, int batch, int hkv, cudaStream_t stream) {
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   // D = 256 gives 1024 threads, the most a block may have
-  decode_combine_kernel<Tr, D>
-      <<<dim3(batch, a.hq), kCombineWays * D, 0, stream>>>(a);
+  if (a.l_out)
+    decode_combine_kernel<Tr, D, false>
+        <<<dim3(batch, a.hq), kCombineWays * D, 0, stream>>>(a);
+  else
+    decode_combine_kernel<Tr, D, true>
+        <<<dim3(batch, a.hq), kCombineWays * D, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -723,6 +749,24 @@ int repro_flash_decode(const void* q, const void* k, const void* v,
   Args a{q, k, v, out, acc, m, l, nullptr, lengths, q_sb, q_sh, k_sb, k_ss,
          k_sh, 0, hq, hkv > 0 ? hq / hkv : 0, seq, 0, chunk, n_split,
          inv_sqrt(d)};
+  return dispatch<false>(a, dtype, batch, hkv, d, stream);
+}
+
+// The partial entry: the dense launch with out = acc_out, an f32
+// (B, Hq, D) buffer, and l_out / m_out f32 (B, Hq); same scratch.
+int repro_flash_decode_partial(const void* q, const void* k, const void* v,
+                               float* acc_out, float* l_out, float* m_out,
+                               const int* lengths, float* acc, float* m,
+                               float* l, int dtype, int batch, int hq,
+                               int hkv, int d, int seq, int chunk,
+                               int n_split, long long q_sb, long long q_sh,
+                               long long k_sb, long long k_ss, long long k_sh,
+                               void* stream) {
+  if (!acc_out || !l_out || !m_out)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{q, k, v, acc_out, acc, m, l, nullptr, lengths, q_sb, q_sh, k_sb,
+         k_ss, k_sh, 0, hq, hkv > 0 ? hq / hkv : 0, seq, 0, chunk, n_split,
+         inv_sqrt(d), l_out, m_out};
   return dispatch<false>(a, dtype, batch, hkv, d, stream);
 }
 

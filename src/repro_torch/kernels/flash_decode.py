@@ -3,7 +3,10 @@
 
 ``flash_decode`` attends over contiguous ``(B, S, Hkv, D)`` caches and
 ``paged_flash_decode`` over ``(P+1, page, Hkv, D)`` page pools through a
-``(B, nblk)`` block table; both take CUDA tensors only (``kernels.ops``
+``(B, nblk)`` block table; ``flash_decode_partial`` is ``flash_decode``
+stopped before the division: the un-normalised float32 output and the
+softmax statistics of one context shard (``decode_attention_core``'s
+contract), which the sequence-sharded attention combines across ranks; both take CUDA tensors only (``kernels.ops``
 routes CPU tensors to the plain versions in ``kernels.ref``).  Each
 wrapper validates its inputs, picks the context split from shapes alone
 (:func:`split_plan`; nothing is read back from the card), allocates the
@@ -22,7 +25,8 @@ from repro_torch.kernels import build
 
 #: wrapper calls that launched their kernels (two device launches each:
 #: partials and combine) since the last :func:`reset_launches`
-LAUNCHES: Dict[str, int] = {"flash_decode": 0, "paged_flash_decode": 0}
+LAUNCHES: Dict[str, int] = {"flash_decode": 0, "paged_flash_decode": 0,
+                            "flash_decode_partial": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims the kernels are built for (80: stablelm-3b; 112:
@@ -47,6 +51,9 @@ _L = ctypes.c_longlong
 _ARGTYPES = {
     "repro_flash_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _I, _I, _I, _I, _L, _L, _L, _L, _L, _P],
+    "repro_flash_decode_partial": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _I, _I, _I, _I, _I, _L, _L,
+                                   _L, _L, _L, _P],
     "repro_paged_flash_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                  _I, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L,
                                  _L, _L, _P],
@@ -196,3 +203,34 @@ def paged_flash_decode(q: torch.Tensor, k_pool: torch.Tensor,
             torch.cuda.current_stream(q.device).cuda_stream)
     LAUNCHES["paged_flash_decode"] += 1
     return out
+
+
+def flash_decode_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         lengths: torch.Tensor, chunk: Optional[int] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q: (B, Hq, D); k/v: (B, S, Hkv, D) (one context shard); lengths:
+    (B,) int32 valid positions of the shard -> ``(acc, l, m)``, float32:
+    acc (B, Hkv, G, D) = sum_s exp(score_s - m) v_s, l (B, Hkv, G) =
+    sum_s exp(score_s - m), m (B, Hkv, G) the max score (0, with acc = l
+    = 0, for a lane with no valid position).  The same partials launch as
+    :func:`flash_decode`, then a combine that merges the splits without
+    dividing.  ``chunk`` overrides :func:`split_plan`."""
+    check_args(q, k, v, lengths)
+    build.require_cuda(q, k, v, lengths)
+    b, hq, d = q.shape
+    hkv, s = k.shape[2], k.shape[1]
+    c, n_split = split_plan(s, b, hkv, 1, d * q.element_size(), chunk)
+    _, acc, m, l = _scratch(q, hkv, n_split)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    acc_out = torch.empty((b, hkv, hq // hkv, d), **f32)
+    l_out = torch.empty((b, hkv, hq // hkv), **f32)
+    m_out = torch.empty((b, hkv, hq // hkv), **f32)
+    _launch("repro_flash_decode_partial",
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), acc_out.data_ptr(),
+            l_out.data_ptr(), m_out.data_ptr(), lengths.data_ptr(),
+            acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+            _DTYPE_CODE[q.dtype], b, hq, hkv, d, s, c, n_split,
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1), k.stride(2),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    LAUNCHES["flash_decode_partial"] += 1
+    return acc_out, l_out, m_out

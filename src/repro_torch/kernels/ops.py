@@ -43,6 +43,16 @@ def attention_decode(q, k, v, lengths):
     return ref.flash_decode_ref(q, k, v, lengths)
 
 
+def attention_decode_partial(q, k, v, lengths):
+    """The flash-decode partial of one context shard: q (B,Hq,D) against
+    (B,S,Hkv,D) caches -> (acc (B,Hkv,G,D), l (B,Hkv,G), m (B,Hkv,G)),
+    float32, un-normalised (``layers.decode_attention_core``'s
+    contract)."""
+    if _route(q) == "cuda":
+        return fd.flash_decode_partial(q, k, v, lengths)
+    return ref.flash_decode_partial_ref(q, k, v, lengths)
+
+
 def attention_decode_paged(q, k_pool, v_pool, tables, lengths):
     """GQA flash-decode through a block table: q (B,Hq,D) against page
     pools (P+1,page,Hkv,D) mapped by tables (B,nblk)."""

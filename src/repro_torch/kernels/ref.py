@@ -60,6 +60,18 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, hq, d).to(q.dtype)
 
 
+def flash_decode_partial_ref(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, lengths: torch.Tensor):
+    """q: (B, Hq, D); k/v: (B, S, Hkv, D); lengths: (B,) -> (acc, l, m),
+    the un-normalised partial of ``layers.decode_attention_core`` over
+    the valid prefix ``[0, lengths[b])`` (m = 0 for an empty lane)."""
+    from repro_torch.models.layers import decode_attention_core
+    s = k.shape[1]
+    valid = (torch.arange(s, device=q.device)[None, :]
+             < lengths.to(q.device)[:, None])
+    return decode_attention_core(q, k, v, valid)
+
+
 def paged_flash_decode_ref(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, tables: torch.Tensor,
                            lengths: torch.Tensor) -> torch.Tensor:

@@ -19,8 +19,8 @@
 
 Runs on the CUDA card by default (``--device cpu`` runs on the host);
 the reduced config is the default and ``--full`` trains the published
-widths.  One card has no mesh: ``--data`` / ``--model`` above 1 are
-refused until the distribution slice (ROADMAP queue 1, item 9).
+widths.  The train step runs one rank: ``--data`` / ``--model`` above 1
+are refused until its sharded form (ROADMAP queue 1, item 10).
 """
 from __future__ import annotations
 
@@ -89,9 +89,10 @@ def train(arch: str, *, steps: int, global_batch: int, seq: int,
     reference's results, returns ``losses`` and ``step_s`` (each step's
     wall time, ended by reading its loss, which waits for the card)."""
     if tuple(mesh_shape) != (1, 1):
-        raise ValueError(f"mesh {tuple(mesh_shape)}: one card has no mesh; "
-                         f"data and model parallelism come with the "
-                         f"distribution slice (ROADMAP queue 1, item 9)")
+        raise ValueError(f"mesh {tuple(mesh_shape)}: the train step runs "
+                         f"one rank; its sharded form (data-parallel "
+                         f"gradients, ZeRO-1 moments, FSDP) is ROADMAP "
+                         f"queue 1, item 10")
     dev = resolve(device)
     entry = registry.get(arch, reduced=True) if reduced \
         else registry.get(arch)
@@ -185,9 +186,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = build_parser()
     args = ap.parse_args(argv)
     if (args.data, args.model) != (1, 1):
-        ap.error(f"--data {args.data} --model {args.model}: one card has no "
-                 f"mesh; data and model parallelism come with the "
-                 f"distribution slice (ROADMAP queue 1, item 9)")
+        ap.error(f"--data {args.data} --model {args.model}: the train "
+                 f"step runs one rank; its sharded form is ROADMAP queue "
+                 f"1, item 10")
     out = train(args.arch, steps=args.steps, global_batch=args.global_batch,
                 seq=args.seq, ckpt_dir=args.ckpt_dir,
                 save_every=args.save_every, reduced=not args.full,

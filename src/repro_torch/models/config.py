@@ -6,7 +6,9 @@ ids the port resolves are in ``registry``).  ``padded_heads`` /
 exactly as the reference does, so a bridged parameter tree has the same
 shapes on both sides.  ``nmp_spec`` projects the architecture into the
 near-memory simulator's ``ModelSpec`` (``repro_torch.core.operators``),
-which the engines' co-design pricing reads.
+which the engines' co-design pricing reads.  ``ShapeCell`` / ``SHAPES``
+are the reference's (arch x shape) cells, which the sharded steps and
+``registry.input_specs`` / ``cache_specs`` take.
 """
 from __future__ import annotations
 
@@ -61,6 +63,19 @@ class ArchConfig:
     max_seq: int = 1 << 19
     dtype: str = "bfloat16"
     scan_unroll: int = 1
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Supports O(1)-state decode (long_500k eligible)."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.family == "audio"
+
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
 
     @property
     def group_size(self) -> int:
@@ -120,3 +135,29 @@ class ArchConfig:
         )
         small.update(over)
         return dataclasses.replace(self, **small)
+
+
+# ---------------------------------------------------------------------------
+# Input-shape cells assigned to every LM architecture
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str       # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeCell("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ArchConfig, shape: str) -> Tuple[bool, str]:
+    """Cell applicability per the assignment's skip policy."""
+    if shape == "long_500k" and not cfg.sub_quadratic:
+        return False, "SKIP(full-attention: 500k decode needs sub-quadratic)"
+    return True, ""

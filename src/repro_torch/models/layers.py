@@ -6,11 +6,26 @@ layouts: weights are ``(d_in, d_out)`` so ``x @ W`` matches the JAX
 code, expert weights ``(E, d_in, d_out)``, caches are ``(B, S, Hkv, D)``
 and page pools ``(P+1, page, Hkv, D)`` with scratch page ``P``.  Norms,
 rope and attention compute in float32 and cast back, as the reference
-does.  The MoE layer is the reference's single-device dispatch (one
-chunk; the expert-parallel ``shard_map`` form arrives with the
-distribution slice).  ``lm_loss_chunked``, ``unstack`` and ``remat`` are
-the training helpers: the chunked loss, one unbind of every stacked
-leaf per forward, and per-block recomputation in backward.
+does.  The MoE layer is the reference's chunk-local capacity dispatch:
+one chunk per data shard of an active mesh (``_data_chunks``), and the
+expert-parallel form (``_apply_moe_ep``: local experts, a local trash
+row, one ``all_reduce`` over "model") where the reference takes its
+``shard_map``.  ``lm_loss_chunked``, ``unstack`` and ``remat`` are the
+training helpers: the chunked loss, one unbind of every stacked leaf per
+forward, and per-block recomputation in backward.
+
+Under a bound mesh (``distributed.context``) whose "model" axis has more
+than one rank, the parameters a layer is handed are this rank's shards
+(``distributed.sharding.param_pspecs``), and the layers carry out the
+planner's chains with explicit collectives: a column-parallel product is
+gathered to full width where its consumer needs it (``qkv_project``,
+``embed``, ``unembed``), a row-parallel product is summed over "model"
+(``row_parallel``; the FFN's up/gate -> down chain needs no gather).
+Whether a weight is sharded is read from its shape against the global
+width the caller names.  The reference's ``seq_constraint``,
+``_moe_constraint`` and ``_embed_constraint`` are left out: they only
+tell GSPMD where to place data and never change a value, and here each
+rank holds exactly its shards already.
 """
 from __future__ import annotations
 
@@ -21,9 +36,65 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import context
+from repro_torch.launch.mesh import data_axes
+
 Params = Dict[str, Any]
 
 
+# ---------------------------------------------------------------------------
+# Tensor parallelism over a bound mesh's "model" axis
+# ---------------------------------------------------------------------------
+def _model_mesh():
+    """The active mesh when it is bound and its "model" axis has more
+    than one rank, else None."""
+    mesh = context.current_mesh()
+    if mesh is None or not mesh.bound or "model" not in mesh.axis_names \
+            or mesh.shape["model"] == 1:
+        return None
+    return mesh
+
+
+def gather_cols(y: torch.Tensor, width: int) -> torch.Tensor:
+    """A column-parallel output (last dim ``width / P`` on each rank)
+    gathered to ``width``; unchanged when already full."""
+    if y.shape[-1] >= width:
+        return y
+    return C.all_gather(y, _require_model_mesh(), "model", y.ndim - 1)
+
+
+def row_reduce(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The row-parallel product of this rank's input slice ``x`` (last
+    dim K/P) and rows ``w`` (K/P, N), summed over "model": the partial
+    is taken in float32 and rounded once, after the sum."""
+    y = torch.matmul(x.float(), w.float())
+    return C.all_reduce(y, _require_model_mesh(), "model").to(x.dtype)
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for a full ``x`` and a weight whose rows (K) may be
+    sharded over "model" (then this rank's slice of x is used and the
+    partials are summed)."""
+    k = w.shape[-2]
+    if k == x.shape[-1]:
+        return x @ w
+    mesh = _require_model_mesh()
+    i = mesh.coord("model")
+    return row_reduce(x[..., i * k:(i + 1) * k], w)
+
+
+def _require_model_mesh():
+    mesh = _model_mesh()
+    if mesh is None:
+        raise ValueError("a sharded weight needs a bound mesh with a "
+                         "'model' axis of more than one rank")
+    return mesh
+
+
+# ---------------------------------------------------------------------------
+# dtypes
+# ---------------------------------------------------------------------------
 def _dtype(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32,
             "float16": torch.float16}[name]
@@ -129,12 +200,16 @@ def init_attention(gen, cfg, dtype, hq: int, hkv: int, device=None,
 
 
 def qkv_project(p: Params, x: torch.Tensor, hq: int, hkv: int, dh: int):
+    """q, k, v of full heads; column-parallel shards (and their bias
+    shards) are gathered, so a shard that splits a head is fine."""
     b, s, _ = x.shape
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q, k, v = (gather_cols(t, h * dh) for t, h in ((q, hq), (k, hkv),
+                                                   (v, hkv)))
     return (q.reshape(b, s, hq, dh), k.reshape(b, s, hkv, dh),
             v.reshape(b, s, hkv, dh))
 
@@ -285,12 +360,18 @@ def _act(name: str, x: torch.Tensor) -> torch.Tensor:
     return F.silu(x) if name == "silu" else F.gelu(x, approximate="tanh")
 
 
-def apply_ffn(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
+def apply_ffn(p: Params, x: torch.Tensor, act: str,
+              d_ff: Optional[int] = None) -> torch.Tensor:
+    """``d_ff`` (the global hidden width) marks a model-sharded FFN: up
+    and gate column-parallel chained into down row-parallel, one
+    ``all_reduce`` for the whole FFN."""
     h = x @ p["w_up"]
     if "w_gate" in p:
         h = _act(act, x @ p["w_gate"]) * h
     else:
         h = _act(act, h)
+    if d_ff is not None and p["w_down"].shape[-2] < d_ff:
+        return row_reduce(h, p["w_down"])
     return h @ p["w_down"]
 
 
@@ -335,48 +416,160 @@ def _local_ranks(flat_e: torch.Tensor, n: int, e: int) -> torch.Tensor:
         0, order, rank_sorted.to(torch.int32))
 
 
-def apply_moe(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
-    """x: (T, d_model) flattened tokens -> (T, d_model).
+def _data_size(mesh) -> int:
+    return math.prod(mesh.shape[a] for a in data_axes(mesh))
 
-    The reference's single-device dispatch: float32 router logits,
-    softmax, top-k with the weights renormalised; each (token, k) pair
-    ranked within its expert and written to slot ``(expert, rank)`` of a
-    dense ``(E, C, d)`` buffer, pairs at rank >= C dropped; three batched
-    products over every expert; each pair's output gathered back (0 for
-    a dropped pair), scaled by its weight in the activation dtype and
-    summed over k; the shared expert's FFN added last.
 
-    Where the reference drops out-of-range ranks inside its scatter and
-    gather, here they are routed to one extra trash row (discarded on
-    the way in, zero on the way out): no index is ever out of range, and
-    nothing reads back to the host or takes a data-dependent shape, so
-    a decode step holding this layer can be captured in a CUDA graph.
-    """
+def _data_chunks(t: int) -> int:
+    """Number of data shards to chunk the MoE dispatch over (1 off-mesh)."""
+    mesh = context.current_mesh()
+    if mesh is None:
+        return 1
+    dsize = _data_size(mesh)
+    return dsize if dsize > 1 and t % dsize == 0 else 1
+
+
+def _moe_partial(p: Params, x: torch.Tensor, weights: torch.Tensor,
+                 experts: torch.Tensor, cfg, nx: int, lo: int, n_local: int,
+                 f32_sum: bool) -> torch.Tensor:
+    """The routed output of experts ``[lo, lo + n_local)`` for ``x``
+    (T, d) cut into ``nx`` chunks, each ranking and capping its own
+    (token, k) pairs at ``C = moe_capacity(T / nx)``.  ``p``'s expert
+    weights hold exactly those experts.  A pair routed elsewhere or past
+    capacity goes to one trash row (discarded on the way in, zero on the
+    way out).  ``f32_sum``: the pairs' outputs are weighted and summed
+    over k in float32 (the reference's ``local_moe``) and the float32
+    sum is returned; otherwise in the activation dtype (its chunked
+    dispatch)."""
     t, d = x.shape
     e, k = cfg.num_experts, cfg.topk
-    c = moe_capacity(t, e, k, cfg.capacity_factor)
-    logits = x.float() @ p["router"]                      # (T, E)
-    probs = torch.softmax(logits, dim=-1)
-    weights, experts = torch.topk(probs, k, dim=-1)       # (T, K)
-    weights = weights / torch.clamp(weights.sum(-1, keepdim=True),
-                                    min=1e-9)
-    flat_e = experts.reshape(-1)
-    rank = _local_ranks(flat_e, t * k, e)                 # (T*K,)
-    slot = torch.where(rank < c, flat_e * c + rank, e * c)
-    token_idx = torch.arange(t, device=x.device).repeat_interleave(k)
-    ge = x.new_zeros((e * c + 1, d))
+    tl = t // nx
+    c = moe_capacity(tl, e, k, cfg.capacity_factor)
+    dev = x.device
+    flat_e = experts.reshape(nx, tl * k)
+    chunk = torch.arange(nx, device=dev)[:, None]
+    # ranks within (chunk, expert): chunk-major flat order is kept
+    rank = _local_ranks((flat_e + chunk * e).reshape(-1), t * k,
+                        nx * e).reshape(nx, tl * k)
+    eloc = flat_e - lo
+    ok = (eloc >= 0) & (eloc < n_local) & (rank < c)
+    trash = nx * n_local * c
+    slot = torch.where(ok, (chunk * n_local + eloc) * c + rank,
+                       trash).reshape(-1)
+    token_idx = torch.arange(t, device=dev).repeat_interleave(k)
+    ge = x.new_zeros((trash + 1, d))
     ge[slot] = x[token_idx]
-    ge = ge[:e * c].view(e, c, d)
+    ge = ge[:trash].view(nx, n_local, c, d).transpose(0, 1).reshape(
+        n_local, nx * c, d)
     up = torch.bmm(ge, p["w_up"])
     gate = torch.bmm(ge, p["w_gate"])
     h = _act(cfg.act, gate) * up
-    out_e = torch.bmm(h, p["w_down"])                     # (E, C, d)
-    out = torch.cat([out_e.reshape(e * c, d), out_e.new_zeros((1, d))])
-    y = out[slot] * weights.reshape(-1)[:, None].to(out.dtype)
-    y = y.reshape(t, k, d).sum(dim=1)                     # (T, d)
+    out_e = torch.bmm(h, p["w_down"])                     # (El, X*C, d)
+    out_e = out_e.view(n_local, nx, c, d).transpose(0, 1).reshape(trash, d)
+    out = torch.cat([out_e, out_e.new_zeros((1, d))])[slot]
+    if f32_sum:
+        w = torch.where(ok.reshape(-1), weights.reshape(-1), 0.0)
+        return (out.float() * w[:, None]).reshape(t, k, d).sum(dim=1)
+    y = out * weights.reshape(-1)[:, None].to(out.dtype)
+    return y.reshape(t, k, d).sum(dim=1)                  # (T, d)
+
+
+def apply_moe(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+    """x: (T, d_model) flattened tokens -> (T, d_model).
+
+    The reference's chunk-local, sort-based capacity dispatch: float32
+    router logits, softmax, top-k with the weights renormalised; the
+    tokens are cut into one chunk per data shard of the active mesh
+    (one chunk off-mesh), and each chunk ranks its own (token, k) pairs
+    within their experts and writes them to slot ``(expert, rank)`` of a
+    dense ``(E, C, d)`` buffer, pairs at rank >= C dropped; three
+    batched products over the experts; each pair's output gathered back
+    (0 for a dropped pair), scaled by its weight and summed over k; the
+    shared expert's FFN added last.
+
+    Where the reference drops out-of-range ranks inside its scatter and
+    gather, here they are routed to one extra trash row: no index is
+    ever out of range, and nothing reads back to the host or takes a
+    data-dependent shape, so a decode step holding this layer can be
+    captured in a CUDA graph.
+
+    Under a mesh, the reference's condition (a "model" axis that divides
+    the experts, more than one data chunk, no shared expert) selects the
+    expert-parallel form (:func:`_apply_moe_ep`).  A bound mesh's
+    rank holds its E/P experts whenever the sharding rules split them,
+    and then sums its partial over "model".  When the step holds each
+    data shard's rows locally (``context.batch_local``), ``x`` is this
+    rank's chunk.
+    """
+    mesh = context.current_mesh()
+    t, d = x.shape
+    local = mesh is not None and context.batch_local()
+    n_chunks = _data_chunks(t * _data_size(mesh) if local else t)
+    nx = 1 if local else n_chunks
+    if (mesh is not None and "model" in mesh.axis_names
+            and cfg.num_experts % mesh.shape["model"] == 0
+            and n_chunks > 1 and "shared" not in p):
+        return _apply_moe_ep(p, x, cfg, mesh, nx).to(x.dtype)
+    weights, experts = _route(p, x, cfg)
+    e_local = p["w_up"].shape[-3]
+    if e_local < cfg.num_experts:       # this rank's experts of a split
+        mm = _require_model_mesh()
+        y = _moe_partial(p, x, weights, experts, cfg, nx,
+                         mm.coord("model") * e_local, e_local, False)
+        y = C.all_reduce(y.float(), mm, "model").to(y.dtype)
+    else:
+        y = _moe_partial(p, x, weights, experts, cfg, nx, 0,
+                         cfg.num_experts, False)
     if "shared" in p:
-        y = y + apply_ffn(p["shared"], x, cfg.act)
+        f = cfg.d_ff_expert * cfg.num_shared_experts
+        y = y + apply_ffn(p["shared"], x, cfg.act, d_ff=f)
     return y.to(x.dtype)
+
+
+def _route(p: Params, x: torch.Tensor, cfg):
+    logits = x.float() @ p["router"]                      # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    weights, experts = torch.topk(probs, cfg.topk, dim=-1)  # (T, K)
+    weights = weights / torch.clamp(weights.sum(-1, keepdim=True),
+                                    min=1e-9)
+    return weights, experts
+
+
+def _apply_moe_ep(p: Params, x: torch.Tensor, cfg, mesh,
+                  nx: int) -> torch.Tensor:
+    """Expert-parallel MoE (the reference's ``_apply_moe_shardmap``):
+    each of the ``nx`` chunks held here is routed on its own; each model
+    rank ranks the chunk's pairs over all experts, keeps the pairs of
+    its E/P experts below capacity (the rest go to its trash row),
+    weights and sums them over k in float32, and the ranks' float32
+    partials are summed with one ``all_reduce`` over "model", then
+    rounded.  On a mesh that is a description only, this process runs
+    every model rank's part in turn (full expert weights) and sums them
+    in rank order: the same program, and the same products chunk by
+    chunk, in one process."""
+    tp = mesh.shape["model"]
+    el = cfg.num_experts // tp
+    ranks = [mesh.coord("model")] if mesh.bound else range(tp)
+    tl = x.shape[0] // nx
+    outs = []
+    for i in range(nx):
+        xc = x[i * tl:(i + 1) * tl]
+        weights, experts = _route(p, xc, cfg)
+        y = None
+        for r in ranks:
+            local = p if p["w_up"].shape[-3] == el else \
+                _expert_slice(p, r, el)
+            part = _moe_partial(local, xc, weights, experts, cfg, 1,
+                                r * el, el, True)
+            y = part if y is None else y + part
+        outs.append(y)
+    y = torch.cat(outs) if nx > 1 else outs[0]
+    return C.all_reduce(y, mesh, "model") if mesh.bound else y
+
+
+def _expert_slice(p: Params, r: int, el: int) -> Params:
+    return {n: p[n][r * el:(r + 1) * el]
+            for n in ("w_up", "w_gate", "w_down")}
 
 
 # ---------------------------------------------------------------------------
@@ -390,15 +583,24 @@ def init_embed(gen, vocab: int, d_model: int, dtype, tie: bool,
     return p
 
 
-def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return p["table"][tokens.long()]
+def embed(p: Params, tokens: torch.Tensor,
+          d_model: Optional[int] = None) -> torch.Tensor:
+    """``d_model`` (the global width) marks a d-sharded table, whose
+    lookups are gathered over "model"."""
+    out = p["table"][tokens.long()]
+    return gather_cols(out, d_model) if d_model else out
 
 
-def unembed(p: Params, h: torch.Tensor) -> torch.Tensor:
+def unembed(p: Params, h: torch.Tensor,
+            vocab: Optional[int] = None) -> torch.Tensor:
+    """``vocab`` (the global, padded vocab) marks a vocab-sharded head,
+    whose logits are gathered over "model"; a tied d-sharded table is a
+    row-parallel product."""
     w = p.get("head")
     if w is None:
-        w = p["table"].T
-    return h @ w
+        return row_parallel(h, p["table"].T)
+    y = h @ w
+    return gather_cols(y, vocab) if vocab else y
 
 
 # ---------------------------------------------------------------------------

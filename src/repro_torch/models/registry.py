@@ -4,17 +4,22 @@
 Every reference id resolves, to the module of its family: the
 transformer (dense, MoE, and the VLM text backbone with M-RoPE), RWKV6
 (``ssm``), RecurrentGemma (``hybrid``) and the Whisper encoder-decoder
-(``audio``).
+(``audio``).  ``input_specs`` / ``cache_specs`` give each (arch x shape)
+cell's model inputs and cache as meta-device tensors: shapes and dtypes
+with no storage, which the sharding rules and the sharded steps read.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Dict, Union
+
+import torch
 
 from repro_torch.models import encdec, rglru, rwkv6, transformer
-from repro_torch.models.config import ArchConfig
+from repro_torch.models import layers as L
+from repro_torch.models.config import SHAPES, ArchConfig, ShapeCell
 
 ARCH_IDS = [
     "dbrx-132b", "kimi-k2-1t-a32b", "rwkv6-7b", "stablelm-3b", "yi-6b",
@@ -93,3 +98,52 @@ def get(name: str, reduced: bool = False, **over) -> ArchEntry:
     elif over:
         cfg = dataclasses.replace(cfg, **over)
     return from_config(cfg)
+
+
+# ---------------------------------------------------------------------------
+# Input specs (meta-device stand-ins)
+# ---------------------------------------------------------------------------
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ArchConfig, shape: Union[ShapeCell, str],
+                tp: int = 1) -> Dict[str, torch.Tensor]:
+    """Model inputs for one (arch x shape) cell, as meta tensors.
+
+    train  -> {"tokens","labels"} (+"frames" for audio, "embeds" for vlm)
+    prefill-> {"tokens"} (+modality inputs)
+    decode -> {"tokens": (B,)}; the cache comes from :func:`cache_specs`.
+    """
+    if isinstance(shape, str):
+        shape = SHAPES[shape]
+    b, s = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    dt = L._dtype(cfg.dtype)
+    if shape.kind == "train":
+        spec = {"tokens": _meta((b, s), i32), "labels": _meta((b, s), i32)}
+        if cfg.family == "audio":
+            spec["frames"] = _meta((b, cfg.encoder_frames, cfg.d_model), dt)
+        if cfg.family == "vlm":
+            # frontend stub: precomputed patch embeddings replace tokens
+            spec = {"embeds": _meta((b, s, cfg.d_model), dt),
+                    "labels": _meta((b, s), i32)}
+        return spec
+    if shape.kind == "prefill":
+        spec = {"tokens": _meta((b, s), i32)}
+        if cfg.family == "audio":
+            spec["frames"] = _meta((b, cfg.encoder_frames, cfg.d_model), dt)
+        if cfg.family == "vlm":
+            spec = {"embeds": _meta((b, s, cfg.d_model), dt)}
+        return spec
+    # decode: one new token against a seq_len-deep cache
+    return {"tokens": _meta((b,), i32)}
+
+
+def cache_specs(entry: ArchEntry, shape: Union[ShapeCell, str],
+                tp: int = 1):
+    """The cell's cache (or recurrent state) as meta tensors."""
+    if isinstance(shape, str):
+        shape = SHAPES[shape]
+    return entry.cache_zeros(shape.global_batch, shape.seq_len, tp,
+                             device="meta")

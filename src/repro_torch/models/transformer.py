@@ -12,6 +12,16 @@ returns fresh arrays, these functions write the new K/V into the tensors
 they were given, in place, and return them.  The VLM family takes
 precomputed patch embeddings (``embeds``, the frontend stub) and
 (B, S, 3) M-RoPE positions; text positions are the one stream repeated.
+
+Under a bound mesh (``distributed.context.use_mesh``, set by the steps
+of ``launch.steps``) ``prefill`` and ``decode_step`` run this rank's part
+of the reference's sharded program: the parameters are the shards of
+``distributed.sharding.param_pspecs`` (heads and vocab padded for the
+model size ``tp``), the batch is this rank's data shard, and with
+``seq_sharded`` each rank holds its context shard of the KV cache: the
+new K/V position is written by the rank whose shard holds it, and the
+attention either combines the shards' partials (the sequence-sharded
+``attn_fn``) or gathers the shards first, as GSPMD would.
 """
 from __future__ import annotations
 
@@ -20,6 +30,8 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.device import resolve
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import context
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
 
@@ -105,12 +117,13 @@ def _positions(cfg: ArchConfig, start, n: int, batch: int,
 def _attn_ffn_tail(cfg: ArchConfig, lp: Params, x: torch.Tensor,
                    attn: torch.Tensor) -> torch.Tensor:
     """Residual + output projection, then the FFN (or MoE) sub-block."""
-    x = x + attn.reshape(*attn.shape[:-2], -1) @ lp["attn"]["wo"]
+    x = x + L.row_parallel(attn.reshape(*attn.shape[:-2], -1),
+                           lp["attn"]["wo"])
     h = L.apply_norm(cfg.norm, lp["ln2"], x)
     if cfg.num_experts:
         y = L.apply_moe(lp["moe"], h.reshape(-1, cfg.d_model), cfg)
         return x + y.reshape(h.shape)
-    return x + L.apply_ffn(lp["ffn"], h, cfg.act)
+    return x + L.apply_ffn(lp["ffn"], h, cfg.act, d_ff=cfg.d_ff)
 
 
 def _qkv_rope(cfg: ArchConfig, lp: Params, x: torch.Tensor,
@@ -138,7 +151,8 @@ def forward_seq(params: Params, cfg: ArchConfig,
     acts while autograd records, and serving passes ``remat=False`` as
     the reference's ``prefill`` does."""
     hq, hkv = cfg.padded_heads(tp)
-    x = embeds if embeds is not None else L.embed(params["embed"], tokens)
+    x = embeds if embeds is not None else L.embed(params["embed"],
+                                                   tokens, cfg.d_model)
     b, s, _ = x.shape
     if positions is None:
         positions = _positions(cfg, 0, s, b, x.device)
@@ -194,8 +208,27 @@ def prefill(params: Params, cfg: ArchConfig,
         k = torch.nn.functional.pad(k, pad)
         v = torch.nn.functional.pad(v, pad)
     lengths = torch.full((b,), s, dtype=torch.int32, device=first.device)
-    logits = L.unembed(params["embed"], h[:, -1])
-    return logits, KVCache(k, v, lengths)
+    logits = L.unembed(params["embed"], h[:, -1], cfg.padded_vocab(tp))
+    return logits, _seq_shard(KVCache(k, v, lengths))
+
+
+def _seq_mesh():
+    """The bound mesh when the step holds context shards of the cache
+    over a "model" axis of more than one rank, else None."""
+    mesh = L._model_mesh()
+    return mesh if mesh is not None and context.seq_sharded() else None
+
+
+def _seq_shard(cache: KVCache) -> KVCache:
+    """This rank's context shard of a full-context cache, when the step
+    holds the cache sequence-sharded (the reference's ``cache_pspecs``)."""
+    mesh = _seq_mesh()
+    if mesh is None:
+        return cache
+    s = cache.k.shape[2] // mesh.shape["model"]
+    i = mesh.coord("model")
+    return KVCache(cache.k[:, :, i * s:(i + 1) * s].clone(),
+                   cache.v[:, :, i * s:(i + 1) * s].clone(), cache.lengths)
 
 
 def _prefill_chunked(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
@@ -207,7 +240,7 @@ def _prefill_chunked(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     for c0 in range(0, s, chunk):
         logits, cache = extend_step(params, cfg, tokens[:, c0:c0 + chunk],
                                     cache, tp=tp, offset=c0)
-    return logits, cache
+    return logits, _seq_shard(cache)
 
 
 def extend_step(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
@@ -225,7 +258,7 @@ def extend_step(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     b, c = tokens.shape
     if offset is None:
         offset = int(cache.lengths[0])
-    x = L.embed(params["embed"], tokens)                  # (B, C, d)
+    x = L.embed(params["embed"], tokens, cfg.d_model)     # (B, C, d)
     positions = _positions(cfg, offset, c, b, x.device)
     for li in range(cfg.num_layers):
         lp = layer_params(params, li)
@@ -238,7 +271,7 @@ def extend_step(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
         attn = L.blocked_attention(q, kc, vc, causal=True, q_offset=offset)
         x = _attn_ffn_tail(cfg, lp, x, attn)
     h_last = L.apply_norm(cfg.norm, params["ln_f"], x[:, -1])
-    logits = L.unembed(params["embed"], h_last)
+    logits = L.unembed(params["embed"], h_last, cfg.padded_vocab(tp))
     return logits, KVCache(cache.k, cache.v, cache.lengths + c)
 
 
@@ -265,7 +298,7 @@ def decode_step_paged(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     attn_fn = attn_fn or L.paged_decode_attention
     ps = k_pool.shape[2]
     nblk = tables.shape[1]
-    x = L.embed(params["embed"], tokens)                 # (B, d)
+    x = L.embed(params["embed"], tokens, cfg.d_model)    # (B, d)
     positions = _mrope(cfg, lengths[:, None])            # (B, 1[, 3])
     blk = lengths.long() // ps
     # a position past the mapped window must write to the scratch page P,
@@ -284,7 +317,7 @@ def decode_step_paged(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
         attn = attn_fn(q[:, 0], kc, vc, tables, lengths + 1)
         x = _attn_ffn_tail(cfg, lp, x, attn)
     x = L.apply_norm(cfg.norm, params["ln_f"], x)
-    logits = L.unembed(params["embed"], x)
+    logits = L.unembed(params["embed"], x, cfg.padded_vocab(tp))
     return logits, (k_pool, v_pool, lengths + 1)
 
 
@@ -342,22 +375,41 @@ def decode_step(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     """
     hq, hkv = cfg.padded_heads(tp)
     attn_fn = attn_fn or L.decode_attention
-    x = L.embed(params["embed"], tokens)                 # (B, d)
+    x = L.embed(params["embed"], tokens, cfg.d_model)    # (B, d)
     b = x.shape[0]
     positions = _mrope(cfg, cache.lengths[:, None])      # (B, 1[, 3])
     s = cache.k.shape[2]
+    mesh = _seq_mesh()
+    sharded_attn = getattr(attn_fn, "seq_sharded", False)
+    start, s_full = 0, s
+    if mesh is not None:
+        start, s_full = mesh.coord("model") * s, s * mesh.shape["model"]
+    elif sharded_attn and L._model_mesh() is not None:
+        raise ValueError("the sequence-sharded attention needs the cache "
+                         "held in context shards (its S divisible by the "
+                         "model axis)")
     # the reference's dynamic_update_slice clamps the start index, so a
-    # stale (finished) lane past the window rewrites position S-1
-    idx = cache.lengths.long().clamp(0, s - 1)
+    # stale (finished) lane past the window rewrites position S-1; on a
+    # sharded cache the rank holding that position writes it
+    idx = cache.lengths.long().clamp(0, s_full - 1) - start
+    own = ((idx >= 0) & (idx < s))[:, None, None]
+    idx = idx.clamp(0, s - 1)
     lanes = torch.arange(b, device=x.device)
     for li in range(cfg.num_layers):
         lp = layer_params(params, li)
         kc, vc = cache.k[li], cache.v[li]
         q, k, v = _qkv_rope(cfg, lp, x[:, None, :], positions, hq, hkv)
-        kc[lanes, idx] = k[:, 0]
-        vc[lanes, idx] = v[:, 0]
+        k, v = k[:, 0], v[:, 0]
+        if mesh is not None:
+            k = torch.where(own, k, kc[lanes, idx])
+            v = torch.where(own, v, vc[lanes, idx])
+        kc[lanes, idx] = k
+        vc[lanes, idx] = v
+        if mesh is not None and not sharded_attn:
+            kc = C.all_gather(kc, mesh, "model", 1)
+            vc = C.all_gather(vc, mesh, "model", 1)
         attn = attn_fn(q[:, 0], kc, vc, cache.lengths + 1)
         x = _attn_ffn_tail(cfg, lp, x, attn)
     x = L.apply_norm(cfg.norm, params["ln_f"], x)
-    logits = L.unembed(params["embed"], x)
+    logits = L.unembed(params["embed"], x, cfg.padded_vocab(tp))
     return logits, KVCache(cache.k, cache.v, cache.lengths + 1)

@@ -84,12 +84,14 @@ def test_public_names_match_reference():
         ref, port = getattr(PKGS["ref"], mod), getattr(PKGS["port"], mod)
         assert {n for n in dir(port) if not n.startswith("_")} == \
             {n for n in dir(ref) if not n.startswith("_")}, mod
-    # the TPU constants stay out of the port
+    # the TPU constants are copied as the reference's model inputs (the
+    # planner prices collectives with TPU_V5E_ICI_BW)
     ref_hw = {n for n in dir(jhw) if not n.startswith("_")}
     port_hw = {n for n in dir(thw) if not n.startswith("_")}
-    assert ref_hw - port_hw == {"TPU_V5E_PEAK_FLOPS", "TPU_V5E_HBM_BW",
-                                "TPU_V5E_ICI_BW", "TPU_V5E_HBM_GB"}
-    assert port_hw <= ref_hw
+    assert port_hw == ref_hw
+    for name in ("TPU_V5E_PEAK_FLOPS", "TPU_V5E_HBM_BW", "TPU_V5E_ICI_BW",
+                 "TPU_V5E_HBM_GB"):
+        assert getattr(thw, name) == getattr(jhw, name)
 
 
 @pytest.mark.parametrize("system", sorted(SYSTEMS))

@@ -294,7 +294,8 @@ def test_engine_matches_reference(name, weights):
     if ref_name.endswith("fused"):
         assert tm["fused_ticks"] == jm["fused_ticks"] > 0
     # on the CPU the kernel path runs the plain versions: no launches
-    assert fd.LAUNCHES == {"flash_decode": 0, "paged_flash_decode": 0}
+    assert fd.LAUNCHES == {"flash_decode": 0, "paged_flash_decode": 0,
+                           "flash_decode_partial": 0}
 
 
 def test_metric_keys_match_reference_contract(weights):
@@ -380,7 +381,8 @@ def test_rwkv_engine_matches_reference(name, rwkv_weights):
     # and no chunk state left behind
     assert port[0]._prefilling is None and not port[0]._chunkable()
     assert wk.LAUNCHES == {"wkv6": 0, "wkv6_chunked": 0}
-    assert fd.LAUNCHES == {"flash_decode": 0, "paged_flash_decode": 0}
+    assert fd.LAUNCHES == {"flash_decode": 0, "paged_flash_decode": 0,
+                           "flash_decode_partial": 0}
 
 
 def test_rwkv_engine_routes_the_wkv6_kernel(rwkv_weights, monkeypatch):
@@ -524,7 +526,8 @@ def test_new_arch_engine_matches_reference(arch, name, kernel):
     assert len(got) == len(want)
     for i, (g, w) in enumerate(zip(got, want)):
         assert g == w, f"event {i}: port {g} != reference {w}"
-    assert fd.LAUNCHES == {"flash_decode": 0, "paged_flash_decode": 0}
+    assert fd.LAUNCHES == {"flash_decode": 0, "paged_flash_decode": 0,
+                           "flash_decode_partial": 0}
 
 
 @pytest.mark.parametrize("name", PRICED_CASES)
@@ -602,5 +605,6 @@ def test_hybrid_and_audio_engines_match_reference(arch, name, kernel):
     assert len(got) == len(want)
     for i, (g, w) in enumerate(zip(got, want)):
         assert g == w, f"event {i}: port {g} != reference {w}"
-    assert fd.LAUNCHES == {"flash_decode": 0, "paged_flash_decode": 0}
+    assert fd.LAUNCHES == {"flash_decode": 0, "paged_flash_decode": 0,
+                           "flash_decode_partial": 0}
     assert wk.LAUNCHES == {"wkv6": 0, "wkv6_chunked": 0}

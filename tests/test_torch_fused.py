@@ -109,7 +109,8 @@ def test_fused_matches_per_tick_and_reference(fuse, kernel, weights,
         assert metrics["fused_ticks"] == jm["fused_ticks"] > 0
     else:
         assert metrics["fused_ticks"] == 0 and not eng._fused_graphs
-    assert fd.LAUNCHES == {"flash_decode": 0, "paged_flash_decode": 0}
+    assert fd.LAUNCHES == {"flash_decode": 0, "paged_flash_decode": 0,
+                           "flash_decode_partial": 0}
 
 
 def test_fused_chunked_prefill_matches(weights, per_tick):
@@ -429,7 +430,7 @@ def test_cuda_launches_count_replays(weights):
     n_steps = sum(1 << (k - 1).bit_length() for k in eng.fused_horizons)
     layers = eng.cfg.num_layers
     assert eng.fused_horizons and fd.LAUNCHES == {
-        "flash_decode": 0,
+        "flash_decode": 0, "flash_decode_partial": 0,
         "paged_flash_decode": (seen["steps"] + n_steps) * layers}
     for graph in eng._fused_graphs.values():
         assert [(name, n) for _, name, n in graph.launches] == [

@@ -411,7 +411,7 @@ def test_train_cli_refuses_a_mesh(flag, capsys):
     with pytest.raises(SystemExit) as exc:
         train.main(["--device", "cpu", flag, "2"])
     assert exc.value.code == 2
-    assert "item 9" in capsys.readouterr().err
+    assert "item 10" in capsys.readouterr().err
 
 
 def test_quickstart_and_train_lm_run_on_cpu(tmp_path, capsys):

@@ -152,7 +152,12 @@ def test_wrappers_take_the_plain_path_on_cpu():
     v = vp[tables.long()].reshape(3, -1, *vp.shape[2:])
     torch.testing.assert_close(ops.attention_decode(q, k, v, lengths),
                                got, rtol=0, atol=0)
-    assert fd.LAUNCHES == {"flash_decode": 0, "paged_flash_decode": 0}
+    acc, l, _ = ops.attention_decode_partial(q, k, v, lengths)
+    part = acc / torch.clamp(l, min=1e-20)[..., None]
+    torch.testing.assert_close(part.reshape(got.shape), got, rtol=1e-6,
+                               atol=1e-6)
+    assert fd.LAUNCHES == {"flash_decode": 0, "paged_flash_decode": 0,
+                           "flash_decode_partial": 0}
     with pytest.raises(ValueError):
         ops.attention_decode(q.to("meta"), k, v, lengths)
 

@@ -409,7 +409,8 @@ def test_shared_engine_matches_reference(name, weights):
         assert m[key] == jm[key], key
     assert m["kv_dedup_ratio_peak"] > 1.0
     assert eng.paged.pages_in_use() == 0 and len(eng.paged.prefix) == 0
-    assert fd.LAUNCHES == {"flash_decode": 0, "paged_flash_decode": 0}
+    assert fd.LAUNCHES == {"flash_decode": 0, "paged_flash_decode": 0,
+                           "flash_decode_partial": 0}
     trace_kw = RUNS[name][1]
     if trace_kw["tail_len"] == 0 and trace_kw["prefix_len"] % 8:
         assert m["cow_forks"] > 0       # identical prompts, ragged tail
@@ -684,7 +685,8 @@ def test_cuda_shared_fused_matches_per_tick(weights):
         n_steps = steps["n"] + sum(1 << (k - 1).bit_length()
                                    for k in eng.fused_horizons)
         assert fd.LAUNCHES == {"flash_decode": 0, "paged_flash_decode":
-                               n_steps * eng.cfg.num_layers}
+                               n_steps * eng.cfg.num_layers,
+                               "flash_decode_partial": 0}
         assert m["cow_forks"] > 0
         runs[fuse] = _streams(eng)
         if fuse > 1:

@@ -344,6 +344,6 @@ def test_trainer_trains_every_family(arch):
 
 
 def test_trainer_refuses_a_mesh():
-    with pytest.raises(ValueError, match="item 9"):
+    with pytest.raises(ValueError, match="item 10"):
         TT.train("yi-6b", steps=1, global_batch=2, seq=32, ckpt_dir=None,
                  mesh_shape=(2, 1), device="cpu")
