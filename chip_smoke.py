@@ -158,20 +158,22 @@ Phases, one line each; any failure raises and exits non-zero:
              sequence-sharded attention give the unsharded prefill's and
              decode_step's (flash-decode kernel) greedy tokens over 16
              decode steps, bitwise; both steps' median times and the
-             partial kernel's launches (16 x 32, counted from 0).  The
-             ranks below hold float32 weights (TF32 off), where sharding
-             changes only float32 rounding (bf16 greedy tokens of a
-             random-weight model do not survive it).  (b) two ranks
-             spawned on the one card (gloo, mesh (1, 2)), yi-6b at full
-             width and depth: the tokens of the unsharded port in this
-             process.  (c) four ranks (gloo, mesh (2, 2)),
-             qwen3-30b-a3b at full width and 4 of its 48 layers: the
-             expert-parallel MoE, and the tokens of the same model run in
-             this one process under the mesh description (the same
-             per-chunk capacities).  Each rank draws the full weights in
-             turn and keeps its shards.  A failed rank fails the phase;
-             times of ranks sharing one card are correctness runs and
-             measure no collective bandwidth.
+             partial kernel's launches (16 x 32, counted from 0).  Then
+             ranks spawned on the one card (gloo): (b) two, mesh (1, 2),
+             yi-6b at full width and depth; (c) four, mesh (2, 2),
+             qwen3-30b-a3b at full width (the expert-parallel MoE), each
+             against the same model run in this one process under the
+             mesh description (the same per-chunk capacities).  In bf16
+             (qwen3 at 8 of its 48 layers) the prefill's and first
+             step's logits lie within DIST_BF16_REL_TOL (relative L2) of
+             the single-process run's, while a wrong shard (wo's row
+             halves swapped) lies beyond it; the unsharded run's own
+             error against float32 compute of the same weights is
+             printed beside them.  In float32 with TF32 off (qwen3 at 4
+             layers) the greedy tokens are equal.  Each rank draws the
+             full weights in turn and keeps its shards.  A failed rank
+             fails the phase; times of ranks sharing one card are
+             correctness runs and measure no collective bandwidth.
 6. train   — the training path (no kernel of the port is on it: the
              reference's kernels have no backward): the train step of
              ``launch.steps`` on the card against the same step on the
@@ -285,13 +287,20 @@ DIST_CASES = [("serve split 2", SERVE_LENGTHS, SERVE_CAP, 2),
               ("serve split 4", SERVE_LENGTHS, SERVE_CAP, 4),
               ("empty shards", [0, 100, 300, 800], 800, 4),
               ("ragged", [1, 17, 255, 999], 1000, 4)]
-# the multi-rank runs hold float32 weights with TF32 off: a bf16 model's
-# greedy tokens do not survive the re-association sharding brings (two
-# ranks of bf16 yi-6b left three of four lanes within 3-7 steps on the
-# H100), while float32 changes only float32 rounding.  qwen3-30b-a3b on
-# four ranks: full width, this many of its 48 layers, so each rank's
-# float32 shard (6.2 GB) stays under the reference's FSDP residency rule
-DIST_QWEN3_LAYERS = 4
+# the multi-rank runs (arch, layers or 0 for all, dtype, mesh).  bf16
+# runs are held by logits, not tokens: a bf16 model's greedy tokens do
+# not survive the re-association sharding brings (the reference's own
+# bf16 program on a host mesh leaves its unsharded tokens too:
+# examples/ref_bf16_shard_drift.py).  qwen3-30b-a3b: 8 of its 48 layers
+# in bf16 (5.6 GB a rank); 4 in float32, so each rank's shard (6.2 GB)
+# stays under the reference's FSDP residency rule (8 float32 layers,
+# 11.2 GB a rank, cross it, and the serve step then gathers every
+# parameter back each step: ~20 GB a rank, four ranks on one card)
+DIST_BF16_REL_TOL = 0.1
+DIST_RUNS = [("yi-6b", 0, "bfloat16", (1, 2)),
+             ("qwen3-30b-a3b", 8, "bfloat16", (2, 2)),
+             ("yi-6b", 0, "float32", (1, 2)),
+             ("qwen3-30b-a3b", 4, "float32", (2, 2))]
 DIST_TIMEOUT_S = 600
 
 
@@ -1881,16 +1890,20 @@ def _partial_row(fd, ref):
             "cases": timed, "cases_max_abs_err": errs}
 
 
-def _greedy(prefill, step, vocab):
-    """(tokens (B, 1 + DIST_STEPS), prefill seconds, step seconds): the
-    prefill's argmax, then DIST_STEPS steps fed their own argmax."""
+def _greedy(prefill, step, vocab, feed=None):
+    """(tokens (B, 1 + DIST_STEPS), prefill seconds, step seconds, the
+    prefill's and the first step's logits): the prefill's argmax, then
+    DIST_STEPS steps fed their own argmax; the first step is fed
+    ``feed`` instead where given."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, cache = prefill()
     tok = logits[:, :vocab].argmax(-1).to(torch.int32)
     torch.cuda.synchronize()
     pre_s = time.perf_counter() - t0
-    toks, times = [tok], []
+    toks, times, first = [tok], [], [logits[:, :vocab]]
+    if feed is not None:
+        tok = feed
     for _ in range(DIST_STEPS):
         t0 = time.perf_counter()
         logits, cache = step(cache, tok)
@@ -1898,7 +1911,9 @@ def _greedy(prefill, step, vocab):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         toks.append(tok)
-    return torch.stack(toks, 1), pre_s, times
+        if len(first) == 1:
+            first.append(logits[:, :vocab])
+    return torch.stack(toks, 1), pre_s, times, first
 
 
 def _dist_prompts(vocab):
@@ -1920,20 +1935,26 @@ def _dist_cells(entry, mesh, tp):
     return cell, prefill
 
 
-def _sharded_run(entry, params_l, cell, prefill, mesh, fd):
-    """The sharded prefill + serve loop on this rank's shards: (the
-    tokens gathered, prefill s, step s, launches in the run)."""
+def _sharded_run(entry, params_l, cell, prefill, mesh, fd, feed=None):
+    """The sharded prefill + serve loop on this rank's shards (the first
+    step fed the tokens ``feed`` where given): (the tokens gathered,
+    prefill s, step s, launches in the run, the first two logits
+    gathered, float32 on the host)."""
     from repro_torch.distributed import sharding as S
     rows = cell.in_specs[2] + (None,)
     prompts = S.shard_tensor(_dist_prompts(entry.config.vocab).cuda(), rows,
                              mesh)
+    if feed is not None:
+        feed = S.shard_tensor(torch.tensor(feed, dtype=torch.int32,
+                                           device="cuda"), rows[:1], mesh)
     fd.reset_launches()
-    toks, pre_s, step_s = _greedy(
+    toks, pre_s, step_s, first = _greedy(
         lambda: prefill(params_l, {"tokens": prompts}),
         lambda cache, tok: cell.step(params_l, cache, tok),
-        entry.config.vocab)
+        entry.config.vocab, feed)
     launches = dict(fd.LAUNCHES)
-    return S.gather_tensor(toks, rows, mesh), pre_s, step_s, launches
+    first = [S.gather_tensor(x, rows, mesh).float().cpu() for x in first]
+    return S.gather_tensor(toks, rows, mesh), pre_s, step_s, launches, first
 
 
 def _unsharded_run(entry, params, tp, mesh=None):
@@ -1953,18 +1974,19 @@ def _unsharded_run(entry, params, tp, mesh=None):
             cfg.vocab)
 
 
-def _dist_entry(registry, arch, layers):
-    over = {"dtype": "float32"}
+def _dist_entry(registry, arch, layers, dtype):
+    over = {"dtype": dtype}
     if layers:
         over["num_layers"] = layers
     return registry.get(arch, **over)
 
 
-def _dist_rank(rank, world, port, arch, layers, shape, out):
+def _dist_rank(rank, world, port, arch, layers, dtype, shape, feed, out):
     """One spawned rank: gloo over CUDA tensors on the one card, the
-    mesh bound; the ranks draw the full float32 parameters from the seed
-    one at a time and keep their shards; then the sharded run.  Writes
-    its result to ``out``."""
+    mesh bound; the ranks draw the full parameters from the seed one at
+    a time and keep their shards; then the sharded run (its first step
+    fed ``feed`` where given).  Writes its result to ``out`` (rank 0
+    also the first two logits)."""
     import torch.distributed as dist
     from repro_torch.distributed import sharding as S
     from repro_torch.kernels import flash_decode as fd
@@ -1976,7 +1998,7 @@ def _dist_rank(rank, world, port, arch, layers, shape, out):
                             rank=rank, world_size=world)
     try:
         mesh = M.bind(M.make_mesh(shape, ("data", "model")), "cuda")
-        entry = _dist_entry(registry, arch, layers)
+        entry = _dist_entry(registry, arch, layers, dtype)
         tp = mesh.shape["model"]
         cell, prefill = _dist_cells(entry, mesh, tp)
         params_l = None
@@ -1988,23 +2010,24 @@ def _dist_rank(rank, world, port, arch, layers, shape, out):
                 del full
                 torch.cuda.empty_cache()
             dist.barrier()
-        toks, pre_s, step_s, launches = _sharded_run(
-            entry, params_l, cell, prefill, mesh, fd)
+        toks, pre_s, step_s, launches, first = _sharded_run(
+            entry, params_l, cell, prefill, mesh, fd, feed)
+        if rank == 0:
+            torch.save(first, out.format(rank) + ".pt")
         Path(out.format(rank)).write_text(json.dumps({
             "tokens": toks.tolist(), "prefill_s": pre_s,
             "step_median_s": statistics.median(step_s),
             "launches": launches,
-            "gather_by_reduce": mesh.gather_by_reduce,
             "held_gb": torch.cuda.memory_allocated() / 1e9}))
         dist.barrier()
     finally:
         dist.destroy_process_group()
 
 
-def _spawn_ranks(label, world, arch, layers, shape):
+def _spawn_ranks(label, world, arch, layers, dtype, shape, feed):
     """``world`` ranks of ``_dist_rank`` (start method spawn); a rank that
     raises, or a run past DIST_TIMEOUT_S, fails the phase.  Returns each
-    rank's result."""
+    rank's result and rank 0's first two logits."""
     import socket
 
     import torch.multiprocessing as mp
@@ -2015,7 +2038,7 @@ def _spawn_ranks(label, world, arch, layers, shape):
     out_dir.mkdir(parents=True, exist_ok=True)
     out = str(out_dir / f"{label}-rank{{}}.json")
     ctx = mp.start_processes(_dist_rank, args=(world, port, arch, layers,
-                                               shape, out),
+                                               dtype, shape, feed, out),
                              nprocs=world, join=False, start_method="spawn")
     deadline = time.monotonic() + DIST_TIMEOUT_S
     try:
@@ -2028,8 +2051,8 @@ def _spawn_ranks(label, world, arch, layers, shape):
             if proc.is_alive():
                 proc.terminate()
                 proc.join()
-    return [json.loads(Path(out.format(r)).read_text())
-            for r in range(world)]
+    return ([json.loads(Path(out.format(r)).read_text())
+             for r in range(world)], torch.load(out.format(0) + ".pt"))
 
 
 def _world_one(registry, fd, smi):
@@ -2046,11 +2069,11 @@ def _world_one(registry, fd, smi):
     try:
         mesh = M.bind(M.make_mesh((1, 1), ("data", "model")), "cuda")
         entry, params = _init_full(registry, "yi-6b")
-        base, base_pre, base_steps = _unsharded_run(entry, params, 1)
+        base, base_pre, base_steps, _ = _unsharded_run(entry, params, 1)
         cell, prefill = _dist_cells(entry, mesh, 1)
         from repro_torch.distributed import sharding as S
         params_l = S.shard_tree(params, cell.in_specs[0], mesh)
-        toks, pre_s, step_s, launches = _sharded_run(
+        toks, pre_s, step_s, launches, _ = _sharded_run(
             entry, params_l, cell, prefill, mesh, fd)
     finally:
         dist.destroy_process_group()
@@ -2079,71 +2102,124 @@ def _world_one(registry, fd, smi):
     return launches["flash_decode_partial"]
 
 
-def _single_process(registry, arch, layers, tp, mesh=None):
-    """The float32 model's unsharded tokens in this process (the same
-    seed as the ranks' parameters), under ``mesh`` (a description) where
-    given."""
-    entry = _dist_entry(registry, arch, layers)
-    params = entry.module.init(entry.config, tp, device="cuda", seed=0)
-    toks, _, _ = _unsharded_run(entry, params, tp, mesh)
+def _rel_err(got, want):
+    return ((got - want).norm() / want.norm()).item()
+
+
+def _single_process(registry, arch, layers, dtype, shape):
+    """The model's unsharded tokens and first two logits in this process
+    (the same seed as the ranks' parameters), under ``shape``'s mesh
+    description (the MoE caps each data chunk and runs each model rank's
+    experts in turn); in bf16 also two prefill logits' relative errors
+    against these: the wrong-shard control (the two halves of every
+    layer's ``wo`` rows swapped, as a rank holding the other's row
+    shard would compute them) and bf16's own noise (the same weights
+    computed in float32)."""
+    from repro_torch.launch import mesh as M
+    entry = _dist_entry(registry, arch, layers, dtype)
+    cfg, tp = entry.config, shape[1]
+    mesh = M.make_mesh(shape, ("data", "model"))
+    params = entry.module.init(cfg, tp, device="cuda", seed=0)
+    toks, _, _, first = _unsharded_run(entry, params, tp, mesh)
+    first = [x.float().cpu() for x in first]
+    control = {}
+    if dtype == "bfloat16":
+        from repro_torch.distributed import context
+        from repro_torch.distributed import sharding as S
+        wo = params["blocks"]["attn"]["wo"]
+        h = wo.shape[1] // 2
+        wrong = dict(params, blocks=dict(params["blocks"], attn=dict(
+            params["blocks"]["attn"], wo=torch.cat([wo[:, h:], wo[:, :h]],
+                                                   1))))
+        entry32 = _dist_entry(registry, arch, layers, "float32")
+        for key, e, p in (("wrong_shard", entry, wrong),
+                          ("float32_compute", entry32,
+                           S.tree_map(lambda t: t.float(), params))):
+            with context.use_mesh(mesh):
+                logits, _ = e.module.prefill(
+                    p, e.config, _dist_prompts(cfg.vocab).cuda(), tp=tp,
+                    max_seq=DIST_SEQ)
+            control[key] = _rel_err(first[0],
+                                    logits[:, :cfg.vocab].float().cpu())
+        del wrong, logits
     del params
     _free()
-    return toks.cpu()
+    return toks.cpu(), first, control
 
 
-def _check_ranks(label, results, want, per_rank):
+def _dist_run(registry, arch, layers, dtype, shape, smi):
+    """One multi-rank run on the one card against the single-process
+    run: float32 tokens equal, bf16 logits within DIST_BF16_REL_TOL
+    (and the wrong-shard control beyond it); each rank launched the
+    partial once per layer and step.  Returns (label, launches)."""
+    world = shape[0] * shape[1]
+    n_layers = layers or registry.get_config(arch).num_layers
+    label = (f"{arch} {dtype}, {n_layers} layers, {world} ranks, mesh "
+             f"({shape[0]}, {shape[1]})")
+    base, base_first, control = _single_process(registry, arch, layers,
+                                                dtype, shape)
+    # bf16: the first step is fed the single-process run's first tokens,
+    # so both first steps see the same input even where a prefill argmax
+    # flips within bf16's noise
+    feed = base[:, 0].tolist() if dtype == "bfloat16" else None
+    results, first = _spawn_ranks(f"{arch}-{dtype}-{shape[0]}x{shape[1]}",
+                                  world, arch, layers, dtype, shape, feed)
+    per_rank = n_layers * DIST_STEPS
     for r, res in enumerate(results):
-        if res["tokens"] != want.tolist():
-            raise AssertionError(f"[dist] {label} rank {r}: tokens "
-                                 f"{res['tokens']} != {want.tolist()}")
         if res["launches"]["flash_decode_partial"] != per_rank:
             raise AssertionError(
                 f"[dist] {label} rank {r}: flash_decode_partial launched "
                 f"{res['launches']['flash_decode_partial']} times, want "
                 f"{per_rank}")
+        if res["tokens"] != results[0]["tokens"]:
+            raise AssertionError(f"[dist] {label}: ranks 0 and {r} "
+                                 f"gathered different tokens")
+    got = torch.tensor(results[0]["tokens"], dtype=base.dtype)
+    line = {"tokens_equal": int((got == base).sum()),
+            "tokens": base.numel()}
+    if dtype == "float32":
+        if not torch.equal(got, base):
+            raise AssertionError(f"[dist] {label}: tokens {got.tolist()} "
+                                 f"!= single-process {base.tolist()}")
+    else:
+        errs = [_rel_err(g, w) for g, w in zip(first, base_first)]
+        line.update(prefill_logits_rel_err=errs[0],
+                    step1_logits_rel_err=errs[1],
+                    wrong_shard_rel_err=control["wrong_shard"],
+                    unsharded_vs_float32_compute_rel_err=control[
+                        "float32_compute"], tol=DIST_BF16_REL_TOL)
+        if max(errs) > DIST_BF16_REL_TOL:
+            raise AssertionError(f"[dist] {label}: logits' relative "
+                                 f"errors {errs} beyond "
+                                 f"{DIST_BF16_REL_TOL}")
+        if control["wrong_shard"] <= DIST_BF16_REL_TOL:
+            raise AssertionError(f"[dist] {label}: a wrong shard's "
+                                 f"relative error {control['wrong_shard']}"
+                                 f" is within {DIST_BF16_REL_TOL}")
+    print(f"[dist] {label} on one card (gloo; correctness runs, no "
+          f"collective bandwidth) " + json.dumps({
+              **line, "ranks": [{k: v for k, v in res.items()
+                                 if k != "tokens"} for res in results],
+              "card": smi}))
+    return label, sum(r["launches"]["flash_decode_partial"]
+                      for r in results)
 
 
 def phase_dist(registry, fd, ref, smi):
     """The distribution layer on the card; returns the partial entry's
     kernel row (launches by run)."""
-    from repro_torch.launch import mesh as M
     t0 = time.perf_counter()
     row = _partial_row(fd, ref)
     print("[dist] flash_decode_partial " + json.dumps(
         {**row, "card": smi}))
-    launches_a = _world_one(registry, fd, smi)
+    launches = {"yi-6b bfloat16, world size 1": _world_one(registry, fd,
+                                                            smi)}
     torch.backends.cuda.matmul.allow_tf32 = False
-    yi = registry.get_config("yi-6b")
-    base = _single_process(registry, "yi-6b", 0, 2)
-    two = _spawn_ranks("yi-6b-1x2", 2, "yi-6b", 0, (1, 2))
-    _check_ranks("(b) yi-6b 2 ranks", two, base,
-                 yi.num_layers * DIST_STEPS)
-    # (c)'s single-process run: under the (2, 2) description, so the MoE
-    # caps each data chunk and runs each model rank's experts in turn
-    qbase = _single_process(registry, "qwen3-30b-a3b", DIST_QWEN3_LAYERS,
-                            2, M.make_mesh((2, 2), ("data", "model")))
-    four = _spawn_ranks("qwen3-30b-a3b-2x2", 4, "qwen3-30b-a3b",
-                        DIST_QWEN3_LAYERS, (2, 2))
-    _check_ranks("(c) qwen3-30b-a3b 4 ranks", four, qbase,
-                 DIST_QWEN3_LAYERS * DIST_STEPS)
-    for label, results in (
-            ("(b) yi-6b float32, 2 ranks, mesh (1, 2)", two),
-            (f"(c) qwen3-30b-a3b float32, {DIST_QWEN3_LAYERS} layers, 4 "
-             f"ranks, mesh (2, 2)", four)):
-        print(f"[dist] {label} on one card (gloo; correctness runs, no "
-              f"collective bandwidth) " + json.dumps({
-                  "tokens_identical": len(results[0]["tokens"])
-                  * len(results[0]["tokens"][0]),
-                  "gloo_all_gather_on_cuda": not results[0][
-                      "gather_by_reduce"],
-                  "ranks": results, "card": smi}))
-    row["launches_by_run"] = {
-        "yi-6b world 1": launches_a,
-        "yi-6b 2 ranks": sum(r["launches"]["flash_decode_partial"]
-                             for r in two),
-        "qwen3-30b-a3b 4 ranks": sum(r["launches"]["flash_decode_partial"]
-                                     for r in four)}
-    row["launches"] = sum(row["launches_by_run"].values())
+    for run in DIST_RUNS:
+        label, n = _dist_run(registry, *run, smi)
+        launches[label] = n
+    row["launches_by_run"] = launches
+    row["launches"] = sum(launches.values())
     print(f"[dist] phase {time.perf_counter() - t0:.1f} s")
     return row
 

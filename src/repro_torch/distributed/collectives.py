@@ -3,12 +3,9 @@ one axis (or the data axes together) of a bound mesh.
 
 Floating tensors travel as float32 (bf16 partial sums are added in
 float32 and rounded once; a gather of bf16 values is exact either way),
-and a group of one rank is never called.  Where the backend has no
-``all_gather`` for the bound device type (``Mesh.gather_by_reduce``, set
-by ``launch.mesh.bind``: gloo may offer only ``all_reduce`` and
-``broadcast`` on CUDA tensors), a gather is an ``all_reduce`` SUM of a
-zero buffer holding this rank's part in its place, which is exact
-(x + 0 = x).  Nothing is copied to the host here.
+and a group of one rank is never called.  A backend that lacks one of
+these collectives for the tensors' device raises.  Nothing is copied to
+the host here.
 """
 from __future__ import annotations
 
@@ -39,12 +36,6 @@ def all_gather(t: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
     if n == 1:
         return t
     src = _wire(t).contiguous()
-    if mesh.gather_by_reduce:
-        buf = src.new_zeros((n, *src.shape))
-        buf[mesh.coord(axes)] = src
-        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group(axes))
-        parts = list(buf.unbind(0))
-    else:
-        parts = [torch.empty_like(src) for _ in range(n)]
-        dist.all_gather(parts, src, group=mesh.group(axes))
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=mesh.group(axes))
     return torch.cat(parts, dim=dim).to(t.dtype)

@@ -37,10 +37,6 @@ class Mesh:
     groups: Dict[Tuple[str, ...], Any] = field(default=None, compare=False,
                                                repr=False)
     coords: Dict[str, int] = field(default=None, compare=False)
-    #: ``all_gather`` is carried out as an ``all_reduce`` of zero-padded
-    #: buffers (set by :func:`bind` when the backend has no ``all_gather``
-    #: for the bound device type)
-    gather_by_reduce: bool = field(default=False, compare=False)
 
     def __post_init__(self):
         if len(self.axis_names) != len(self.sizes) \
@@ -158,21 +154,4 @@ def bind(mesh: Mesh, device_type: Optional[str] = None) -> Mesh:
     if len(daxes) > 1:
         groups[daxes] = _subgroups(dist, mesh, daxes, rank)
     coords = dict(zip(mesh.axis_names, dm.get_coordinate()))
-    bound = replace(mesh, device_mesh=dm, groups=groups, coords=coords)
-    return replace(bound, gather_by_reduce=not _has_all_gather(
-        dist, device_type))
-
-
-def _has_all_gather(dist, device_type: str) -> bool:
-    """Whether the default group's backend runs ``all_gather`` on tensors
-    of ``device_type`` (gloo may take only ``all_reduce`` / ``broadcast``
-    on CUDA tensors).  Every rank sees the same answer."""
-    import torch
-    dev = torch.device(device_type)
-    probe = torch.zeros(1, device=dev)
-    try:
-        dist.all_gather([torch.empty_like(probe)
-                         for _ in range(dist.get_world_size())], probe)
-        return True
-    except RuntimeError:
-        return False
+    return replace(mesh, device_mesh=dm, groups=groups, coords=coords)

@@ -67,8 +67,16 @@ def gather_cols(y: torch.Tensor, width: int) -> torch.Tensor:
 def row_reduce(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The row-parallel product of this rank's input slice ``x`` (last
     dim K/P) and rows ``w`` (K/P, N), summed over "model": the partial
-    is taken in float32 and rounded once, after the sum."""
-    y = torch.matmul(x.float(), w.float())
+    is kept in float32 and rounded once, after the sum.  On the card a
+    16-bit product reads ``w`` as it is and writes its float32
+    accumulator (``out_dtype``); the host has no such product and
+    widens both operands."""
+    if w.is_cuda and w.dtype in (torch.bfloat16, torch.float16):
+        y = torch.mm(x.reshape(-1, x.shape[-1]).to(w.dtype), w,
+                     out_dtype=torch.float32).reshape(*x.shape[:-1],
+                                                      w.shape[-1])
+    else:
+        y = torch.matmul(x.float(), w.float())
     return C.all_reduce(y, _require_model_mesh(), "model").to(x.dtype)
 
 
@@ -447,15 +455,21 @@ def _moe_partial(p: Params, x: torch.Tensor, weights: torch.Tensor,
     c = moe_capacity(tl, e, k, cfg.capacity_factor)
     dev = x.device
     flat_e = experts.reshape(nx, tl * k)
-    chunk = torch.arange(nx, device=dev)[:, None]
+    # the unsharded step (one chunk, every expert) skips the expert-range
+    # mask and the chunk offsets, which would change no slot there
+    keyed, eloc, ok = flat_e, flat_e, None
+    if n_local < e:
+        eloc = flat_e - lo
+        ok = (eloc >= 0) & (eloc < n_local)
+    if nx > 1:
+        chunk = torch.arange(nx, device=dev)[:, None]
+        keyed, eloc = flat_e + chunk * e, eloc + chunk * n_local
     # ranks within (chunk, expert): chunk-major flat order is kept
-    rank = _local_ranks((flat_e + chunk * e).reshape(-1), t * k,
-                        nx * e).reshape(nx, tl * k)
-    eloc = flat_e - lo
-    ok = (eloc >= 0) & (eloc < n_local) & (rank < c)
+    rank = _local_ranks(keyed.reshape(-1), t * k, nx * e).reshape(nx,
+                                                                  tl * k)
+    ok = rank < c if ok is None else ok & (rank < c)
     trash = nx * n_local * c
-    slot = torch.where(ok, (chunk * n_local + eloc) * c + rank,
-                       trash).reshape(-1)
+    slot = torch.where(ok, eloc * c + rank, trash).reshape(-1)
     token_idx = torch.arange(t, device=dev).repeat_interleave(k)
     ge = x.new_zeros((trash + 1, d))
     ge[slot] = x[token_idx]

@@ -11,9 +11,7 @@ reduced yi-6b and qwen3-30b-a3b in float32.  The port's ranks are
 spawned once per world size (2 and 4) by the module's fixture, all of
 them while the reference runs; each binds its meshes
 (``launch.mesh.bind``) and runs the same cases on the same numpy inputs
-and weights (the reference's ``init``).  The (2, 2) runs gather through
-``all_reduce`` (``Mesh.gather_by_reduce``), the form the port takes
-where a backend has no ``all_gather``.
+and weights (the reference's ``init``).
 
 Tolerances: the attention's partials and combine within 1e-6; logits
 within 2e-5 (absolute and relative); greedy tokens over 8 decode steps
@@ -155,7 +153,6 @@ print("REF DONE")
 '''
 
 PORT_SCRIPT = COMMON + r'''
-import dataclasses
 import torch
 import torch.distributed as dist
 torch.set_num_threads(1)
@@ -177,8 +174,6 @@ moe_cfg = R.get("qwen3-30b-a3b", reduced=True, capacity_factor=1.0).config
 moe_p = unflatten(inp, "moe/p/", T)
 for shape in [s for s in MESHES if s[0] * s[1] == world]:
     mesh = M.bind(M.make_mesh(shape, ("data", "model")), "cpu")
-    if shape == (2, 2):
-        mesh = dataclasses.replace(mesh, gather_by_reduce=True)
     t = tag(shape)
     rows = ("data", None, None)
     # sequence-sharded attention, and this rank's partial
