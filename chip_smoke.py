@@ -169,8 +169,11 @@ Phases, one line each; any failure raises and exits non-zero:
              the single-process run's, while a wrong shard (wo's row
              halves swapped) lies beyond it; the unsharded run's own
              error against float32 compute of the same weights is
-             printed beside them.  In float32 with TF32 off (qwen3 at 4
-             layers) the greedy tokens are equal.  Each rank draws the
+             printed beside them.  In float32 with TF32 off (qwen3 at 8
+             layers: past the reference's FSDP residency rule, so each
+             rank holds its data shard of the model-axis shards and
+             gathers one layer at a time, once in the prefill and once a
+             step) the greedy tokens are equal.  Each rank draws the
              full weights in turn and keeps its shards.  A failed rank
              fails the phase; times of ranks sharing one card are
              correctness runs and measure no collective bandwidth.
@@ -191,7 +194,27 @@ Phases, one line each; any failure raises and exits non-zero:
              one profiled step and the step's two halves (gradients,
              update) between CUDA events; then reduced stablelm-3b's
              exact resume (10 steps, against 6 and a resume from the
-             checkpoint: final losses within 1e-4).  Prints its time.
+             checkpoint: final losses within 1e-4).  Then the sharded
+             train step (``build_cell``'s train Cell): (a) an in-process
+             NCCL group of world size 1, mesh (1, 1), stablelm-3b at
+             full width and depth in bf16 (8 x 512, 3 steps) against the
+             unsharded step on the same weights, deterministic kernels
+             on in both: losses, gradient norms and parameters bitwise,
+             both step times; then ranks spawned on the one card (gloo),
+             float32 with TF32 off, each held to the same model's train
+             step in this process under the mesh description (losses
+             within 1e-5, gradient norms within 1e-3, relative, every
+             rank): (b) two, mesh (2, 1), stablelm-3b at full width, 16
+             of 32 layers, FSDP by the reference's residency rule, 2 x
+             16 layer gathers a step, each rank's peak allocated memory;
+             (c) four, mesh (2, 2), stablelm-3b at 4 layers with 2
+             microbatches (data and tensor parallel, ZeRO-1) and
+             qwen3-30b-a3b at full width, 2 layers (the expert-parallel
+             MoE's backward: step 0 must route every token as the one
+             process does except at a tie, ROUTE_TIE, and after a tie
+             broke the other way only step 0 is held).  Times of ranks
+             sharing one card measure no collective bandwidth.  Prints
+             its time.
 
 The last three lines are the kernels' JSON, the card's name and power
 limit as nvidia-smi reports them, and the result JSON.  Exits non-zero
@@ -279,6 +302,29 @@ GEMM_SPLITS = (1, 2, 3, 4, 5, 6, 8, 12, 16, 17, 18, 24, 32, 48, 64)
 TRAIN_PARITY_STEPS, TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 5, 4, 64
 TRAIN_PARITY_OCFG = dict(lr=1e-3, warmup_steps=2, total_steps=10)
 TRAIN_FULL = ("stablelm-3b", 8, 512, 8)
+# the sharded train step: (a) an NCCL group of one rank, mesh (1, 1),
+# stablelm-3b at full width and depth in bf16 (global batch, seq) against
+# the unsharded step bit for bit; then gloo ranks on the one card, in
+# float32 with TF32 off, each held to the same model's train step in one
+# process under the mesh description: (b) mesh (2, 1), 16 of stablelm's
+# 32 layers (1.53 B parameters: 6.1 GB + 8 B x 1.53 B / 2 = 12.2 GB a
+# rank by the reference's residency rule, above 8 GiB, so FSDP), (c)
+# mesh (2, 2): stablelm at 4 layers with 2 microbatches (data and tensor
+# parallel, ZeRO-1), and qwen3-30b-a3b at full width, 2 layers (the
+# expert-parallel MoE's backward); (arch, layers, mesh, global batch,
+# seq, microbatch)
+TRAIN_MESH_STEPS = 3
+TRAIN_WORLD_ONE = ("stablelm-3b", 8, 512)
+TRAIN_MESH_RUNS = [("stablelm-3b", 16, (2, 1), 4, 512, 1),
+                   ("stablelm-3b", 4, (2, 2), 8, 256, 2),
+                   ("qwen3-30b-a3b", 2, (2, 2), 4, 256, 1)]
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL = 1e-5, 1e-3
+# a token whose k-th and (k+1)-th router logits lie closer than this
+# takes either expert within float32 noise: the sharded step's router
+# logits differ from one process's by up to ~5e-6 (partial sums added in
+# another order), so such a tie may break the other way under sharding,
+# and the two runs diverge from that step on
+ROUTE_TIE = 1e-5
 # the dist phase: B prompts of DIST_PROMPT tokens into a DIST_SEQ-deep
 # cache, then DIST_STEPS greedy decode steps; the kernel check's cases
 # (global lengths over a cache of cap positions, split P ways)
@@ -292,15 +338,14 @@ DIST_CASES = [("serve split 2", SERVE_LENGTHS, SERVE_CAP, 2),
 # not survive the re-association sharding brings (the reference's own
 # bf16 program on a host mesh leaves its unsharded tokens too:
 # examples/ref_bf16_shard_drift.py).  qwen3-30b-a3b: 8 of its 48 layers
-# in bf16 (5.6 GB a rank); 4 in float32, so each rank's shard (6.2 GB)
-# stays under the reference's FSDP residency rule (8 float32 layers,
-# 11.2 GB a rank, cross it, and the serve step then gathers every
-# parameter back each step: ~20 GB a rank, four ranks on one card)
+# in bf16 (5.6 GB a rank, under the reference's FSDP residency rule) and
+# in float32 (10.9 GB of model-axis shards a rank cross the rule: FSDP,
+# each rank holding 5.6 GB and gathering one layer at a time)
 DIST_BF16_REL_TOL = 0.1
 DIST_RUNS = [("yi-6b", 0, "bfloat16", (1, 2)),
              ("qwen3-30b-a3b", 8, "bfloat16", (2, 2)),
              ("yi-6b", 0, "float32", (1, 2)),
-             ("qwen3-30b-a3b", 4, "float32", (2, 2))]
+             ("qwen3-30b-a3b", 8, "float32", (2, 2))]
 DIST_TIMEOUT_S = 600
 
 
@@ -1949,7 +1994,7 @@ def _sharded_run(entry, params_l, cell, prefill, mesh, fd, feed=None):
                                            device="cuda"), rows[:1], mesh)
     fd.reset_launches()
     toks, pre_s, step_s, first = _greedy(
-        lambda: prefill(params_l, {"tokens": prompts}),
+        lambda: cell.run_with(prefill, params_l, {"tokens": prompts}),
         lambda cache, tok: cell.step(params_l, cache, tok),
         entry.config.vocab, feed)
     launches = dict(fd.LAUNCHES)
@@ -2010,6 +2055,7 @@ def _dist_rank(rank, world, port, arch, layers, dtype, shape, feed, out):
                 del full
                 torch.cuda.empty_cache()
             dist.barrier()
+        torch.cuda.reset_peak_memory_stats()
         toks, pre_s, step_s, launches, first = _sharded_run(
             entry, params_l, cell, prefill, mesh, fd, feed)
         if rank == 0:
@@ -2018,16 +2064,20 @@ def _dist_rank(rank, world, port, arch, layers, dtype, shape, feed, out):
             "tokens": toks.tolist(), "prefill_s": pre_s,
             "step_median_s": statistics.median(step_s),
             "launches": launches,
-            "held_gb": torch.cuda.memory_allocated() / 1e9}))
+            "fsdp_layer_gathers": cell.fsdp.layer_gathers
+            if cell.fsdp is not None else None,
+            "held_gb": torch.cuda.memory_allocated() / 1e9,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}))
         dist.barrier()
     finally:
         dist.destroy_process_group()
 
 
-def _spawn_ranks(label, world, arch, layers, dtype, shape, feed):
-    """``world`` ranks of ``_dist_rank`` (start method spawn); a rank that
-    raises, or a run past DIST_TIMEOUT_S, fails the phase.  Returns each
-    rank's result and rank 0's first two logits."""
+def _spawn_ranks(label, world, target, args):
+    """``world`` ranks of ``target(rank, world, port, *args, out)`` (start
+    method spawn), each writing its JSON result to ``out.format(rank)``;
+    a rank that raises, or a run past DIST_TIMEOUT_S, fails the phase.
+    Returns each rank's result and the results' path pattern."""
     import socket
 
     import torch.multiprocessing as mp
@@ -2037,22 +2087,21 @@ def _spawn_ranks(label, world, arch, layers, dtype, shape, feed):
     out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_dist"
     out_dir.mkdir(parents=True, exist_ok=True)
     out = str(out_dir / f"{label}-rank{{}}.json")
-    ctx = mp.start_processes(_dist_rank, args=(world, port, arch, layers,
-                                               dtype, shape, feed, out),
+    ctx = mp.start_processes(target, args=(world, port, *args, out),
                              nprocs=world, join=False, start_method="spawn")
     deadline = time.monotonic() + DIST_TIMEOUT_S
     try:
         while not ctx.join(timeout=5):
             if time.monotonic() > deadline:
-                raise TimeoutError(f"[dist] {label}: ranks still running "
-                                   f"after {DIST_TIMEOUT_S} s")
+                raise TimeoutError(f"{label}: ranks still running after "
+                                   f"{DIST_TIMEOUT_S} s")
     finally:
         for proc in ctx.processes:
             if proc.is_alive():
                 proc.terminate()
                 proc.join()
-    return ([json.loads(Path(out.format(r)).read_text())
-             for r in range(world)], torch.load(out.format(0) + ".pt"))
+    return [json.loads(Path(out.format(r)).read_text())
+            for r in range(world)], out
 
 
 def _world_one(registry, fd, smi):
@@ -2162,10 +2211,18 @@ def _dist_run(registry, arch, layers, dtype, shape, smi):
     # so both first steps see the same input even where a prefill argmax
     # flips within bf16's noise
     feed = base[:, 0].tolist() if dtype == "bfloat16" else None
-    results, first = _spawn_ranks(f"{arch}-{dtype}-{shape[0]}x{shape[1]}",
-                                  world, arch, layers, dtype, shape, feed)
+    results, out = _spawn_ranks(f"{arch}-{dtype}-{shape[0]}x{shape[1]}",
+                                world, _dist_rank,
+                                (arch, layers, dtype, shape, feed))
+    first = torch.load(out.format(0) + ".pt")
     per_rank = n_layers * DIST_STEPS
     for r, res in enumerate(results):
+        gathers = res["fsdp_layer_gathers"]
+        if gathers is not None and gathers != n_layers * (1 + DIST_STEPS):
+            raise AssertionError(
+                f"[dist] {label} rank {r}: FSDP gathered {gathers} layers, "
+                f"want one a layer in the prefill and in each step, "
+                f"{n_layers * (1 + DIST_STEPS)}")
         if res["launches"]["flash_decode_partial"] != per_rank:
             raise AssertionError(
                 f"[dist] {label} rank {r}: flash_decode_partial launched "
@@ -2380,6 +2437,297 @@ def _train_resume(train_mod):
         "resumed_final_loss": b["final_loss"], "resumed_steps": b["steps"]}))
 
 
+def _train_curve(step, params, opt, batches):
+    """Run ``step`` over ``batches``: (params, opt, [(loss, gradient
+    norm)], [seconds a step, ended by reading the loss])."""
+    curve, times = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        curve.append((float(m["loss"]), float(m["grad_norm"])))
+        times.append(time.perf_counter() - t0)
+    return params, opt, curve, times
+
+
+def _train_world_one(registry, steps_mod, train_mod, axw, pipeline, smi):
+    """(a): the train Cell of mesh (1, 1) on an in-process NCCL group of
+    one rank against the unsharded step, stablelm-3b at full width and
+    depth in bf16, the same weights and batches: losses, gradient norms
+    and parameters bit for bit (deterministic kernels on, in both)."""
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch import mesh as M
+    from repro_torch.models.config import ShapeCell
+    arch, batch, seq = TRAIN_WORLD_ONE
+    entry = registry.get(arch)
+    cfg = entry.config
+    ocfg = axw.AdamWConfig(**TRAIN_PARITY_OCFG)
+    data = pipeline.TokenPipeline(pipeline.DataConfig(
+        vocab=cfg.vocab, seq_len=seq, global_batch=batch))
+    batches = [train_mod.model_batch(cfg, data, i)
+               for i in range(TRAIN_MESH_STEPS)]
+    _free()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        params = entry.module.init(cfg, device="cuda", seed=0)
+        params, opt, want, base_s = _train_curve(
+            steps_mod.make_train_step(entry, ocfg), params,
+            axw.init(params, ocfg), batches)
+        host = [t.cpu() for t in _leaves(params)]
+        del params, opt
+        _free()
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                                f"{port}", rank=0, world_size=1)
+        try:
+            mesh = M.bind(M.make_mesh((1, 1), ("data", "model")), "cuda")
+            cell, _ = steps_mod.build_cell(
+                entry, mesh, ShapeCell("train", seq, batch, "train"),
+                ocfg=ocfg)
+            params, _, _ = cell.shard(
+                entry.module.init(cfg, device="cuda", seed=0), None, None)
+            opt = S.local_zeros(axw.init(entry.module.init(
+                cfg, device="meta"), ocfg), cell.in_specs[1], mesh, "cuda")
+            params, opt, got, cell_s = _train_curve(
+                cell.step, params, opt,
+                [cell.shard(None, None, b)[2] for b in batches])
+            same = [torch.equal(a, b.cpu())
+                    for a, b in zip(host, _leaves(params))]
+        finally:
+            dist.destroy_process_group()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del params, opt, host
+    _free()
+    if got != want or not all(same):
+        raise AssertionError(
+            f"[train] (a) {arch} world size 1: the Cell's (loss, gradient "
+            f"norm) {got} against the unsharded step's {want}; "
+            f"{same.count(False)} of {len(same)} leaves differ")
+    print(f"[train] (a) {arch} bf16 world size 1 (nccl, mesh (1, 1)) "
+          + json.dumps({
+              "batch": batch, "seq": seq, "steps": TRAIN_MESH_STEPS,
+              "bitwise": True, "losses": [l for l, _ in got],
+              "grad_norms": [g for _, g in got],
+              "leaves_equal": len(same),
+              "cell_step_ms": [t * 1e3 for t in cell_s],
+              "unsharded_step_ms": [t * 1e3 for t in base_s],
+              "cell_step_ms_median_warm":
+                  statistics.median(cell_s[1:]) * 1e3,
+              "unsharded_step_ms_median_warm":
+                  statistics.median(base_s[1:]) * 1e3,
+              "deterministic_algorithms": True, "card": smi}))
+
+
+def _train_entry(registry, arch, layers):
+    return registry.get(arch, dtype="float32", num_layers=layers)
+
+
+def _train_data(pipeline, cfg, batch, seq):
+    return pipeline.TokenPipeline(pipeline.DataConfig(
+        vocab=cfg.vocab, seq_len=seq, global_batch=batch))
+
+
+def _record_routes():
+    """Keep every top-k choice ``layers._route`` makes while autograd
+    records, in call order: (the sorted experts, the gap between each
+    token's k-th and (k+1)-th router logit), on the host.  Returns the
+    list and a function that removes the recording."""
+    from repro_torch.models import layers as L
+    real, calls = L._route, []
+
+    def route(p, x, cfg):
+        weights, experts = real(p, x, cfg)
+        if torch.is_grad_enabled():
+            top = (x.detach().float() @ p["router"]).topk(cfg.topk + 1,
+                                                          -1).values
+            calls.append((experts.sort(-1).values.cpu(),
+                          (top[:, -2] - top[:, -1]).cpu()))
+        return weights, experts
+
+    L._route = route
+    return calls, lambda: setattr(L, "_route", real)
+
+
+def _first_route_changes(single, by_chunk, layers):
+    """Per data chunk, the gaps of the tokens routed to other experts at
+    the first layer of step 0's forward whose routing differs (a change
+    in a later layer follows from the changed hidden states).
+    ``single``: one process's calls, chunk by chunk within each layer;
+    ``by_chunk[d]``: the calls of the rank holding data chunk d."""
+    gaps = []
+    for d, calls in enumerate(by_chunk):
+        for li in range(layers):
+            es, gs = single[li * len(by_chunk) + d]
+            diff = (es != calls[li][0]).any(-1)
+            if diff.any():
+                gaps += gs[diff].tolist()
+                break
+    return gaps
+
+
+def _train_rank(rank, world, port, arch, layers, shape, batch, seq,
+                microbatch, out):
+    """One spawned rank of (b) / (c): gloo over CUDA tensors on the one
+    card, the mesh bound; the ranks draw the full float32 parameters in
+    turn and keep their shards, make their ZeRO-1 moments in shards, and
+    run TRAIN_MESH_STEPS steps of the train Cell on their rows of the
+    TokenPipeline batches.  Writes its curve, step times, peak allocated
+    memory (the steps alone) and FSDP layer gathers a step."""
+    import torch.distributed as dist
+    from repro_torch.data import pipeline
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import registry
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.optim import adamw as axw
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    routes, _ = _record_routes()
+    try:
+        mesh = M.bind(M.make_mesh(shape, ("data", "model")), "cuda")
+        entry = _train_entry(registry, arch, layers)
+        cfg, tp = entry.config, shape[1]
+        ocfg = axw.AdamWConfig(**TRAIN_PARITY_OCFG)
+        cell, _ = steps_mod.build_cell(
+            entry, mesh, ShapeCell("train", seq, batch, "train"), ocfg=ocfg,
+            microbatch=microbatch)
+        params = None
+        for turn in range(world):
+            if turn == rank:
+                params, _, _ = cell.shard(entry.module.init(
+                    cfg, tp, device="cuda", seed=0), None, None)
+                torch.cuda.empty_cache()
+            dist.barrier()
+        opt = S.local_zeros(axw.init(entry.module.init(
+            cfg, tp, device="meta"), ocfg), cell.in_specs[1], mesh, "cuda")
+        data = _train_data(pipeline, cfg, batch, seq)
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        gathers = []
+        curve, times = [], []
+        for i in range(TRAIN_MESH_STEPS):
+            b = cell.shard(None, None, train_mod.model_batch(cfg, data,
+                                                             i))[2]
+            g0 = cell.fsdp.layer_gathers if cell.fsdp is not None else 0
+            params, opt, c, t = _train_curve(cell.step, params, opt, [b])
+            curve += c
+            times += t
+            if cell.fsdp is not None:
+                gathers.append(cell.fsdp.layer_gathers - g0)
+        torch.save(routes[:layers], out.format(rank) + ".routes.pt")
+        Path(out.format(rank)).write_text(json.dumps({
+            "curve": curve, "step_s": times, "fsdp": cell.fsdp is not None,
+            "layer_gathers_per_step": gathers,
+            "held_gb": held / 1e9,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _train_single(registry, steps_mod, train_mod, axw, pipeline, arch,
+                  layers, shape, batch, seq, microbatch):
+    """The same model's train step in this process under ``shape``'s
+    mesh description (float32, TF32 off): its (loss, gradient norm)
+    curve, step seconds and step 0's forward routing."""
+    from repro_torch.launch import mesh as M
+    entry = _train_entry(registry, arch, layers)
+    cfg, tp = entry.config, shape[1]
+    ocfg = axw.AdamWConfig(**TRAIN_PARITY_OCFG)
+    data = _train_data(pipeline, cfg, batch, seq)
+    params = entry.module.init(cfg, tp, device="cuda", seed=0)
+    step = steps_mod.make_train_step(entry, ocfg, tp,
+                                     M.make_mesh(shape, ("data", "model")),
+                                     microbatch)
+    routes, unrecord = _record_routes()
+    try:
+        # the trained parameters and moments are dropped here, before
+        # the ranks need the card
+        curve, times = _train_curve(
+            step, params, axw.init(params, ocfg),
+            [train_mod.model_batch(cfg, data, i)
+             for i in range(TRAIN_MESH_STEPS)])[2:]
+    finally:
+        unrecord()
+    del params, step
+    _free()
+    return curve, times, routes[:layers * shape[0]]
+
+
+def _train_mesh(registry, steps_mod, train_mod, axw, pipeline, smi, arch,
+                layers, shape, batch, seq, microbatch):
+    """(b) / (c): the ranks' curves against the single-process run's:
+    losses within TRAIN_LOSS_RTOL and gradient norms within
+    TRAIN_GNORM_RTOL, relative, on every rank; under FSDP every layer
+    gathered twice a step (forward and recomputation).  An MoE's step 0
+    must route every token as one process does, except at a tie
+    (ROUTE_TIE); where a tie broke the other way, only step 0 is held
+    (the runs diverge from there: the routes differ, and the first
+    AdamW step moves a parameter by about the learning rate whatever
+    its gradient's size, so gradients that differ in their last bits
+    can move it the other way), and the later steps' errors are
+    printed."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = shape[0] * shape[1]
+    label = (f"{arch} float32, {layers} layers, mesh ({shape[0]}, "
+             f"{shape[1]}), batch {batch} x {seq}, microbatch {microbatch}")
+    want, single_s, routes = _train_single(registry, steps_mod, train_mod,
+                                           axw, pipeline, arch, layers,
+                                           shape, batch, seq, microbatch)
+    results, out = _spawn_ranks(f"train-{arch}-{layers}-{shape[0]}x"
+                                f"{shape[1]}", world, _train_rank,
+                                (arch, layers, shape, batch, seq,
+                                 microbatch))
+    ties = []
+    if routes:
+        ties = _first_route_changes(routes, [
+            torch.load(out.format(d * shape[1]) + ".routes.pt")
+            for d in range(shape[0])], layers)
+        if any(g >= ROUTE_TIE for g in ties):
+            raise AssertionError(f"[train] {label}: step 0 routes tokens "
+                                 f"to other experts at logit gaps {ties}, "
+                                 f"not ties (< {ROUTE_TIE})")
+    held = 1 if ties else len(want)
+    errs = []
+    for r, res in enumerate(results):
+        for i, ((lg, gg), (lw, gw)) in enumerate(zip(res["curve"], want)):
+            errs.append((abs(lg - lw) / abs(lw), abs(gg - gw) / abs(gw)))
+            if i < held and not (errs[-1][0] <= TRAIN_LOSS_RTOL
+                                 and errs[-1][1] <= TRAIN_GNORM_RTOL):
+                raise AssertionError(
+                    f"[train] {label} rank {r}: (loss, gradient norm) "
+                    f"{res['curve']} against one process's {want}")
+        if res["fsdp"] and any(g != 2 * layers
+                               for g in res["layer_gathers_per_step"]):
+            raise AssertionError(
+                f"[train] {label} rank {r}: FSDP gathered "
+                f"{res['layer_gathers_per_step']} layers a step, want "
+                f"{2 * layers}")
+    print(f"[train] {label} on one card (gloo; {world} ranks share the "
+          f"card: step times are correctness runs and measure no "
+          f"collective bandwidth) " + json.dumps({
+              "single_process_curve": want,
+              "single_process_step_s": single_s,
+              "routing_ties_broken_otherwise": ties, "steps_held": held,
+              "loss_rel_err_by_step": [e[0] for e in errs[:len(want)]],
+              "grad_norm_rel_err_by_step": [e[1] for e in errs[:len(want)]],
+              "max_loss_rel_err": max(e[0] for e in errs),
+              "max_grad_norm_rel_err": max(e[1] for e in errs),
+              "ranks": results, "card": smi}))
+
+
 def phase_train(registry, smi):
     """The training path on the card; no kernel of the port is on it (the
     reference's kernels have no backward, and it trains without them)."""
@@ -2393,6 +2741,10 @@ def phase_train(registry, smi):
     _train_full(registry, steps_mod, train_mod, profile_mod, axw, pipeline,
                 smi)
     _train_resume(train_mod)
+    _train_world_one(registry, steps_mod, train_mod, axw, pipeline, smi)
+    for run in TRAIN_MESH_RUNS:
+        _train_mesh(registry, steps_mod, train_mod, axw, pipeline, smi,
+                    *run)
     print(f"[train] phase {time.perf_counter() - t0:.1f} s")
 
 

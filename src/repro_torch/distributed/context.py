@@ -7,7 +7,13 @@ The port's steps also say how their activations are held:
 ``batch_local`` when each rank holds its data shard of the batch (the
 reference's batch spec shards it), ``seq_sharded`` when each rank holds
 its context shard of the KV cache (the cache spec shards S over
-"model").
+"model").  Under FSDP the step also names its layer gatherer
+(``distributed.fsdp.LayerGather``, :func:`use_fsdp`): the model code
+gathers each layer's data shards where it uses the layer.
+
+The state is per thread, and autograd runs the backward of CUDA tensors
+in a thread of its own: a recomputation in backward (``layers.remat``)
+takes the forward's state along (:func:`snapshot`, :func:`restored`).
 """
 from __future__ import annotations
 
@@ -38,3 +44,32 @@ def use_mesh(mesh, *, local_batch: bool = False, local_seq: bool = False):
         yield mesh
     finally:
         _state.mesh, _state.batch_local, _state.seq_sharded = prev
+
+
+def fsdp():
+    """The active FSDP layer gatherer, or None."""
+    return getattr(_state, "fsdp", None)
+
+
+@contextlib.contextmanager
+def use_fsdp(gatherer):
+    prev = fsdp()
+    _state.fsdp = gatherer
+    try:
+        yield gatherer
+    finally:
+        _state.fsdp = prev
+
+
+def snapshot():
+    """The calling thread's whole state."""
+    return (current_mesh(), batch_local(), seq_sharded(), fsdp())
+
+
+@contextlib.contextmanager
+def restored(state):
+    """``state`` (a :func:`snapshot`) in force in the calling thread."""
+    mesh, local_batch, local_seq, gatherer = state
+    with use_mesh(mesh, local_batch=local_batch, local_seq=local_seq), \
+            use_fsdp(gatherer):
+        yield

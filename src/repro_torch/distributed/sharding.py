@@ -266,10 +266,21 @@ def gather_tensor(local: torch.Tensor, spec: Spec, mesh,
     return out
 
 
+def local_zeros(tree: Any, specs: Any, mesh, device) -> Any:
+    """Zeros of this rank's shard shapes of ``tree`` (meta tensors will
+    do) on ``device``: a state such as the optimizer's moments made in
+    its shards, without its full form."""
+    return tree_map(lambda t, s: None if t is None else torch.zeros(
+        shard_tensor(t, s, mesh).shape, dtype=t.dtype, device=device),
+        tree, specs)
+
+
 def shard_tree(tree: Any, specs: Any, mesh) -> Any:
-    return tree_map(lambda t, s: shard_tensor(t, s, mesh), tree, specs)
+    """This rank's shards of ``tree`` (a ``None`` leaf stays ``None``)."""
+    return tree_map(lambda t, s: None if t is None
+                    else shard_tensor(t, s, mesh), tree, specs)
 
 
 def gather_tree(tree: Any, specs: Any, mesh, axes=None) -> Any:
-    return tree_map(lambda t, s: gather_tensor(t, s, mesh, axes), tree,
-                    specs)
+    return tree_map(lambda t, s: None if t is None
+                    else gather_tensor(t, s, mesh, axes), tree, specs)

@@ -6,7 +6,8 @@ sizes.  The sharding rules and the planner read only that
 JAX mesh).  :func:`bind` attaches it to an initialised process group of
 the same size: a ``torch.distributed.device_mesh.DeviceMesh`` with the
 same named dimensions, one process group per axis (and one over the
-data axes together), and this rank's coordinate on each axis.  Nothing
+data axes together, and the world over all of them), and this rank's
+coordinate on each axis.  Nothing
 here initialises ``torch.distributed``: the caller does that, with its
 own address, world size and rank.
 
@@ -153,5 +154,7 @@ def bind(mesh: Mesh, device_type: Optional[str] = None) -> Mesh:
     daxes = data_axes(mesh)
     if len(daxes) > 1:
         groups[daxes] = _subgroups(dist, mesh, daxes, rank)
+    if len(mesh.axis_names) > 1:        # a leaf cut over every axis
+        groups[mesh.axis_names] = dist.group.WORLD
     coords = dict(zip(mesh.axis_names, dm.get_coordinate()))
     return replace(mesh, device_mesh=dm, groups=groups, coords=coords)

@@ -4,18 +4,32 @@ sharding (port of ``repro.launch.steps``).
 The train step: gradients come from ``torch.autograd`` through the
 model's ``loss``, then ``optim.adamw.update`` writes the new parameters
 and moments in place.  Nothing is written before every gradient exists,
-so a step that raises leaves the parameters and the optimizer state as
-they were (the trainer retries it).  It carries no sharding: its mesh
-form (data-parallel gradients, ZeRO-1 moments, FSDP) is ROADMAP queue 1,
-item 10.
+so a step that raises on one rank leaves the parameters and the
+optimizer state as they were (the trainer retries it).
 
-The prefill and serve steps run under a mesh.  ``assemble_shardings``
+Under a bound mesh the train step runs this rank's part of the
+reference's GSPMD program (the transformer families): its parameters
+are the shards of ``assemble_shardings``' spec tables, its batch rows
+its data shard, the model's collectives are autograd's
+(``distributed.collectives``), and the loss is the global batch's mean,
+so the gradients summed over the data axes are the global mean's.  Then
+ZeRO-1: each rank keeps the moments of its ``zero1_pspecs`` slice,
+updates its slice of each parameter and gathers the parameters back over
+the data axes.  Where the residency rule shards the parameters over the
+data axes too (FSDP), each layer is gathered where it runs
+(``distributed.fsdp``), its gradient comes back summed onto its shard,
+and such a leaf stays sharded through the update.
+
+The prefill and serve steps run under a mesh too.  ``assemble_shardings``
 gives a cell's argument stand-ins (meta tensors) and the reference's
 spec tables for them, and ``build_cell`` returns a :class:`Cell` that,
 on a bound mesh, cuts full arguments to this rank's shards by those
 specs and runs the step with explicit collectives.  With a mesh of more
 than one rank, the transformer families (dense, MoE, VLM text) run
-sharded; the others wait for ROADMAP queue 1, item 11.
+sharded; the others wait for ROADMAP queue 1, item 11.  Under a mesh
+that is a description only, a step runs the whole sharded program in
+one process (the MoE caps each data chunk's pairs, and runs each model
+rank's experts in turn).
 """
 from __future__ import annotations
 
@@ -26,8 +40,10 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed import collectives as C
 from repro_torch.distributed import context
 from repro_torch.distributed import sharding as sh
+from repro_torch.distributed.fsdp import LayerGather
 from repro_torch.distributed.seq_attention import make_seq_sharded_attn
 from repro_torch.launch.mesh import data_axes
 from repro_torch.models import registry
@@ -41,52 +57,170 @@ def _on(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
             for k, v in batch.items()}
 
 
-def _grads(mod, cfg, params, batch, tp: int):
+def _grads(mod, cfg, params, batch, tp: int, fs=None):
     """(loss, gradients in ``tree_leaves`` order).  The parameters are
     taken as fresh leaves over the same storage, so the caller's tensors
     never require grad; a leaf the loss does not reach (the VLM's
-    embedding table) gets zeros, as ``jax.grad`` gives."""
+    embedding table) gets zeros, as ``jax.grad`` gives.  Under FSDP
+    (``fs``) the leaves outside the blocks are gathered here, the layers
+    inside the model."""
     view = axw.tree_map(lambda p: p.detach().requires_grad_(), params)
-    loss = mod.loss(view, cfg, batch, tp=tp)
+    full = fs.gather_top(view) if fs is not None else view
+    loss = mod.loss(full, cfg, batch, tp=tp)
     grads = torch.autograd.grad(loss, axw.tree_leaves(view),
                                 allow_unused=True, materialize_grads=True)
     return loss.detach(), list(grads)
 
 
+def _accumulate(mod, cfg, params, batch, tp: int, microbatch: int, fs):
+    """(loss, gradients): ``microbatch`` > 1 accumulates float32
+    gradients over that many slices of ``batch`` (the loss too), then
+    divides, as the reference's scan does."""
+    if microbatch == 1:
+        return _grads(mod, cfg, params, batch, tp, fs)
+    rows = next(iter(batch.values())).shape[0]
+    if rows % microbatch:
+        raise ValueError(f"batch of {rows} does not split into "
+                         f"{microbatch} microbatches")
+    dev = next(iter(batch.values())).device
+    lsum = torch.zeros((), dtype=torch.float32, device=dev)
+    gsum = None
+    for i in range(microbatch):
+        mb = {k: v.chunk(microbatch)[i] for k, v in batch.items()}
+        l, g = _grads(mod, cfg, params, mb, tp, fs)
+        gsum = [x.float() for x in g] if gsum is None else \
+            [a + b.float() for a, b in zip(gsum, g)]
+        lsum = lsum + l
+    return lsum / microbatch, [g / microbatch for g in gsum]
+
+
+def microbatch_rows(global_batch: int, dsize: int,
+                    microbatch: int) -> torch.Tensor:
+    """The order of the global batch's rows whose contiguous data shards
+    are each rank's rows of every microbatch: microbatch ``i`` is rows
+    ``[i B/m, (i+1) B/m)`` of the global batch, cut over the ``dsize``
+    data ranks, so rank ``j`` holds rows ``i B/m + j B/(m d) + r`` for
+    each ``i`` in turn (as the reference's reshape of its data-sharded
+    batch gives each data chunk of a microbatch)."""
+    if global_batch % (microbatch * dsize):
+        raise ValueError(f"a global batch of {global_batch} rows does not "
+                         f"split into {microbatch} microbatches over "
+                         f"{dsize} data ranks")
+    per = global_batch // (microbatch * dsize)
+    return torch.tensor([i * global_batch // microbatch + j * per + r
+                         for j in range(dsize) for i in range(microbatch)
+                         for r in range(per)])
+
+
+class _Zero1:
+    """The ZeRO-1 bookkeeping of one sharded train step, leaf by leaf in
+    ``tree_leaves`` order: the dim its optimizer slice cuts over the data
+    axes beyond the parameter's own spec (``None``: the parameter is held
+    as its slice already, by FSDP, or no dim divides), the mesh axes that
+    slice is cut over (the global norm's and the compression scale's
+    reductions), and whether the parameter is FSDP-sharded (its gradient
+    comes out of backward summed over the data axes)."""
+
+    def __init__(self, mesh, pspec, zspec):
+        self.mesh = mesh
+        self.daxes = data_axes(mesh)
+        self.dsize = mesh.axis_size(self.daxes) if self.daxes else 1
+        self.zdim, self.axes, self.fsdp = [], [], []
+        for ps, zs in zip(axw.tree_leaves(pspec), axw.tree_leaves(zspec)):
+            named = {a for e in zs for a in sh._names(e)}
+            held = {a for e in ps for a in sh._names(e)}
+            self.fsdp.append(any(a in self.daxes for a in held))
+            self.zdim.append(next(
+                (d for d, (p, z) in enumerate(zip(ps, zs)) if z != p
+                 and self.dsize > 1), None))
+            self.axes.append(tuple(a for a in mesh.axis_names
+                                   if a in named))
+
+    def _slice(self, t: torch.Tensor, d) -> torch.Tensor:
+        if d is None:
+            return t
+        part = t.shape[d] // self.dsize
+        return t.narrow(d, self.mesh.coord(self.daxes) * part, part)
+
+    def gradients(self, grads):
+        """This rank's ZeRO-1 slices of the global gradients: a leaf's
+        local gradient summed over the data axes (FSDP leaves come so
+        from backward), then cut.  ``grads`` is emptied as it goes, so
+        each leaf's whole gradient is freed once its slice is cut."""
+        out = []
+        for i, (d, f) in enumerate(zip(self.zdim, self.fsdp)):
+            g, grads[i] = grads[i], None
+            if not f and self.dsize > 1:
+                g = C.all_reduce(g, self.mesh, self.daxes)
+            out.append(g if d is None else self._slice(g, d).clone())
+        return out
+
+    def views(self, params):
+        """This rank's slices of its parameter shards (views)."""
+        return [self._slice(p, d) for p, d in zip(params, self.zdim)]
+
+    def gather(self, params, views) -> None:
+        """Each parameter shard written from the data ranks' updated
+        slices."""
+        for p, v, d in zip(params, views, self.zdim):
+            if d is not None:
+                p.copy_(C.all_gather(v, self.mesh, self.daxes, d))
+
+
 def make_train_step(entry: registry.ArchEntry, ocfg: axw.AdamWConfig,
-                    tp: int = 1, microbatch: int = 1) -> Callable:
+                    tp: int = 1, mesh=None, microbatch: int = 1, *,
+                    shape: Optional[ShapeCell] = None) -> Callable:
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``; ``batch`` holds numpy arrays or tensors and goes to the
     parameters' device.  ``microbatch`` > 1 accumulates float32
     gradients over that many slices of the batch (the loss too), then
-    divides, as the reference's scan does."""
+    divides, as the reference's scan does.
+
+    Under a bound ``mesh``, ``shape`` gives the global batch; ``params``
+    are this rank's shards (``assemble_shardings``' spec), ``opt_state``
+    its ZeRO-1 slices and ``batch`` its rows (with ``microbatch`` > 1
+    in the order of :func:`microbatch_rows`).  The step's FSDP gatherer,
+    if any, is ``train_step.fsdp``."""
     cfg, mod = entry.config, entry.module
+    _check_family(cfg, mesh)
+    sharded = mesh is not None and mesh.bound
+    zero1, fs, held = None, None, {}
+    if sharded:
+        if shape is None:
+            raise ValueError("the train step on a bound mesh needs the "
+                             "cell's ShapeCell (its global batch)")
+        _, (pspec, ospec, _), _ = assemble_shardings(entry, mesh, "train",
+                                                     shape, ocfg)
+        zero1 = _Zero1(mesh, pspec, ospec.mu)
+        if shape.global_batch % (zero1.dsize * microbatch):
+            raise ValueError(f"a global batch of {shape.global_batch} rows "
+                             f"does not split over {zero1.dsize} data "
+                             f"ranks and {microbatch} microbatches")
+        held = {"local_batch": zero1.dsize > 1}
+        if LayerGather.needed(mesh, pspec):
+            fs = LayerGather(mesh, pspec, cfg.num_layers)
 
     def train_step(params, opt_state: axw.AdamWState, batch):
         dev = axw.tree_leaves(params)[0].device
         batch = _on(batch, dev)
-        if microbatch > 1:
-            rows = next(iter(batch.values())).shape[0]
-            if rows % microbatch:
-                raise ValueError(f"batch of {rows} does not split into "
-                                 f"{microbatch} microbatches")
-            lsum = torch.zeros((), dtype=torch.float32, device=dev)
-            gsum = None
-            for i in range(microbatch):
-                mb = {k: v.chunk(microbatch)[i] for k, v in batch.items()}
-                l, g = _grads(mod, cfg, params, mb, tp)
-                gsum = [x.float() for x in g] if gsum is None else \
-                    [a + b.float() for a, b in zip(gsum, g)]
-                lsum = lsum + l
-            loss = lsum / microbatch
-            grads = [g / microbatch for g in gsum]
+        with context.use_mesh(mesh, **held), context.use_fsdp(fs):
+            loss, grads = _accumulate(mod, cfg, params, batch, tp,
+                                      microbatch, fs)
+        if zero1 is None:
+            params, opt_state, metrics = axw.update(
+                axw.tree_unflatten(params, grads), opt_state, params, ocfg)
         else:
-            loss, grads = _grads(mod, cfg, params, batch, tp)
-        params, opt_state, metrics = axw.update(
-            axw.tree_unflatten(params, grads), opt_state, params, ocfg)
+            leaves = axw.tree_leaves(params)
+            views = zero1.views(leaves)
+            _, opt_state, metrics = axw.update(
+                axw.tree_unflatten(params, zero1.gradients(grads)),
+                opt_state, axw.tree_unflatten(params, views), ocfg,
+                mesh=mesh, axes=axw.tree_unflatten(params, zero1.axes))
+            zero1.gather(leaves, views)
         metrics["loss"] = loss
         return params, opt_state, metrics
 
+    train_step.fsdp = fs
     return train_step
 
 
@@ -270,8 +404,11 @@ class Cell:
     ``cell(*full_args)`` cuts full arguments to this rank's shards by
     ``in_specs`` and runs the step; ``cell.step(*local_args)`` runs it on
     shards already cut (``cell.shard``), so a decode loop keeps its cache
-    sharded.  Outputs are held as ``out_specs`` say; ``cell.gather``
-    gathers them to full tensors."""
+    sharded and a train loop its parameters and moments.  Outputs are
+    held as ``out_specs`` say; ``cell.gather`` gathers them to full
+    tensors.  Under FSDP, ``fsdp`` is the step's layer gatherer: the
+    leaves outside the blocks are gathered whole at the start of a step
+    and each layer where it runs (``layer_gathers`` counts them)."""
     kind: str
     mesh: Any
     fn: Callable
@@ -279,24 +416,47 @@ class Cell:
     in_specs: Tuple[Any, ...]
     out_specs: Tuple[Any, ...]
     held_specs: Tuple[Any, ...]
+    fsdp: Optional[LayerGather] = None
+    microbatch: int = 1
 
     def shard(self, *full_args):
+        """This rank's shards of full arguments (a ``None`` argument stays
+        ``None``).  A train batch is cut by rows, in the order of
+        :func:`microbatch_rows` with ``microbatch`` > 1."""
+        specs = self.in_specs
+        if self.kind == "train" and full_args[2] is not None:
+            params, opt, batch = full_args
+            batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+            if self.microbatch > 1:
+                dsize = self.mesh.axis_size(data_axes(self.mesh))
+                rows = next(iter(batch.values())).shape[0]
+                order = microbatch_rows(rows, dsize, self.microbatch)
+                batch = {k: v[order.to(v.device)] for k, v in batch.items()}
+            row = next(iter(specs[2].values()))[:1]
+            specs = specs[:2] + ({k: specs[2].get(k, row) for k in batch},)
+            full_args = (params, opt, batch)
         return tuple(sh.shard_tree(a, s, self.mesh)
-                     for a, s in zip(full_args, self.in_specs))
+                     for a, s in zip(full_args, specs))
+
+    def run_with(self, fn: Callable, params, *rest):
+        """``fn(params, *rest)`` on this cell's parameter shards under its
+        FSDP gathers (another step on the same shards, such as a prefill
+        into the serve cell's cache)."""
+        with context.use_fsdp(self.fsdp):
+            if self.fsdp is not None:
+                params = self.fsdp.gather_top(params)
+            return fn(params, *rest)
 
     def step(self, *local_args):
-        params, *rest = local_args
-        # FSDP shards: gather the data axes back (the reference's layer
-        # scan re-gathers them at each use)
-        params = sh.gather_tree(params, self.in_specs[0], self.mesh,
-                                axes=data_axes(self.mesh))
-        out = self.fn(params, *rest)
+        if self.kind == "train":
+            return self.fn(*local_args)
+        out = self.run_with(self.fn, *local_args)
         return tuple(sh.tree_map(
             lambda t, h, w: _reshard(t, h, w, self.mesh), o, hs, ws)
             for o, hs, ws in zip(out, self.held_specs, self.out_specs))
 
     def gather(self, outputs):
-        return tuple(sh.gather_tree(o, s, self.mesh)
+        return tuple(o if s == () else sh.gather_tree(o, s, self.mesh)
                      for o, s in zip(outputs, self.out_specs))
 
     def __call__(self, *full_args):
@@ -305,16 +465,19 @@ class Cell:
 
 def build_cell(entry: registry.ArchEntry, mesh, shape: ShapeCell,
                seq_sharded_attn: bool = False,
+               ocfg: Optional[axw.AdamWConfig] = None, microbatch: int = 1,
                prefill_chunk: Optional[int] = None):
     """``(cell, args)``: the :class:`Cell` of one (arch x shape) on
     ``mesh`` (bound, to run it) and its argument stand-ins."""
     tp = mesh.shape["model"]
     kind = shape.kind
+    args, in_specs, out_specs = assemble_shardings(entry, mesh, kind, shape,
+                                                   ocfg)
     if kind == "train":
-        raise ValueError("the sharded train step (data-parallel gradients, "
-                         "ZeRO-1 moments, FSDP) is ROADMAP queue 1, item "
-                         "10; make_train_step runs one rank")
-    args, in_specs, out_specs = assemble_shardings(entry, mesh, kind, shape)
+        fn = make_train_step(entry, ocfg or axw.AdamWConfig(), tp, mesh,
+                             microbatch, shape=shape)
+        return Cell(kind, mesh, fn, args, in_specs, out_specs, out_specs,
+                    fn.fsdp, microbatch), args
     if kind == "prefill":
         fn = make_prefill_step(entry, tp, mesh, max_seq=shape.seq_len,
                                chunk=prefill_chunk, shape=shape)
@@ -323,6 +486,8 @@ def build_cell(entry: registry.ArchEntry, mesh, shape: ShapeCell,
         fn = make_serve_step(entry, tp, mesh,
                              seq_sharded_attn=seq_sharded_attn, shape=shape)
         rows = in_specs[2][:1]
+    fs = LayerGather(mesh, in_specs[0], entry.config.num_layers) \
+        if LayerGather.needed(mesh, in_specs[0]) else None
     # the step returns this rank's rows of the logits
     held = (rows + (None,), out_specs[1])
-    return Cell(kind, mesh, fn, args, in_specs, out_specs, held), args
+    return Cell(kind, mesh, fn, args, in_specs, out_specs, held, fs), args

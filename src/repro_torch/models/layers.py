@@ -22,10 +22,19 @@ gathered to full width where its consumer needs it (``qkv_project``,
 ``embed``, ``unembed``), a row-parallel product is summed over "model"
 (``row_parallel``; the FFN's up/gate -> down chain needs no gather).
 Whether a weight is sharded is read from its shape against the global
-width the caller names.  The reference's ``seq_constraint``,
-``_moe_constraint`` and ``_embed_constraint`` are left out: they only
-tell GSPMD where to place data and never change a value, and here each
-rank holds exactly its shards already.
+width the caller names.  The collectives are autograd's
+(``distributed.collectives``): every activation outside a sharded
+product is replicated over "model", the replicated input of a
+column-parallel product goes through ``copy_to`` (its gradient summed
+over "model"), and so does the MoE's routing weights where a rank holds
+some of the experts; a replicated leaf (a norm, the router) gets the
+same gradient on every model rank.  ``lm_loss_chunked`` takes a
+vocab-parallel head's log-sum-exp over the ranks' columns, and under
+data parallelism the masked mean over the global batch.  The
+reference's ``seq_constraint``, ``_moe_constraint`` and
+``_embed_constraint`` are left out: they only tell GSPMD where to place
+data and never change a value, and here each rank holds exactly its
+shards already.
 """
 from __future__ import annotations
 
@@ -69,9 +78,10 @@ def row_reduce(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     dim K/P) and rows ``w`` (K/P, N), summed over "model": the partial
     is kept in float32 and rounded once, after the sum.  On the card a
     16-bit product reads ``w`` as it is and writes its float32
-    accumulator (``out_dtype``); the host has no such product and
-    widens both operands."""
-    if w.is_cuda and w.dtype in (torch.bfloat16, torch.float16):
+    accumulator (``out_dtype``); the host, and a product autograd
+    records, widen both operands."""
+    if w.is_cuda and w.dtype in (torch.bfloat16, torch.float16) \
+            and not torch.is_grad_enabled():
         y = torch.mm(x.reshape(-1, x.shape[-1]).to(w.dtype), w,
                      out_dtype=torch.float32).reshape(*x.shape[:-1],
                                                       w.shape[-1])
@@ -88,8 +98,16 @@ def row_parallel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if k == x.shape[-1]:
         return x @ w
     mesh = _require_model_mesh()
-    i = mesh.coord("model")
-    return row_reduce(x[..., i * k:(i + 1) * k], w)
+    return row_reduce(C.split(x, mesh, "model", x.ndim - 1), w)
+
+
+def column_input(x: torch.Tensor, w: torch.Tensor,
+                 width: int) -> torch.Tensor:
+    """``x`` as the input of ``x @ w``: where ``w``'s columns are a shard
+    (fewer than ``width``), its gradient is summed over "model"."""
+    if w.shape[-1] >= width:
+        return x
+    return C.copy_to(x, _require_model_mesh(), "model")
 
 
 def _require_model_mesh():
@@ -211,9 +229,9 @@ def qkv_project(p: Params, x: torch.Tensor, hq: int, hkv: int, dh: int):
     """q, k, v of full heads; column-parallel shards (and their bias
     shards) are gathered, so a shard that splits a head is fine."""
     b, s, _ = x.shape
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    q = column_input(x, p["wq"], hq * dh) @ p["wq"]
+    k = column_input(x, p["wk"], hkv * dh) @ p["wk"]
+    v = column_input(x, p["wv"], hkv * dh) @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q, k, v = (gather_cols(t, h * dh) for t, h in ((q, hq), (k, hkv),
@@ -373,12 +391,15 @@ def apply_ffn(p: Params, x: torch.Tensor, act: str,
     """``d_ff`` (the global hidden width) marks a model-sharded FFN: up
     and gate column-parallel chained into down row-parallel, one
     ``all_reduce`` for the whole FFN."""
+    sharded = d_ff is not None and p["w_down"].shape[-2] < d_ff
+    if sharded:
+        x = C.copy_to(x, _require_model_mesh(), "model")
     h = x @ p["w_up"]
     if "w_gate" in p:
         h = _act(act, x @ p["w_gate"]) * h
     else:
         h = _act(act, h)
-    if d_ff is not None and p["w_down"].shape[-2] < d_ff:
+    if sharded:
         return row_reduce(h, p["w_down"])
     return h @ p["w_down"]
 
@@ -528,7 +549,8 @@ def apply_moe(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
     e_local = p["w_up"].shape[-3]
     if e_local < cfg.num_experts:       # this rank's experts of a split
         mm = _require_model_mesh()
-        y = _moe_partial(p, x, weights, experts, cfg, nx,
+        y = _moe_partial(p, C.copy_to(x, mm, "model"),
+                         C.copy_to(weights, mm, "model"), experts, cfg, nx,
                          mm.coord("model") * e_local, e_local, False)
         y = C.all_reduce(y.float(), mm, "model").to(y.dtype)
     else:
@@ -557,7 +579,9 @@ def _apply_moe_ep(p: Params, x: torch.Tensor, cfg, mesh,
     its E/P experts below capacity (the rest go to its trash row),
     weights and sums them over k in float32, and the ranks' float32
     partials are summed with one ``all_reduce`` over "model", then
-    rounded.  On a mesh that is a description only, this process runs
+    rounded (in backward, the gradients of the tokens and routing weights
+    they used are summed over "model").  On a mesh that is a description
+    only, this process runs
     every model rank's part in turn (full expert weights) and sums them
     in rank order: the same program, and the same products chunk by
     chunk, in one process."""
@@ -569,6 +593,9 @@ def _apply_moe_ep(p: Params, x: torch.Tensor, cfg, mesh,
     for i in range(nx):
         xc = x[i * tl:(i + 1) * tl]
         weights, experts = _route(p, xc, cfg)
+        if mesh.bound:      # this rank's experts' gradients are partial
+            xc = C.copy_to(xc, mesh, "model")
+            weights = C.copy_to(weights, mesh, "model")
         y = None
         for r in ranks:
             local = p if p["w_up"].shape[-3] == el else \
@@ -613,8 +640,9 @@ def unembed(p: Params, h: torch.Tensor,
     w = p.get("head")
     if w is None:
         return row_parallel(h, p["table"].T)
-    y = h @ w
-    return gather_cols(y, vocab) if vocab else y
+    if vocab:
+        return gather_cols(column_input(h, w, vocab) @ w, vocab)
+    return h @ w
 
 
 # ---------------------------------------------------------------------------
@@ -642,35 +670,89 @@ def unstack(tree: Params) -> list:
 
 def remat(fn, *args):
     """``fn(*args)``, its activations recomputed in backward instead of
-    saved (the reference's ``jax.checkpoint``) when autograd records."""
+    saved (the reference's ``jax.checkpoint``) when autograd records.
+    The recomputation runs under the forward's distribution context
+    (autograd's backward of CUDA tensors runs in a thread of its own)."""
     if torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        state = context.snapshot()
+
+        def under_forward_context(*xs):
+            with context.restored(state):
+                return fn(*xs)
+        return checkpoint(under_forward_context, *args, use_reentrant=False)
     return fn(*args)
 
 
-def _chunk_ce(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
-              mask: torch.Tensor):
-    logits = h.float() @ w
+def _ce_sums(logits: torch.Tensor, labels: torch.Tensor,
+             mask: torch.Tensor):
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None])[..., 0]
     ce = (lse - gold) * mask
     return ce.sum(), mask.sum()
 
 
+def _chunk_ce(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+              mask: torch.Tensor):
+    return _ce_sums(h.float() @ w, labels, mask)
+
+
+def _chunk_ce_tied_parallel(h: torch.Tensor, w: torch.Tensor,
+                            labels: torch.Tensor, mask: torch.Tensor):
+    """``_chunk_ce`` with ``h`` this rank's slice of the hidden width and
+    ``w`` its rows (d/P, V) of a tied table: the full logits are the
+    row-parallel product summed over "model"."""
+    logits = C.all_reduce(h.float() @ w, _require_model_mesh(), "model")
+    return _ce_sums(logits, labels, mask)
+
+
+def _chunk_ce_vocab_parallel(h: torch.Tensor, w: torch.Tensor,
+                             labels: torch.Tensor, mask: torch.Tensor):
+    """``_chunk_ce`` over this rank's vocabulary columns ``w`` (d, V/P):
+    the log-sum-exp by an ``all_reduce`` MAX (a stabiliser, not
+    differentiated) and SUM over "model", the gold logit from the rank
+    whose columns hold the label."""
+    mesh = _require_model_mesh()
+    logits = C.copy_to(h.float(), mesh, "model") @ w      # (B, c, V/P)
+    vl = logits.shape[-1]
+    m = C.all_reduce(logits.detach().amax(-1), mesh, "model", "max")
+    se = torch.exp(logits - m[..., None]).sum(-1)
+    lse = torch.log(C.all_reduce(se, mesh, "model")) + m
+    local = labels - mesh.coord("model") * vl
+    own = (local >= 0) & (local < vl)
+    gold = torch.gather(logits, -1, local.clamp(0, vl - 1)[..., None])[..., 0]
+    gold = C.all_reduce(torch.where(own, gold, 0.0), mesh, "model")
+    ce = (lse - gold) * mask
+    return ce.sum(), mask.sum()
+
+
 def lm_loss_chunked(p_embed: Params, h: torch.Tensor, labels: torch.Tensor,
                     mask: Optional[torch.Tensor] = None,
-                    chunk: int = 512) -> torch.Tensor:
+                    chunk: int = 512, vocab: Optional[int] = None
+                    ) -> torch.Tensor:
     """Mean masked cross-entropy over the head without materializing
     (B, S, V) logits: the sequence is walked in chunks whose float32
-    (B, chunk, V) logits are recomputed in backward."""
+    (B, chunk, V) logits are recomputed in backward.
+
+    ``vocab`` (the global, padded vocabulary) marks a head whose columns
+    may be a shard over "model" (vocab-parallel cross-entropy); a tied,
+    d-sharded table gives full logits by a row-parallel product.  When
+    the step holds its data shard of the batch (``context.batch_local``)
+    the sums of the masked losses and of the mask are taken over the
+    data axes, so every rank returns the global batch's mean."""
     b, s, _ = h.shape
     chunk = min(chunk, s)
     if s % chunk:
         raise ValueError(f"sequence {s} is not a multiple of the loss "
                          f"chunk {chunk}")
     w = p_embed.get("head")
+    ce_fn = _chunk_ce
     if w is None:
         w = p_embed["table"].T
+        if w.shape[0] < h.shape[-1]:          # d-sharded tied table
+            h = C.split(h, _require_model_mesh(), "model", h.ndim - 1)
+            ce_fn = _chunk_ce_tied_parallel
+    elif vocab and w.shape[-1] < vocab:
+        ce_fn = _chunk_ce_vocab_parallel
     w = w.float()
     labels = labels.long()
     if mask is None:
@@ -679,8 +761,13 @@ def lm_loss_chunked(p_embed: Params, h: torch.Tensor, labels: torch.Tensor,
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for c0 in range(0, s, chunk):
         part = slice(c0, c0 + chunk)
-        ce, n = remat(_chunk_ce, h[:, part], w, labels[:, part],
+        ce, n = remat(ce_fn, h[:, part], w, labels[:, part],
                       mask[:, part].float())
         tot = tot + ce
         cnt = cnt + n
+    mesh = context.current_mesh()
+    if mesh is not None and mesh.bound and context.batch_local():
+        daxes = data_axes(mesh)
+        tot = C.all_reduce(tot, mesh, daxes)
+        cnt = C.all_reduce(cnt.detach(), mesh, daxes)
     return tot / torch.clamp(cnt, min=1.0)

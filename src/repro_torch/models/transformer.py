@@ -14,10 +14,13 @@ precomputed patch embeddings (``embeds``, the frontend stub) and
 (B, S, 3) M-RoPE positions; text positions are the one stream repeated.
 
 Under a bound mesh (``distributed.context.use_mesh``, set by the steps
-of ``launch.steps``) ``prefill`` and ``decode_step`` run this rank's part
-of the reference's sharded program: the parameters are the shards of
-``distributed.sharding.param_pspecs`` (heads and vocab padded for the
-model size ``tp``), the batch is this rank's data shard, and with
+of ``launch.steps``) ``loss``, ``prefill`` and ``decode_step`` run this
+rank's part of the reference's sharded program (``loss`` under
+autograd, its collectives differentiable; under FSDP each layer's data
+shards are gathered where the layer runs, inside the recomputed block):
+the parameters are the shards of ``distributed.sharding.param_pspecs``
+(heads and vocab padded for the model size ``tp``), the batch is this
+rank's data shard, and with
 ``seq_sharded`` each rank holds its context shard of the KV cache: the
 new K/V position is written by the rank whose shard holds it, and the
 attention either combines the shards' partials (the sequence-sharded
@@ -93,7 +96,12 @@ def init(cfg: ArchConfig, tp: int = 1, *, device="cuda",
 
 
 def layer_params(params: Params, li: int) -> Params:
-    """Layer ``li``'s slice of the stacked block tree (views, no copy)."""
+    """Layer ``li``'s slice of the stacked block tree (views, no copy);
+    under FSDP (``context.fsdp``) gathered over the data axes."""
+    fs = context.fsdp()
+    if fs is not None:
+        return fs.layer(fs.local(params["blocks"], li), li)
+
     def take(tree):
         return {k: take(v) if isinstance(v, dict) else v[li]
                 for k, v in tree.items()}
@@ -157,14 +165,20 @@ def forward_seq(params: Params, cfg: ArchConfig,
     if positions is None:
         positions = _positions(cfg, 0, s, b, x.device)
 
-    def block(x, lp):
+    fs = context.fsdp()
+
+    def block(x, lp, li):
+        if fs is not None:          # FSDP: gathered here, so recomputed
+            lp = fs.layer(lp, li)
         q, k, v = _qkv_rope(cfg, lp, x, positions, hq, hkv)
         attn = L.blocked_attention(q, k, v, causal=True)
         return _attn_ffn_tail(cfg, lp, x, attn), k, v
 
     ks, vs = [], []
-    for lp in L.unstack(params["blocks"]):
-        x, k, v = L.remat(block, x, lp) if remat else block(x, lp)
+    layers = fs.pieces(params["blocks"]) if fs is not None \
+        else L.unstack(params["blocks"])
+    for li, lp in enumerate(layers):
+        x, k, v = L.remat(block, x, lp, li) if remat else block(x, lp, li)
         if collect_cache:
             ks.append(k)
             vs.append(v)
@@ -182,7 +196,7 @@ def loss(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
                        positions=batch.get("positions"),
                        embeds=batch.get("embeds"), tp=tp)
     return L.lm_loss_chunked(params["embed"], h, batch["labels"],
-                             batch.get("mask"))
+                             batch.get("mask"), vocab=cfg.padded_vocab(tp))
 
 
 def prefill(params: Params, cfg: ArchConfig,

@@ -13,14 +13,23 @@ it was given, in place, walking each leaf in slices of at most
 ``_SLICE`` elements along its first (layer) axis: a full-width stacked
 leaf in float32 would otherwise be a multi-GB temporary.  The slices
 are independent elementwise updates, so slicing changes no value.
+
+Under a mesh (ZeRO-1, driven by ``launch.steps``) every tree handed to
+:func:`update` holds this rank's slices of the leaves, and ``axes``
+names, leaf by leaf, the mesh axes a slice is cut over: the global norm
+sums each leaf's squares over its axes (so an element counts once, and a
+leaf replicated over an axis is not counted once per rank), and the
+compression's per-leaf scale takes its ``max|x|`` over them.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Iterator, List, NamedTuple, Tuple
+from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
+
+from repro_torch.distributed import collectives as C
 
 #: most elements of one leaf updated at a time (64 MB of float32)
 _SLICE = 1 << 24
@@ -121,10 +130,31 @@ def schedule(step: torch.Tensor, cfg: AdamWConfig) -> torch.Tensor:
     return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
 
 
-def global_norm(tree) -> torch.Tensor:
+def _over_axes(values: List[torch.Tensor], axes: List[Tuple[str, ...]],
+               mesh, op: str) -> List[torch.Tensor]:
+    """Each 0-d ``values[i]`` reduced (``op``) over the mesh axes
+    ``axes[i]``: one collective per distinct set of axes."""
+    out = list(values)
+    for key in sorted(set(axes)):
+        idx = [i for i, a in enumerate(axes) if a == key]
+        if key and mesh.axis_size(key) > 1:
+            red = C.all_reduce(torch.stack([values[i] for i in idx]), mesh,
+                               key, op)
+            for j, i in enumerate(idx):
+                out[i] = red[j]
+    return out
+
+
+def global_norm(tree, mesh=None, axes=None) -> torch.Tensor:
+    """The L2 norm of every leaf's elements, the leaves summed in tree
+    order; under a mesh each leaf's sum of squares is first summed over
+    its ``axes`` (a tree like ``tree``)."""
+    sqs = [sum(torch.sum(torch.square(s.float())) for (s,) in _slices(leaf))
+           for leaf in tree_leaves(tree)]
+    if mesh is not None:
+        sqs = _over_axes(sqs, tree_leaves(axes), mesh, "sum")
     total = 0
-    for leaf in tree_leaves(tree):
-        sq = sum(torch.sum(torch.square(s.float())) for (s,) in _slices(leaf))
+    for sq in sqs:
         total = total + sq
     return torch.sqrt(total)
 
@@ -146,8 +176,12 @@ def clip_by_global_norm(grads, max_norm: float):
 # ---------------------------------------------------------------------------
 # int8 error-feedback compression (cross-pod gradient-reduction payload)
 # ---------------------------------------------------------------------------
-def compress_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    scale = x.abs().max() / _f32(127.0, x) + 1e-12
+def compress_int8(x: torch.Tensor, amax: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 codes of ``x`` and their scale, ``max|x| / 127`` over the
+    whole leaf (``amax``, where ``x`` is one shard of it)."""
+    amax = x.abs().max() if amax is None else amax
+    scale = amax / _f32(127.0, x) + 1e-12
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -156,19 +190,27 @@ def decompress_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
 
 
-def _ef_one(g: torch.Tensor, e: torch.Tensor):
+def _ef_one(g: torch.Tensor, e: torch.Tensor, mesh=None, axes=()):
     gf = g.float() + e
-    q, s = compress_int8(gf)
+    amax = None
+    if mesh is not None and axes:
+        amax = C.all_reduce(gf.abs().max(), mesh, axes, "max")
+    q, s = compress_int8(gf, amax)
     deq = decompress_int8(q, s)
     return deq.to(g.dtype), gf - deq
 
 
-def ef_compress_grads(grads, ef):
+def ef_compress_grads(grads, ef, mesh=None, axes=None):
     """Error feedback: the residual of the previous step is added before
     quantization; the new residual is what quantization lost.  Each leaf
-    is quantized whole (one scale per leaf), so this holds one leaf's
-    float32 temporaries at a time."""
-    pairs = tree_map(_ef_one, grads, ef)
+    is quantized whole (one scale per leaf; under a mesh the max over
+    the leaf's shards), so this holds one leaf's float32 temporaries at
+    a time."""
+    if mesh is None:
+        pairs = tree_map(_ef_one, grads, ef)
+    else:
+        pairs = tree_map(lambda g, e, a: _ef_one(g, e, mesh, a), grads, ef,
+                         axes)
     return tree_map(lambda t: t[0], pairs), tree_map(lambda t: t[1], pairs)
 
 
@@ -186,21 +228,23 @@ def _update_slice(p, g, m, v, lr, bc1, bc2, cfg: AdamWConfig) -> None:
 
 
 @torch.no_grad()
-def update(grads, state: AdamWState, params,
-           cfg: AdamWConfig) -> Tuple[Any, AdamWState, Dict[str, Any]]:
+def update(grads, state: AdamWState, params, cfg: AdamWConfig, mesh=None,
+           axes=None) -> Tuple[Any, AdamWState, Dict[str, Any]]:
     """Clip, optionally compress, and apply one AdamW step.
 
     ``params`` and the moments of ``state`` are updated in place and
     returned; ``grads`` are only read (with compression the compressed
-    gradients are new tensors).  Returns ``(params, new_state,
+    gradients are new tensors).  Under a bound ``mesh`` every tree holds
+    this rank's slices and ``axes`` (a tree of axis-name tuples) says
+    what each leaf's slice is cut over.  Returns ``(params, new_state,
     {"grad_norm", "lr"})``.
     """
-    norm = global_norm(grads)
+    norm = global_norm(grads, mesh, axes)
     scale = _clip_scale(norm, cfg.clip_norm)
     ef = state.ef
     if cfg.compress_grads:
         grads, ef = ef_compress_grads(
-            tree_map(lambda g: _clipped(g, scale), grads), ef)
+            tree_map(lambda g: _clipped(g, scale), grads), ef, mesh, axes)
         scale = None                    # already applied
     step = state.step + 1
     lr = schedule(state.step, cfg)

@@ -436,9 +436,12 @@ def test_waiting_families_raise_their_item():
             TSTEPS.make_serve_step(entry, 2, mesh, shape=cell)
         with pytest.raises(ValueError, match="item 11"):
             TSTEPS.build_cell(entry, mesh, cell)
-    with pytest.raises(ValueError, match="item 10"):
-        TSTEPS.build_cell(TR.get("yi-6b", reduced=True), mesh,
-                          ShapeCell("t", 64, 4, "train"))
+    # the transformer families build their train cell
+    cell, args = TSTEPS.build_cell(TR.get("yi-6b", reduced=True), mesh,
+                                   ShapeCell("t", 64, 4, "train"))
+    assert cell.kind == "train" and cell.fsdp is None
+    assert set(cell.in_specs[2]) == {"tokens", "labels"}
+    assert args[0]["blocks"]["attn"]["wq"].is_meta
 
 
 def test_mesh_description_runs_the_sharded_program_in_one_process(runs):

@@ -5,7 +5,10 @@ the reference's argument errors."""
 import ast
 import dataclasses
 import json
+import os
 import pathlib
+import subprocess
+import sys
 
 import numpy as np
 
@@ -406,12 +409,30 @@ def test_train_cli_trains_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", ["--data", "--model"])
-def test_train_cli_refuses_a_mesh(flag, capsys):
+def test_train_cli_refuses_a_mesh(flag):
+    """A mesh of two ranks in one process without a process group is
+    refused, naming the launcher that starts one process per rank."""
     from repro_torch.launch import train
-    with pytest.raises(SystemExit) as exc:
+    with pytest.raises(RuntimeError, match="torch.distributed.run"):
         train.main(["--device", "cpu", flag, "2"])
-    assert exc.value.code == 2
-    assert "item 10" in capsys.readouterr().err
+
+
+def test_train_cli_trains_on_a_mesh_under_torchrun(tmp_path):
+    """``python -m torch.distributed.run --nproc-per-node 2 -m
+    repro_torch.launch.train --device cpu --data 2``: two gloo ranks
+    train the data-parallel step; rank 0 prints and saves."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
+         "--device", "cpu", "--data", "2", "--steps", "3",
+         "--global-batch", "4", "--seq", "32", "--ckpt-dir",
+         str(tmp_path)], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=300)
+    assert run.returncode == 0, run.stdout[-2000:] + run.stderr[-4000:]
+    assert run.stdout.count("[train] done") == 1
+    assert (tmp_path / "step_0000000003" / "manifest.json").exists()
 
 
 def test_quickstart_and_train_lm_run_on_cpu(tmp_path, capsys):

@@ -344,6 +344,30 @@ def test_trainer_trains_every_family(arch):
 
 
 def test_trainer_refuses_a_mesh():
-    with pytest.raises(ValueError, match="item 10"):
+    """A mesh of two ranks without a process group is refused, naming
+    the launcher that starts one process per rank."""
+    with pytest.raises(RuntimeError, match="torch.distributed.run"):
         TT.train("yi-6b", steps=1, global_batch=2, seq=32, ckpt_dir=None,
                  mesh_shape=(2, 1), device="cpu")
+
+
+def test_trainer_on_a_one_rank_group_matches_the_unsharded_step():
+    """Under an initialised process group of one rank the trainer runs
+    the train ``Cell`` of mesh (1, 1): its losses are the unsharded
+    step's, bit for bit."""
+    import socket
+
+    import torch.distributed as dist
+    kw = dict(steps=3, global_batch=2, seq=32, ckpt_dir=None,
+              log_every=100, device="cpu")
+    want = TT.train("qwen3-30b-a3b", **kw)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        got = TT.train("qwen3-30b-a3b", **kw)
+    finally:
+        dist.destroy_process_group()
+    assert got["losses"] == want["losses"]
