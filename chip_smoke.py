@@ -43,6 +43,9 @@ Phases, one line each; any failure raises and exits non-zero:
                (exact zeros included) on the chunked design; the state
                carry wkv6(T1+T2) == wkv6(T2) . wkv6(T1) and the new state
                written over the old one in place, on the chunked design;
+               and at a rank's 32 heads under a model axis of 2, float32,
+               (B, T) = (4, 1) serial and (4, 96) chunked (the sharded
+               rwkv6 steps' shapes in the dist phase);
              * the decode GEMM at rwkv6-7b's decode products, M=4, bf16:
                (N, K) = (14336, 4096) IS, (4096, 14336) and (4096, 4096)
                OS, then (16, 14336, 4096) IS, a ragged bf16 case of each
@@ -173,8 +176,20 @@ Phases, one line each; any failure raises and exits non-zero:
              layers: past the reference's FSDP residency rule, so each
              rank holds its data shard of the model-axis shards and
              gathers one layer at a time, once in the prefill and once a
-             step) the greedy tokens are equal.  Each rank draws the
-             full weights in turn and keeps its shards.  A failed rank
+             step) the greedy tokens are equal.  Then the recurrent and
+             encoder-decoder families: rwkv6-7b and recurrentgemma-9b on
+             two ranks, mesh (1, 2), at full width and depth in bf16
+             (logits held as above; the wrong-shard control swaps the
+             row halves of rwkv6's time-mix ``wo`` and of
+             RecurrentGemma's recurrent ``w_out``) and at 8 layers in
+             float32 (tokens equal), and whisper-small at full width and
+             depth in float32 on four ranks, mesh (2, 2), with frames
+             from a seed (tokens equal).  The sharded rwkv6 steps run
+             the WKV6 kernel on each rank's 32 heads: (1 prefill + 16
+             steps) x layers launches a rank, the prefill's on the
+             chunked design, counted from 0 and asserted.  Each rank
+             draws the full weights in turn and keeps its shards, and
+             reports its launches, peak memory and times.  A failed rank
              fails the phase; times of ranks sharing one card are
              correctness runs and measure no collective bandwidth.
 6. train   — the training path (no kernel of the port is on it: the
@@ -212,9 +227,15 @@ Phases, one line each; any failure raises and exits non-zero:
              qwen3-30b-a3b at full width, 2 layers (the expert-parallel
              MoE's backward: step 0 must route every token as the one
              process does except at a tie, ROUTE_TIE, and after a tie
-             broke the other way only step 0 is held).  Times of ranks
-             sharing one card measure no collective bandwidth.  Prints
-             its time.
+             broke the other way only step 0 is held); (d) full width:
+             rwkv6-7b at 2 layers and whisper-small at 2 + 2 layers on
+             four ranks, mesh (2, 2), and recurrentgemma-9b at 5 layers
+             on two, mesh (1, 2); each first measures its own float
+             noise (one process at twice the microbatches against one
+             process) and holds the steps before that noise passes the
+             tolerances (TRAIN_NOISE_FLOOR).  Times of ranks sharing one
+             card measure no collective bandwidth.  Prints each run's
+             time and its ranks' peak memory, and the phase's time.
 
 The last three lines are the kernels' JSON, the card's name and power
 limit as nvidia-smi reports them, and the result JSON.  Exits non-zero
@@ -290,6 +311,9 @@ WKV_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
 GEMM_TOL = {torch.float32: dict(rtol=5e-3, atol=1e-3),
             torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 WKV_H, WKV_HS = 64, 64          # rwkv6-7b: d 4096 / head size 64
+# one rank's heads under a model axis of 2, at the [dist] phase's decode
+# batch: a decode step and its 96-token prefill, (B, T)
+WKV_SHARD_H, WKV_SHARD_CASES = WKV_H // 2, ((4, 1), (4, 96))
 # whole-prompt prefills (B, T): a short prompt, the profiled context and
 # PR 12's timed shape
 WKV_PREFILLS = ((1, 128), (1, 768), (1, 1024))
@@ -311,14 +335,31 @@ TRAIN_FULL = ("stablelm-3b", 8, 512, 8)
 # rank by the reference's residency rule, above 8 GiB, so FSDP), (c)
 # mesh (2, 2): stablelm at 4 layers with 2 microbatches (data and tensor
 # parallel, ZeRO-1), and qwen3-30b-a3b at full width, 2 layers (the
-# expert-parallel MoE's backward); (arch, layers, mesh, global batch,
-# seq, microbatch)
+# expert-parallel MoE's backward); (d) mesh (2, 2), full width: rwkv6-7b
+# at 2 layers (the head-sharded time mix through the plain recurrence, as
+# the reference trains) and whisper-small at 2 encoder and 2 decoder
+# layers; recurrentgemma-9b at 5 (one (rec, rec, attn) group and the
+# recurrent tail) on mesh (1, 2): its 3.2 B float32 parameters (the 256k
+# vocabulary's table and head are 2.1 B) with their gradients and moments
+# come to ~23 GB a rank at (2, 2), past the card for four ranks (my chip
+# run 3 of PR 26 ran out of memory there); (arch, layers, mesh, global
+# batch, seq, microbatch)
 TRAIN_MESH_STEPS = 3
 TRAIN_WORLD_ONE = ("stablelm-3b", 8, 512)
 TRAIN_MESH_RUNS = [("stablelm-3b", 16, (2, 1), 4, 512, 1),
                    ("stablelm-3b", 4, (2, 2), 8, 256, 2),
-                   ("qwen3-30b-a3b", 2, (2, 2), 4, 256, 1)]
+                   ("qwen3-30b-a3b", 2, (2, 2), 4, 256, 1),
+                   ("rwkv6-7b", 2, (2, 2), 4, 256, 1),
+                   ("recurrentgemma-9b", 5, (1, 2), 4, 256, 1),
+                   ("whisper-small", 2, (2, 2), 4, 256, 1)]
 TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL = 1e-5, 1e-3
+# runs whose own float noise is measured first: one process at twice the
+# microbatches (the same function, its sums in another order) against
+# one process; from the first step where that pair differs beyond the
+# tolerances, the ranks' later steps are printed, not held (rwkv6-7b at
+# full width: step 2's loss moves 1.73e-5 by the reordering alone, my
+# chip run 3 of PR 26)
+TRAIN_NOISE_FLOOR = ("rwkv6-7b", "recurrentgemma-9b", "whisper-small")
 # a token whose k-th and (k+1)-th router logits lie closer than this
 # takes either expert within float32 noise: the sharded step's router
 # logits differ from one process's by up to ~5e-6 (partial sums added in
@@ -345,7 +386,14 @@ DIST_BF16_REL_TOL = 0.1
 DIST_RUNS = [("yi-6b", 0, "bfloat16", (1, 2)),
              ("qwen3-30b-a3b", 8, "bfloat16", (2, 2)),
              ("yi-6b", 0, "float32", (1, 2)),
-             ("qwen3-30b-a3b", 8, "float32", (2, 2))]
+             ("qwen3-30b-a3b", 8, "float32", (2, 2)),
+             # the recurrent families: rwkv6 runs the WKV6 kernel on each
+             # rank's 32 heads (its prefill on the chunked design)
+             ("rwkv6-7b", 0, "bfloat16", (1, 2)),
+             ("recurrentgemma-9b", 0, "bfloat16", (1, 2)),
+             ("rwkv6-7b", 8, "float32", (1, 2)),
+             ("recurrentgemma-9b", 8, "float32", (1, 2)),
+             ("whisper-small", 0, "float32", (2, 2))]
 DIST_TIMEOUT_S = 600
 
 
@@ -698,40 +746,41 @@ def phase_sweep_wkv(wk, ref, smi):
         "card": smi}))
 
 
-def _wkv_inputs(gen, b, t, dtype):
-    """rwkv6-7b-shaped WKV6 inputs: r/k/v ~ N(0,1), decay in (0.4, 0.9),
-    small bonus and state (the distributions of tests/test_kernels.py)."""
-    shape = (b, t, WKV_H, WKV_HS)
+def _wkv_inputs(gen, b, t, dtype, h=WKV_H):
+    """rwkv6-7b-shaped WKV6 inputs (``h`` heads: all 64, or a model
+    rank's shard of them): r/k/v ~ N(0,1), decay in (0.4, 0.9), small
+    bonus and state (the distributions of tests/test_kernels.py)."""
+    shape = (b, t, h, WKV_HS)
 
     def randn(*s):
         return torch.randn(s, generator=gen, device="cuda")
 
     r, k, v = (randn(*shape).to(dtype) for _ in range(3))
     w = (torch.sigmoid(randn(*shape)) * 0.5 + 0.4).to(dtype)
-    u = (randn(WKV_H, WKV_HS) * 0.1).to(dtype)
-    s0 = randn(b, WKV_H, WKV_HS, WKV_HS) * 0.1
+    u = (randn(h, WKV_HS) * 0.1).to(dtype)
+    s0 = randn(b, h, WKV_HS, WKV_HS) * 0.1
     return r, k, v, w, u, s0
 
 
-def _wkv_bound(b, t, esize):
+def _wkv_bound(b, t, esize, h=WKV_H):
     """Inputs read once, y and the state written once; 5 hs^2 flops per
     (b, h, t): y = r.S + v (r.(u*k)), S <- w*S + k v^T."""
-    n = b * t * WKV_H * WKV_HS
-    nbytes = 5 * n * esize + WKV_H * WKV_HS * esize \
-        + 2 * b * WKV_H * WKV_HS * WKV_HS * 4
+    n = b * t * h * WKV_HS
+    nbytes = 5 * n * esize + h * WKV_HS * esize \
+        + 2 * b * h * WKV_HS * WKV_HS * 4
     return _bound(nbytes, 5 * n * WKV_HS, F32_FLOP_PER_S)
 
 
 def _wkv_case(wk, ref, gen, b, t, dtype, chunk=None, args=None,
-              timed=True):
-    """WKV6 at (b, t) against the plain recurrence (and a chunked call
-    against the plain rendering of its chunks too); its row: the plan,
-    times and bound, with ``timed``."""
-    args = args or _wkv_inputs(gen, b, t, dtype)
-    plan = wk.chunk_plan(b, t, WKV_H, WKV_HS, dtype, chunk)
+              timed=True, h=WKV_H):
+    """WKV6 at (b, t) on ``h`` heads against the plain recurrence (and a
+    chunked call against the plain rendering of its chunks too); its
+    row: the plan, times and bound, with ``timed``."""
+    args = args or _wkv_inputs(gen, b, t, dtype, h)
+    plan = wk.chunk_plan(b, t, h, WKV_HS, dtype, chunk)
     y, s_t = wk.wkv6(*args, chunk=chunk)
     tol = WKV_TOL[dtype]
-    name = f"wkv6 {plan.design} C={plan.chunk} B={b} T={t} {dtype}"
+    name = f"wkv6 {plan.design} C={plan.chunk} B={b} T={t} H={h} {dtype}"
     plains = [ref.wkv6_ref(*args)]
     if plan.design == "chunked":
         plains.append(ref.wkv6_chunked_ref(*args, chunk=plan.chunk))
@@ -744,8 +793,8 @@ def _wkv_case(wk, ref, gen, b, t, dtype, chunk=None, args=None,
                 "blocks": plan.blocks, "chunks": plan.chunks}
     if not timed:
         return {"max_abs_err": err, "plan": plan_row}
-    bound, by = _wkv_bound(b, t, args[0].element_size())
-    return {"shape": {"B": b, "T": t, "H": WKV_H, "hs": WKV_HS},
+    bound, by = _wkv_bound(b, t, args[0].element_size(), h)
+    return {"shape": {"B": b, "T": t, "H": h, "hs": WKV_HS},
             "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
             "plan": plan_row,
             "ms": time_ms(lambda: wk.wkv6(*args, chunk=chunk)),
@@ -841,6 +890,10 @@ def phase_kernels_rwkv(wk, sg, ref):
     f32, bf16 = torch.float32, torch.bfloat16
     wkv = [_wkv_case(wk, ref, gen, b, t, dt)
            for b, t in ((4, 1),) + WKV_PREFILLS for dt in (f32, bf16)]
+    # a model rank's heads under the 2-way mesh: the sharded serve step's
+    # decode and the [dist] phase's 96-token prefill (chunked)
+    wkv += [_wkv_case(wk, ref, gen, b, t, f32, h=WKV_SHARD_H)
+            for b, t in WKV_SHARD_CASES]
     # decays as the model forms them, exp(-exp(x)) for x in [-8, 5]
     # (exact zeros past x ~ 4.5), on the planned design
     r, k, v, _, u, s0 = _wkv_inputs(gen, 1, 1024, f32)
@@ -1966,6 +2019,27 @@ def _dist_prompts(vocab):
         0, vocab, (DIST_BATCH, DIST_PROMPT)).astype(np.int32))
 
 
+def _dist_inputs(cfg):
+    """The prefill's inputs on the card: the prompts, and for the
+    encoder-decoder float32 frames from a seed (the frontend stub's
+    embeddings, (B, F, d))."""
+    inputs = {"tokens": _dist_prompts(cfg.vocab).cuda()}
+    if cfg.family == "audio":
+        inputs["frames"] = torch.from_numpy(np.random.default_rng(8)
+                                            .standard_normal(
+            (DIST_BATCH, cfg.encoder_frames, cfg.d_model),
+            dtype=np.float32)).cuda()
+    return inputs
+
+
+def _dist_launches():
+    """The launch counters the [dist] runs read: the flash-decode partial
+    (transformer families) and WKV6 (rwkv6)."""
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import wkv6 as wk
+    return fd, wk
+
+
 def _dist_cells(entry, mesh, tp):
     """The prefill step (the prompt into a DIST_SEQ-deep cache) and
     build_cell's serve cell with the sequence-sharded attention."""
@@ -1980,43 +2054,67 @@ def _dist_cells(entry, mesh, tp):
     return cell, prefill
 
 
-def _sharded_run(entry, params_l, cell, prefill, mesh, fd, feed=None):
+def _sharded_run(entry, params_l, cell, prefill, mesh, feed=None):
     """The sharded prefill + serve loop on this rank's shards (the first
     step fed the tokens ``feed`` where given): (the tokens gathered,
     prefill s, step s, launches in the run, the first two logits
     gathered, float32 on the host)."""
     from repro_torch.distributed import sharding as S
     rows = cell.in_specs[2] + (None,)
-    prompts = S.shard_tensor(_dist_prompts(entry.config.vocab).cuda(), rows,
-                             mesh)
+    inputs = {k: S.shard_tensor(v, rows[:1] + (None,) * (v.ndim - 1), mesh)
+              for k, v in _dist_inputs(entry.config).items()}
     if feed is not None:
         feed = S.shard_tensor(torch.tensor(feed, dtype=torch.int32,
                                            device="cuda"), rows[:1], mesh)
-    fd.reset_launches()
+    kmods = _dist_launches()
+    _reset(kmods)
     toks, pre_s, step_s, first = _greedy(
-        lambda: cell.run_with(prefill, params_l, {"tokens": prompts}),
+        lambda: cell.run_with(prefill, params_l, inputs),
         lambda cache, tok: cell.step(params_l, cache, tok),
         entry.config.vocab, feed)
-    launches = dict(fd.LAUNCHES)
+    launches = _launches(kmods)
     first = [S.gather_tensor(x, rows, mesh).float().cpu() for x in first]
     return S.gather_tensor(toks, rows, mesh), pre_s, step_s, launches, first
 
 
-def _unsharded_run(entry, params, tp, mesh=None):
-    """The port's unsharded prefill and decode_step (flash-decode kernel)
-    on the same prompts; under ``mesh`` (a description) where given."""
+def _unsharded_fns(entry, params, tp, mesh=None):
+    """The port's unsharded prefill and decode step on the [dist] inputs,
+    under ``mesh`` (a description) where given: the transformer's
+    ``prefill`` and ``decode_step`` with the flash-decode kernel; the
+    other families' prefill and serve steps (rwkv6 through the WKV6
+    kernel)."""
     from repro_torch.distributed import context
     from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import registry
+    from repro_torch.models.config import ShapeCell
     mod, cfg = entry.module, entry.config
-    prompts = _dist_prompts(cfg.vocab).cuda()
-    with context.use_mesh(mesh):
-        return _greedy(
-            lambda: mod.prefill(params, cfg, prompts, tp=tp,
-                                max_seq=DIST_SEQ),
-            lambda cache, tok: mod.decode_step(
-                params, cfg, tok, cache, tp=tp,
-                attn_fn=ops.attention_decode),
-            cfg.vocab)
+    inputs = _dist_inputs(cfg)
+    if cfg.family in registry.TRANSFORMER_FAMILIES:
+        def prefill():
+            with context.use_mesh(mesh):
+                return mod.prefill(params, cfg, inputs["tokens"], tp=tp,
+                                   max_seq=DIST_SEQ)
+
+        def step(cache, tok):
+            with context.use_mesh(mesh):
+                return mod.decode_step(params, cfg, tok, cache, tp=tp,
+                                       attn_fn=ops.attention_decode)
+        return prefill, step
+    pre = steps.make_prefill_step(
+        entry, tp, mesh, max_seq=DIST_SEQ,
+        shape=ShapeCell("dist", DIST_SEQ, DIST_BATCH, "prefill"))
+    serve = steps.make_serve_step(
+        entry, tp, mesh, shape=ShapeCell("dist", DIST_SEQ, DIST_BATCH,
+                                         "decode"))
+    return (lambda: pre(params, inputs),
+            lambda cache, tok: serve(params, cache, tok))
+
+
+def _unsharded_run(entry, params, tp, mesh=None):
+    """:func:`_greedy` over :func:`_unsharded_fns`."""
+    return _greedy(*_unsharded_fns(entry, params, tp, mesh),
+                   entry.config.vocab)
 
 
 def _dist_entry(registry, arch, layers, dtype):
@@ -2034,7 +2132,6 @@ def _dist_rank(rank, world, port, arch, layers, dtype, shape, feed, out):
     also the first two logits)."""
     import torch.distributed as dist
     from repro_torch.distributed import sharding as S
-    from repro_torch.kernels import flash_decode as fd
     from repro_torch.launch import mesh as M
     from repro_torch.models import registry
     torch.cuda.set_device(0)
@@ -2057,7 +2154,7 @@ def _dist_rank(rank, world, port, arch, layers, dtype, shape, feed, out):
             dist.barrier()
         torch.cuda.reset_peak_memory_stats()
         toks, pre_s, step_s, launches, first = _sharded_run(
-            entry, params_l, cell, prefill, mesh, fd, feed)
+            entry, params_l, cell, prefill, mesh, feed)
         if rank == 0:
             torch.save(first, out.format(rank) + ".pt")
         Path(out.format(rank)).write_text(json.dumps({
@@ -2123,7 +2220,7 @@ def _world_one(registry, fd, smi):
         from repro_torch.distributed import sharding as S
         params_l = S.shard_tree(params, cell.in_specs[0], mesh)
         toks, pre_s, step_s, launches, _ = _sharded_run(
-            entry, params_l, cell, prefill, mesh, fd)
+            entry, params_l, cell, prefill, mesh)
     finally:
         dist.destroy_process_group()
     want = entry.config.num_layers * DIST_STEPS
@@ -2155,15 +2252,37 @@ def _rel_err(got, want):
     return ((got - want).norm() / want.norm()).item()
 
 
+def _wrong_shard(params, cfg):
+    """``params`` with the two row halves of every layer's row-parallel
+    output projection swapped, as a rank holding the other's row shard
+    would compute them: attention's ``wo``, rwkv6's time-mix ``wo``,
+    RecurrentGemma's recurrent ``w_out``."""
+    def swap(t, dim):
+        h = t.shape[dim] // 2
+        return torch.cat([t.narrow(dim, h, h), t.narrow(dim, 0, h)], dim)
+
+    if cfg.family == "ssm":
+        return dict(params, blocks=dict(params["blocks"],
+                                        wo=swap(params["blocks"]["wo"], 1)))
+    if cfg.family == "hybrid":
+        out = dict(params)
+        for name, dim in (("rec_groups", 2), ("rec_tail", 1)):
+            if name in params:
+                out[name] = dict(params[name],
+                                 w_out=swap(params[name]["w_out"], dim))
+        return out
+    attn = params["blocks"]["attn"]
+    return dict(params, blocks=dict(params["blocks"], attn=dict(
+        attn, wo=swap(attn["wo"], 1))))
+
+
 def _single_process(registry, arch, layers, dtype, shape):
     """The model's unsharded tokens and first two logits in this process
     (the same seed as the ranks' parameters), under ``shape``'s mesh
     description (the MoE caps each data chunk and runs each model rank's
     experts in turn); in bf16 also two prefill logits' relative errors
-    against these: the wrong-shard control (the two halves of every
-    layer's ``wo`` rows swapped, as a rank holding the other's row
-    shard would compute them) and bf16's own noise (the same weights
-    computed in float32)."""
+    against these: the wrong-shard control (:func:`_wrong_shard`) and
+    bf16's own noise (the same weights computed in float32)."""
     from repro_torch.launch import mesh as M
     entry = _dist_entry(registry, arch, layers, dtype)
     cfg, tp = entry.config, shape[1]
@@ -2173,36 +2292,47 @@ def _single_process(registry, arch, layers, dtype, shape):
     first = [x.float().cpu() for x in first]
     control = {}
     if dtype == "bfloat16":
-        from repro_torch.distributed import context
         from repro_torch.distributed import sharding as S
-        wo = params["blocks"]["attn"]["wo"]
-        h = wo.shape[1] // 2
-        wrong = dict(params, blocks=dict(params["blocks"], attn=dict(
-            params["blocks"]["attn"], wo=torch.cat([wo[:, h:], wo[:, :h]],
-                                                   1))))
         entry32 = _dist_entry(registry, arch, layers, "float32")
-        for key, e, p in (("wrong_shard", entry, wrong),
-                          ("float32_compute", entry32,
-                           S.tree_map(lambda t: t.float(), params))):
-            with context.use_mesh(mesh):
-                logits, _ = e.module.prefill(
-                    p, e.config, _dist_prompts(cfg.vocab).cuda(), tp=tp,
-                    max_seq=DIST_SEQ)
+        for key in ("wrong_shard", "float32_compute"):
+            e, p = (entry, _wrong_shard(params, cfg)) \
+                if key == "wrong_shard" else \
+                (entry32, S.tree_map(lambda t: t.float(), params))
+            logits, _ = _unsharded_fns(e, p, tp, mesh)[0]()
             control[key] = _rel_err(first[0],
                                     logits[:, :cfg.vocab].float().cpu())
-        del wrong, logits
+            del p, logits
     del params
     _free()
     return toks.cpu(), first, control
 
 
+def _want_launches(cfg, n_layers):
+    """Each rank's kernel launches in a [dist] run: the flash-decode
+    partial once a layer and step (transformer families), WKV6 once a
+    layer in the prefill (on the chunked design: the prompt is past
+    wk.CHUNKED_MIN_T) and in each step (rwkv6); none for the others."""
+    from repro_torch.kernels import wkv6 as wk
+    from repro_torch.models import registry
+    want = {"flash_decode_partial": 0, "wkv6": 0, "wkv6_chunked": 0}
+    if cfg.family in registry.TRANSFORMER_FAMILIES:
+        want["flash_decode_partial"] = n_layers * DIST_STEPS
+    if cfg.family == "ssm":
+        want["wkv6"] = n_layers * (1 + DIST_STEPS)
+        want["wkv6_chunked"] = n_layers * (DIST_PROMPT >= wk.CHUNKED_MIN_T)
+    return want
+
+
 def _dist_run(registry, arch, layers, dtype, shape, smi):
     """One multi-rank run on the one card against the single-process
     run: float32 tokens equal, bf16 logits within DIST_BF16_REL_TOL
-    (and the wrong-shard control beyond it); each rank launched the
-    partial once per layer and step.  Returns (label, launches)."""
+    (and the wrong-shard control beyond it); each rank launched its
+    family's kernels (:func:`_want_launches`).  Returns (label, the
+    launches summed over the ranks by kernel)."""
+    t0 = time.perf_counter()
     world = shape[0] * shape[1]
-    n_layers = layers or registry.get_config(arch).num_layers
+    cfg = _dist_entry(registry, arch, layers, dtype).config
+    n_layers = cfg.num_layers
     label = (f"{arch} {dtype}, {n_layers} layers, {world} ranks, mesh "
              f"({shape[0]}, {shape[1]})")
     base, base_first, control = _single_process(registry, arch, layers,
@@ -2215,7 +2345,7 @@ def _dist_run(registry, arch, layers, dtype, shape, smi):
                                 world, _dist_rank,
                                 (arch, layers, dtype, shape, feed))
     first = torch.load(out.format(0) + ".pt")
-    per_rank = n_layers * DIST_STEPS
+    want = _want_launches(cfg, n_layers)
     for r, res in enumerate(results):
         gathers = res["fsdp_layer_gathers"]
         if gathers is not None and gathers != n_layers * (1 + DIST_STEPS):
@@ -2223,11 +2353,10 @@ def _dist_run(registry, arch, layers, dtype, shape, smi):
                 f"[dist] {label} rank {r}: FSDP gathered {gathers} layers, "
                 f"want one a layer in the prefill and in each step, "
                 f"{n_layers * (1 + DIST_STEPS)}")
-        if res["launches"]["flash_decode_partial"] != per_rank:
-            raise AssertionError(
-                f"[dist] {label} rank {r}: flash_decode_partial launched "
-                f"{res['launches']['flash_decode_partial']} times, want "
-                f"{per_rank}")
+        got = {k: res["launches"][k] for k in want}
+        if got != want:
+            raise AssertionError(f"[dist] {label} rank {r}: launches "
+                                 f"{got}, want {want}")
         if res["tokens"] != results[0]["tokens"]:
             raise AssertionError(f"[dist] {label}: ranks 0 and {r} "
                                  f"gathered different tokens")
@@ -2255,30 +2384,36 @@ def _dist_run(registry, arch, layers, dtype, shape, smi):
                                  f" is within {DIST_BF16_REL_TOL}")
     print(f"[dist] {label} on one card (gloo; correctness runs, no "
           f"collective bandwidth) " + json.dumps({
-              **line, "ranks": [{k: v for k, v in res.items()
-                                 if k != "tokens"} for res in results],
-              "card": smi}))
-    return label, sum(r["launches"]["flash_decode_partial"]
-                      for r in results)
+              **line, "launches_per_rank": want,
+              "ranks": [{k: v for k, v in res.items()
+                         if k != "tokens"} for res in results],
+              "run_s": time.perf_counter() - t0, "card": smi}))
+    return label, {k: n * world for k, n in want.items()}
 
 
 def phase_dist(registry, fd, ref, smi):
     """The distribution layer on the card; returns the partial entry's
-    kernel row (launches by run)."""
+    kernel row (launches by run) and WKV6's launches by run (the sharded
+    rwkv6 runs, by kernel row name)."""
     t0 = time.perf_counter()
     row = _partial_row(fd, ref)
     print("[dist] flash_decode_partial " + json.dumps(
         {**row, "card": smi}))
     launches = {"yi-6b bfloat16, world size 1": _world_one(registry, fd,
                                                             smi)}
+    wkv = {"wkv6": {}, "wkv6_chunked": {}}
     torch.backends.cuda.matmul.allow_tf32 = False
     for run in DIST_RUNS:
         label, n = _dist_run(registry, *run, smi)
-        launches[label] = n
+        if n["flash_decode_partial"]:
+            launches[label] = n["flash_decode_partial"]
+        for name in wkv:
+            if n[name]:
+                wkv[name][f"[dist] {label}"] = n[name]
     row["launches_by_run"] = launches
     row["launches"] = sum(launches.values())
     print(f"[dist] phase {time.perf_counter() - t0:.1f} s")
-    return row
+    return row, wkv
 
 
 def _train_parity(registry, steps_mod, axw, pipeline):
@@ -2525,7 +2660,21 @@ def _train_world_one(registry, steps_mod, train_mod, axw, pipeline, smi):
 
 
 def _train_entry(registry, arch, layers):
-    return registry.get(arch, dtype="float32", num_layers=layers)
+    """``arch`` in float32 at ``layers`` layers (the encoder-decoder's
+    encoder too)."""
+    over = {"dtype": "float32", "num_layers": layers}
+    if registry.get_config(arch).family == "audio":
+        over["encoder_layers"] = layers
+    return registry.get(arch, **over)
+
+
+def _layer_gathers_per_step(cfg):
+    """FSDP layer gathers of one train step: every layer in the forward
+    and again where backward recomputes it (RecurrentGemma recomputes
+    its (rec, rec, attn) groups, not its recurrent tail)."""
+    if cfg.family == "hybrid":
+        return cfg.num_layers + 3 * (cfg.num_layers // 3)
+    return 2 * (cfg.num_layers + cfg.encoder_layers)
 
 
 def _train_data(pipeline, cfg, batch, seq):
@@ -2667,10 +2816,10 @@ def _train_single(registry, steps_mod, train_mod, axw, pipeline, arch,
 
 def _train_mesh(registry, steps_mod, train_mod, axw, pipeline, smi, arch,
                 layers, shape, batch, seq, microbatch):
-    """(b) / (c): the ranks' curves against the single-process run's:
-    losses within TRAIN_LOSS_RTOL and gradient norms within
+    """(b) / (c) / (d): the ranks' curves against the single-process
+    run's: losses within TRAIN_LOSS_RTOL and gradient norms within
     TRAIN_GNORM_RTOL, relative, on every rank; under FSDP every layer
-    gathered twice a step (forward and recomputation).  An MoE's step 0
+    gathered where it runs (:func:`_layer_gathers_per_step`).  An MoE's step 0
     must route every token as one process does, except at a tie
     (ROUTE_TIE); where a tie broke the other way, only step 0 is held
     (the runs diverge from there: the routes differ, and the first
@@ -2680,7 +2829,10 @@ def _train_mesh(registry, steps_mod, train_mod, axw, pipeline, smi, arch,
     printed."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
     world = shape[0] * shape[1]
+    per_step = _layer_gathers_per_step(_train_entry(registry, arch,
+                                                    layers).config)
     label = (f"{arch} float32, {layers} layers, mesh ({shape[0]}, "
              f"{shape[1]}), batch {batch} x {seq}, microbatch {microbatch}")
     want, single_s, routes = _train_single(registry, steps_mod, train_mod,
@@ -2700,6 +2852,18 @@ def _train_mesh(registry, steps_mod, train_mod, axw, pipeline, smi, arch,
                                  f"to other experts at logit gaps {ties}, "
                                  f"not ties (< {ROUTE_TIE})")
     held = 1 if ties else len(want)
+    floor = None
+    if arch in TRAIN_NOISE_FLOOR:
+        # one process at 2 microbatches: the same function, its
+        # gradients summed in another order
+        other = _train_single(registry, steps_mod, train_mod, axw,
+                              pipeline, arch, layers, shape, batch, seq,
+                              2 * microbatch)[0]
+        floor = [(abs(lo - lw) / abs(lw), abs(go - gw) / abs(gw))
+                 for (lo, go), (lw, gw) in zip(other, want)]
+        held = min(held, max(1, next(
+            (i for i, (lf, gf) in enumerate(floor)
+             if lf > TRAIN_LOSS_RTOL or gf > TRAIN_GNORM_RTOL), held)))
     errs = []
     for r, res in enumerate(results):
         for i, ((lg, gg), (lw, gw)) in enumerate(zip(res["curve"], want)):
@@ -2709,23 +2873,26 @@ def _train_mesh(registry, steps_mod, train_mod, axw, pipeline, smi, arch,
                 raise AssertionError(
                     f"[train] {label} rank {r}: (loss, gradient norm) "
                     f"{res['curve']} against one process's {want}")
-        if res["fsdp"] and any(g != 2 * layers
+        if res["fsdp"] and any(g != per_step
                                for g in res["layer_gathers_per_step"]):
             raise AssertionError(
                 f"[train] {label} rank {r}: FSDP gathered "
                 f"{res['layer_gathers_per_step']} layers a step, want "
-                f"{2 * layers}")
+                f"{per_step}")
     print(f"[train] {label} on one card (gloo; {world} ranks share the "
           f"card: step times are correctness runs and measure no "
           f"collective bandwidth) " + json.dumps({
               "single_process_curve": want,
               "single_process_step_s": single_s,
-              "routing_ties_broken_otherwise": ties, "steps_held": held,
+              "routing_ties_broken_otherwise": ties,
+              "one_process_reordered_rel_err_by_step": floor,
+              "steps_held": held,
               "loss_rel_err_by_step": [e[0] for e in errs[:len(want)]],
               "grad_norm_rel_err_by_step": [e[1] for e in errs[:len(want)]],
               "max_loss_rel_err": max(e[0] for e in errs),
               "max_grad_norm_rel_err": max(e[1] for e in errs),
-              "ranks": results, "card": smi}))
+              "ranks": results, "run_s": time.perf_counter() - t0,
+              "card": smi}))
 
 
 def phase_train(registry, smi):
@@ -2773,8 +2940,10 @@ def main() -> None:
     rows = phase_kernels(fd, ref) + phase_kernels_rwkv(wk, sg, ref)
     phase_parity(registry, sched)
     launches = phase_serve(registry, sched, (fd, wk, sg), smi)
-    dist_row = phase_dist(registry, fd, ref, smi)
+    dist_row, dist_wkv = phase_dist(registry, fd, ref, smi)
     phase_train(registry, smi)
+    for name, by_run in dist_wkv.items():
+        launches.setdefault(name, {}).update(by_run)
     for row in rows:
         # the decode GEMM is on no serving path: every serve run above
         # asserted its counts stayed 0

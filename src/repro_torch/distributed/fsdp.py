@@ -2,25 +2,32 @@
 (``sharding.fsdp_pspecs``), gathered one layer at a time where the model
 uses the layer.
 
-The rule shards each leaf's first still-replicated divisible dim, so a
-stacked block leaf ``(L, ...)`` is cut along its layer axis when L
-divides over the data axes (each rank then holds L/n whole layers, and
-layer ``li`` is broadcast by the rank holding it) and along an inner
-dim otherwise (each rank holds a slice of every layer, gathered along
-that dim).  The gatherer reads which from the spec.  In backward a
-layer's gradient is summed over the data ranks onto the shard it came
-from (``collectives.broadcast`` / ``gather_shards``), so a sharded
-leaf's gradient comes out summed over the data axes already.
+A model's layers are stacked in subtrees with leading layer dims (each
+family's ``layer_stacks``: ``blocks`` ``(L,)``; RecurrentGemma's
+``rec_groups`` ``(G, 2)``, ``attn_groups`` ``(G,)`` and ``rec_tail``;
+the encoder-decoder's ``enc`` and ``dec``).  The rule shards each leaf's
+first still-replicated divisible dim, so a stacked leaf is cut along one
+of its layer dims when that dim divides over the data axes (each rank
+then holds a slice of the layers whole, and a layer is broadcast by the
+rank holding it) and along an inner dim otherwise (each rank holds a
+slice of every layer, gathered along that dim).  The gatherer reads
+which from the spec.  In backward a layer's gradient is summed over the
+data ranks onto the shard it came from (``collectives.broadcast`` /
+``gather_shards``), so a sharded leaf's gradient comes out summed over
+the data axes already.
 
-The model code asks for layer ``li`` inside the block that ``layers.remat``
+The model code asks for a layer inside the block that ``layers.remat``
 recomputes, so the recomputation gathers it again and nothing gathered
 is saved for backward; serving gathers it inside the layer loop.  The
-leaves outside the blocks (embeddings, final norm) are gathered whole
-once per step.
+leaves outside the stacks (embeddings, final norms, a position table)
+are gathered whole once per step.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
 
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed import sharding as sh
@@ -28,15 +35,19 @@ from repro_torch.launch.mesh import data_axes
 
 
 class LayerGather:
-    """The FSDP gathers of one step on a bound ``mesh`` for a model of
-    ``n_layers`` layers whose parameters are held by ``specs`` (the
-    parameter spec tree).  ``layer_gathers`` counts the layers gathered
-    (each forward, and each recomputation, of a layer is one)."""
+    """The FSDP gathers of one step on a bound ``mesh`` for a model whose
+    parameters are held by ``specs`` (the parameter spec tree) and whose
+    layers are stacked in the subtrees ``stacks`` names, each with its
+    leading layer dims (``{"blocks": (L,)}`` for the transformer and
+    rwkv6; RecurrentGemma's ``rec_groups`` lead with ``(G, 2)``).  A
+    layer is its stack's name and its flat index over those dims, in
+    row-major order.  ``layer_gathers`` counts the layers gathered (each
+    forward, and each recomputation, of a layer is one)."""
 
-    def __init__(self, mesh, specs: Any, n_layers: int):
+    def __init__(self, mesh, specs: Any, stacks: Dict[str, Tuple[int, ...]]):
         self.mesh = mesh
         self.specs = specs
-        self.n_layers = n_layers
+        self.stacks = {k: tuple(v) for k, v in stacks.items() if k in specs}
         self.layer_gathers = 0
 
     @staticmethod
@@ -56,51 +67,68 @@ class LayerGather:
         d = _data_dim(spec, data_axes(self.mesh))
         return d, (sh._names(spec[d]) if d is not None else ())
 
+    def _held(self, spec, stack: str, li: int):
+        """Where this rank holds layer ``li`` of a leaf cut by ``spec``:
+        (its index into the leaf's local lead dims, the coordinate of the
+        rank that owns the layer where a lead dim is cut, else None)."""
+        lead = self.stacks[stack]
+        idx = tuple(int(i) for i in np.unravel_index(li, lead))
+        d, axes = self._cut(spec)
+        if d is None or d >= len(lead):
+            return idx, None
+        per = lead[d] // self.mesh.axis_size(axes)
+        return idx[:d] + (idx[d] % per,) + idx[d + 1:], idx[d] // per
+
     def gather_top(self, params: Dict[str, Any]) -> Dict[str, Any]:
-        """``params`` with every leaf outside ``blocks`` gathered whole."""
+        """``params`` with every leaf outside the layer stacks gathered
+        whole."""
         def whole(t, spec):
             d, axes = self._cut(spec)
             return t if d is None else C.gather_shards(t, self.mesh, axes, d)
-        return {k: v if k == "blocks" else sh.tree_map(whole, v,
-                                                       self.specs[k])
+        return {k: v if k in self.stacks else sh.tree_map(whole, v,
+                                                          self.specs[k])
                 for k, v in params.items()}
 
-    def pieces(self, blocks: Dict[str, Any]) -> List[Any]:
-        """Per layer, this rank's pieces of the stacked ``blocks`` (each
-        leaf unbound once): the held layer's slot where the layer axis is
-        cut (every rank passes one, so every rank takes part in the
-        gather's backward), else the layer's slice."""
+    def pieces(self, tree: Dict[str, Any], stack: str = "blocks"
+               ) -> List[Any]:
+        """Per layer, this rank's pieces of the stack ``tree`` (each leaf
+        unbound once): the held layer's slot where a layer dim is cut
+        (every rank passes one, so every rank takes part in the gather's
+        backward), else the layer's slice."""
+        lead = self.stacks[stack]
+        n = math.prod(lead)
+
         def unbind(t, spec):
-            parts = t.unbind(0)
-            d, _ = self._cut(spec)
-            per = t.shape[0]
-            return [parts[li % per] if d == 0 else parts[li]
-                    for li in range(self.n_layers)]
-        per_leaf = sh.tree_map(unbind, blocks, self.specs["blocks"])
-        return [sh.tree_map(lambda ps: ps[li], per_leaf)
-                for li in range(self.n_layers)]
+            local = t.shape[:len(lead)]
+            parts = t.reshape(-1, *t.shape[len(lead):]).unbind(0) \
+                if n else ()
+            return [parts[int(np.ravel_multi_index(
+                self._held(spec, stack, li)[0], local))] for li in range(n)]
+        per_leaf = sh.tree_map(unbind, tree, self.specs[stack])
+        return [sh.tree_map(lambda ps: ps[li], per_leaf) for li in range(n)]
 
-    def local(self, blocks: Dict[str, Any], li: int) -> Any:
-        """Layer ``li``'s pieces of ``blocks`` on this rank (views)."""
-        def take(t, spec):
-            d, _ = self._cut(spec)
-            return t[li % t.shape[0]] if d == 0 else t[li]
-        return sh.tree_map(take, blocks, self.specs["blocks"])
+    def local(self, tree: Dict[str, Any], li: int,
+              stack: str = "blocks") -> Any:
+        """Layer ``li``'s pieces of the stack ``tree`` on this rank
+        (views)."""
+        return sh.tree_map(lambda t, spec: t[self._held(spec, stack, li)[0]],
+                           tree, self.specs[stack])
 
-    def layer(self, pieces: Any, li: int) -> Any:
+    def layer(self, pieces: Any, li: int, stack: str = "blocks") -> Any:
         """Layer ``li``'s full (over the data axes) parameters from this
         rank's ``pieces`` of it."""
         self.layer_gathers += 1
+        nlead = len(self.stacks[stack])
 
         def full(t, spec):
             d, axes = self._cut(spec)
             if d is None:
                 return t
-            if d == 0:
-                per = self.n_layers // self.mesh.axis_size(axes)
-                return C.broadcast(t, self.mesh, axes, li // per)
-            return C.gather_shards(t, self.mesh, axes, d - 1)
-        return sh.tree_map(full, pieces, self.specs["blocks"])
+            owner = self._held(spec, stack, li)[1]
+            if owner is not None:
+                return C.broadcast(t, self.mesh, axes, owner)
+            return C.gather_shards(t, self.mesh, axes, d - nlead)
+        return sh.tree_map(full, pieces, self.specs[stack])
 
 
 def _data_dim(spec, daxes) -> Optional[int]:

@@ -22,6 +22,18 @@ from repro_torch.distributed import collectives as C
 from repro_torch.kernels import ops
 
 
+def combine_partials(acc: torch.Tensor, l: torch.Tensor, m: torch.Tensor,
+                     mesh, axis: str = "model"):
+    """The shards' partials (``layers.decode_attention_core``'s acc, l
+    and m) combined exactly over ``axis``: every rank rescales its own to
+    the global max and the rescaled acc and l are summed; returns the
+    combined (acc, l)."""
+    m_max = C.all_reduce(m, mesh, axis, "max")
+    scale = torch.exp(m - m_max)
+    return (C.all_reduce(acc * scale[..., None], mesh, axis),
+            C.all_reduce(l * scale, mesh, axis))
+
+
 def make_seq_sharded_attn(mesh, axis: str = "model"):
     """``attn(q, k_shard, v_shard, lengths) -> (B, Hq, D)`` for a bound
     ``mesh``: q (B, Hq, D) this rank's rows, replicated over ``axis``;
@@ -35,11 +47,7 @@ def make_seq_sharded_attn(mesh, axis: str = "model"):
         local = (lengths.to(torch.int32) - start).clamp(0, s_local)
         acc, l, m = ops.attention_decode_partial(
             q, k_shard, v_shard, local.to(torch.int32).contiguous())
-        # exact combine: renormalise to the global max
-        m_max = C.all_reduce(m, mesh, axis, "max")
-        scale = torch.exp(m - m_max)
-        acc = C.all_reduce(acc * scale[..., None], mesh, axis)
-        l = C.all_reduce(l * scale, mesh, axis)
+        acc, l = combine_partials(acc, l, m, mesh, axis)
         out = acc / torch.clamp(l, min=1e-20)[..., None]
         b, hkv, g, d = out.shape
         return out.reshape(b, hkv * g, d).to(q.dtype)

@@ -8,7 +8,7 @@ so a step that raises on one rank leaves the parameters and the
 optimizer state as they were (the trainer retries it).
 
 Under a bound mesh the train step runs this rank's part of the
-reference's GSPMD program (the transformer families): its parameters
+reference's GSPMD program (every family): its parameters
 are the shards of ``assemble_shardings``' spec tables, its batch rows
 its data shard, the model's collectives are autograd's
 (``distributed.collectives``), and the loss is the global batch's mean,
@@ -24,9 +24,10 @@ The prefill and serve steps run under a mesh too.  ``assemble_shardings``
 gives a cell's argument stand-ins (meta tensors) and the reference's
 spec tables for them, and ``build_cell`` returns a :class:`Cell` that,
 on a bound mesh, cuts full arguments to this rank's shards by those
-specs and runs the step with explicit collectives.  With a mesh of more
-than one rank, the transformer families (dense, MoE, VLM text) run
-sharded; the others wait for ROADMAP queue 1, item 11.  Under a mesh
+specs and runs the step with explicit collectives.  Every family runs
+sharded: the transformer families (dense, MoE, VLM text), rwkv6 (its
+prefill and serve steps run the WKV6 kernel on each rank's heads, as
+the engine does), RecurrentGemma and the encoder-decoder.  Under a mesh
 that is a description only, a step runs the whole sharded program in
 one process (the MoE caps each data chunk's pairs, and runs each model
 rank's experts in turn).
@@ -45,6 +46,7 @@ from repro_torch.distributed import context
 from repro_torch.distributed import sharding as sh
 from repro_torch.distributed.fsdp import LayerGather
 from repro_torch.distributed.seq_attention import make_seq_sharded_attn
+from repro_torch.kernels import ops as kops
 from repro_torch.launch.mesh import data_axes
 from repro_torch.models import registry
 from repro_torch.models.config import ShapeCell
@@ -62,8 +64,8 @@ def _grads(mod, cfg, params, batch, tp: int, fs=None):
     taken as fresh leaves over the same storage, so the caller's tensors
     never require grad; a leaf the loss does not reach (the VLM's
     embedding table) gets zeros, as ``jax.grad`` gives.  Under FSDP
-    (``fs``) the leaves outside the blocks are gathered here, the layers
-    inside the model."""
+    (``fs``) the leaves outside the layer stacks are gathered here, the
+    layers inside the model."""
     view = axw.tree_map(lambda p: p.detach().requires_grad_(), params)
     full = fs.gather_top(view) if fs is not None else view
     loss = mod.loss(full, cfg, batch, tp=tp)
@@ -182,7 +184,6 @@ def make_train_step(entry: registry.ArchEntry, ocfg: axw.AdamWConfig,
     in the order of :func:`microbatch_rows`).  The step's FSDP gatherer,
     if any, is ``train_step.fsdp``."""
     cfg, mod = entry.config, entry.module
-    _check_family(cfg, mesh)
     sharded = mesh is not None and mesh.bound
     zero1, fs, held = None, None, {}
     if sharded:
@@ -198,7 +199,7 @@ def make_train_step(entry: registry.ArchEntry, ocfg: axw.AdamWConfig,
                              f"ranks and {microbatch} microbatches")
         held = {"local_batch": zero1.dsize > 1}
         if LayerGather.needed(mesh, pspec):
-            fs = LayerGather(mesh, pspec, cfg.num_layers)
+            fs = LayerGather(mesh, pspec, mod.layer_stacks(cfg))
 
     def train_step(params, opt_state: axw.AdamWState, batch):
         dev = axw.tree_leaves(params)[0].device
@@ -227,16 +228,6 @@ def make_train_step(entry: registry.ArchEntry, ocfg: axw.AdamWConfig,
 # ---------------------------------------------------------------------------
 # Prefill / serve steps
 # ---------------------------------------------------------------------------
-def _check_family(cfg, mesh) -> None:
-    if mesh is not None and mesh.size > 1 \
-            and cfg.family not in registry.TRANSFORMER_FAMILIES:
-        raise ValueError(
-            f"{cfg.name} ({cfg.family}) under a mesh of {mesh.size} ranks: "
-            f"the sharded steps of the rwkv6, rglru and encoder-decoder "
-            f"families are ROADMAP queue 1, item 11 (their cache specs are "
-            f"ported)")
-
-
 def _held(mesh, batch: int, seq: int) -> Dict[str, bool]:
     """How a step holds its activations under ``mesh``: each rank its
     data shard of a batch of ``batch`` rows (the batch spec cuts it),
@@ -263,11 +254,13 @@ def make_prefill_step(entry: registry.ArchEntry, tp: int, mesh=None,
     """``prefill_step(params, inputs) -> (last logits, cache)``.
 
     ``chunk``: Sarathi-style chunked prefill for the transformer
-    families.  Under a mesh of more than one rank, ``shape`` gives the
-    global batch, ``params`` are this rank's shards, ``inputs`` its
-    rows, and the cache comes back in this rank's context shard."""
+    families.  rwkv6 runs its recurrence through the WKV6 kernel
+    (``kernels.ops.wkv6_scan``: the kernel on CUDA tensors, its plain
+    version on the CPU), as the engine does.  Under a mesh of more than
+    one rank, ``shape`` gives the global batch, ``params`` are this
+    rank's shards, ``inputs`` its rows, and the cache comes back in this
+    rank's shards of it."""
     cfg, mod = entry.config, entry.module
-    _check_family(cfg, mesh)
     _need_shape(mesh, shape)
     held = _held(mesh, shape.global_batch if shape else 0,
                  max_seq or (shape.seq_len if shape else 0))
@@ -282,7 +275,10 @@ def make_prefill_step(entry: registry.ArchEntry, tp: int, mesh=None,
                 return mod.prefill(params, cfg, None,
                                    embeds=inputs["embeds"], tp=tp,
                                    max_seq=max_seq)
-            if cfg.family in ("ssm", "hybrid"):
+            if cfg.family == "ssm":
+                return mod.prefill(params, cfg, inputs["tokens"], tp=tp,
+                                   wkv_fn=kops.wkv6_scan)
+            if cfg.family == "hybrid":
                 return mod.prefill(params, cfg, inputs["tokens"], tp=tp)
             return mod.prefill(params, cfg, inputs["tokens"], tp=tp,
                                max_seq=max_seq, chunk=chunk)
@@ -297,23 +293,22 @@ def make_serve_step(entry: registry.ArchEntry, tp: int, mesh=None,
     decode iteration; under a mesh as :func:`make_prefill_step` (the
     cache is this rank's shard).  ``seq_sharded_attn`` combines the
     context shards' partials (``distributed.seq_attention``); without
-    it a sharded cache is gathered before the attention."""
+    it a sharded cache is gathered before the attention.  rwkv6 steps
+    through the WKV6 kernel, as :func:`make_prefill_step`."""
     cfg, mod = entry.config, entry.module
-    _check_family(cfg, mesh)
     _need_shape(mesh, shape)
     held = _held(mesh, shape.global_batch if shape else 0,
                  shape.seq_len if shape else 0)
-    attn_fn = None
+    kw = {}
     if seq_sharded_attn and mesh is not None \
             and cfg.family in registry.TRANSFORMER_FAMILIES:
-        attn_fn = make_seq_sharded_attn(mesh)
+        kw = {"attn_fn": make_seq_sharded_attn(mesh)}
+    elif cfg.family == "ssm":
+        kw = {"wkv_fn": kops.wkv6_scan}
 
     def serve_step(params, cache, tokens):
         with context.use_mesh(mesh, **held):
-            if attn_fn is not None:
-                return mod.decode_step(params, cfg, tokens, cache, tp=tp,
-                                       attn_fn=attn_fn)
-            return mod.decode_step(params, cfg, tokens, cache, tp=tp)
+            return mod.decode_step(params, cfg, tokens, cache, tp=tp, **kw)
 
     return serve_step
 
@@ -407,8 +402,8 @@ class Cell:
     sharded and a train loop its parameters and moments.  Outputs are
     held as ``out_specs`` say; ``cell.gather`` gathers them to full
     tensors.  Under FSDP, ``fsdp`` is the step's layer gatherer: the
-    leaves outside the blocks are gathered whole at the start of a step
-    and each layer where it runs (``layer_gathers`` counts them)."""
+    leaves outside the layer stacks are gathered whole at the start of a
+    step and each layer where it runs (``layer_gathers`` counts them)."""
     kind: str
     mesh: Any
     fn: Callable
@@ -486,7 +481,8 @@ def build_cell(entry: registry.ArchEntry, mesh, shape: ShapeCell,
         fn = make_serve_step(entry, tp, mesh,
                              seq_sharded_attn=seq_sharded_attn, shape=shape)
         rows = in_specs[2][:1]
-    fs = LayerGather(mesh, in_specs[0], entry.config.num_layers) \
+    fs = LayerGather(mesh, in_specs[0],
+                     entry.module.layer_stacks(entry.config)) \
         if LayerGather.needed(mesh, in_specs[0]) else None
     # the step returns this rank's rows of the logits
     held = (rows + (None,), out_specs[1])

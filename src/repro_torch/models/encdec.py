@@ -14,6 +14,20 @@ the cross K/V run in float32 whatever the weights' dtype; the prefill's
 ``cross_k`` / ``cross_v`` come back in float32 and take the cache's
 dtype when the engine inserts them.  ``decode_step`` writes the new
 self-attention K/V into the cache tensors it was given, in place.
+
+Under a bound mesh whose "model" axis has P > 1 ranks, each rank holds
+the shards of ``distributed.sharding.param_pspecs`` (the tied table
+d-sharded) and of ``cache_pspecs``: the self K/V sharded over its
+context S, the cross K/V over its frames F.  Self and cross attention
+gather q, k and v (``layers.qkv_project``; the cross K/V's column shards
+are gathered before F is cut to this rank's slice for the cache), each
+``wo`` and the FFN's down projection are row-parallel.  Decode writes
+the new self K/V on the rank whose S slice holds its position, and
+attends over each cache shard with ``layers.decode_attention_core``,
+the shards' partials combined by log-sum-exp over "model"
+(``distributed.seq_attention.combine_partials``).  Under FSDP each
+layer of ``enc`` and ``dec`` is gathered where it runs, inside the
+recomputed block.
 """
 from __future__ import annotations
 
@@ -23,9 +37,11 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 
 from repro_torch.device import resolve
+from repro_torch.distributed import context
+from repro_torch.distributed.seq_attention import combine_partials
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.transformer import layer_params
+from repro_torch.models.transformer import _seq_mesh
 
 Params = Dict[str, Any]
 
@@ -123,8 +139,25 @@ def init(cfg: ArchConfig, tp: int = 1, *, device="cuda",
             "ln_f": L.init_norm("layernorm", cfg.d_model, device=dev)}
 
 
-def _layer(params: Params, stack: str, li: int) -> Params:
-    return layer_params({"blocks": params[stack]}, li)
+def layer_stacks(cfg: ArchConfig):
+    """The stacked layer subtrees and their leading layer dims (what the
+    FSDP gatherer walks)."""
+    return {"enc": (cfg.encoder_layers,), "dec": (cfg.num_layers,)}
+
+
+def _layers(params: Params, stack: str) -> list:
+    """This rank's per-layer pieces of the stack (each leaf unbound once,
+    or the FSDP gatherer's pieces)."""
+    fs = context.fsdp()
+    return fs.pieces(params[stack], stack) if fs is not None \
+        else L.unstack(params[stack])
+
+
+def _full(lp: Params, stack: str, li: int) -> Params:
+    fs = context.fsdp()
+    return lp if fs is None else fs.layer(lp, li, stack)
+
+
 
 
 # ---------------------------------------------------------------------------
@@ -141,18 +174,19 @@ def encode(params: Params, cfg: ArchConfig, frames: torch.Tensor,
     x = frames + _sinusoid(f, d, frames.device)[None].to(frames.dtype)
     x = x.to(torch.promote_types(x.dtype, L._dtype(cfg.dtype)))
 
-    def block(x, lp):
-        lp = _promoted(lp, x.dtype)
+    def block(x, lp, li):
+        lp = _promoted(_full(lp, "enc", li), x.dtype)
         h = L.apply_norm("layernorm", lp["ln1"], x)
         q, k, v = L.qkv_project(lp["attn"], h, hq, hkv, cfg.d_head)
         a = L.blocked_attention(q, k, v, causal=False, q_block=min(512, f),
                                 kv_block=min(512, f))
-        x = x + a.reshape(b, f, hq * cfg.d_head) @ lp["attn"]["wo"]
+        x = x + L.row_parallel(a.reshape(b, f, hq * cfg.d_head),
+                               lp["attn"]["wo"])
         h = L.apply_norm("layernorm", lp["ln2"], x)
-        return x + L.apply_ffn(lp["ffn"], h, "gelu")
+        return x + L.apply_ffn(lp["ffn"], h, "gelu", d_ff=cfg.d_ff)
 
-    for lp in L.unstack(params["enc"]):
-        x = L.remat(block, x, lp) if remat else block(x, lp)
+    for li, lp in enumerate(_layers(params, "enc")):
+        x = L.remat(block, x, lp, li) if remat else block(x, lp, li)
     return L.apply_norm("layernorm", params["ln_enc"], x)
 
 
@@ -166,35 +200,45 @@ def _decoder_seq(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     dh = cfg.d_head
     b, s = tokens.shape
     f = enc_out.shape[1]
-    x = L.embed(params["embed"], tokens) + \
+    x = L.embed(params["embed"], tokens, cfg.d_model) + \
         params["pos_dec"][None, :s].to(L._dtype(cfg.dtype))
 
-    def block(x, lp):
+    def block(x, lp, li):
+        lp = _full(lp, "dec", li)
         sa, xa = lp["self_attn"], lp["cross_attn"]
         h = L.apply_norm("layernorm", lp["ln1"], x)
         q, k, v = L.qkv_project(sa, h, hq, hkv, dh)
         a = L.blocked_attention(q, k, v, causal=True, q_block=min(512, s),
                                 kv_block=min(512, s))
-        x = x + a.reshape(b, s, hq * dh) @ sa["wo"]
+        x = x + L.row_parallel(a.reshape(b, s, hq * dh), sa["wo"])
         h = L.apply_norm("layernorm", lp["ln_x"], x)
-        qx = (h @ xa["wq"]).reshape(b, s, hq, dh)
-        kx = _mm(enc_out, xa["wk"]).reshape(b, f, hkv, dh)
-        vx = _mm(enc_out, xa["wv"]).reshape(b, f, hkv, dh)
+        qx = _cross_q(xa, h, hq, dh)
+        kx, vx = (L.gather_cols(_mm(L.column_input(enc_out, xa[n],
+                                                   hkv * dh), xa[n]),
+                                hkv * dh).reshape(b, f, hkv, dh)
+                  for n in ("wk", "wv"))
         ax = L.blocked_attention(qx, kx, vx, causal=False,
                                  q_block=min(512, s), kv_block=min(512, f))
-        x = x + ax.reshape(b, s, hq * dh) @ xa["wo"]
+        x = x + L.row_parallel(ax.reshape(b, s, hq * dh), xa["wo"])
         h = L.apply_norm("layernorm", lp["ln2"], x)
-        return x + L.apply_ffn(lp["ffn"], h, "gelu"), (k, v, kx, vx)
+        return (x + L.apply_ffn(lp["ffn"], h, "gelu", d_ff=cfg.d_ff),
+                (k, v, kx, vx))
 
     caches = []
-    for lp in L.unstack(params["dec"]):
-        x, kv = L.remat(block, x, lp) if remat else block(x, lp)
+    for li, lp in enumerate(_layers(params, "dec")):
+        x, kv = L.remat(block, x, lp, li) if remat else block(x, lp, li)
         if collect_cache:
             caches.append(kv)
     out = None
     if collect_cache:
         out = tuple(torch.stack(leaf) for leaf in zip(*caches))
     return L.apply_norm("layernorm", params["ln_f"], x), out
+
+
+def _cross_q(xa: Params, h: torch.Tensor, hq: int, dh: int) -> torch.Tensor:
+    """The cross attention's queries (B, S, Hq, D) of full heads."""
+    q = L.column_input(h, xa["wq"], hq * dh) @ xa["wq"]
+    return L.gather_cols(q, hq * dh).reshape(*h.shape[:2], hq, dh)
 
 
 def loss(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
@@ -206,7 +250,7 @@ def loss(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     h, _ = _decoder_seq(params, cfg, batch["tokens"], enc_out, tp,
                         remat=True)
     return L.lm_loss_chunked(params["embed"], h, batch["labels"],
-                             batch.get("mask"))
+                             batch.get("mask"), vocab=cfg.padded_vocab(tp))
 
 
 # ---------------------------------------------------------------------------
@@ -217,7 +261,8 @@ def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
             max_seq: Optional[int] = None):
     """Encode ``frames``, run the decoder over the prompt; returns
     (last_logits, EncDecCache) with the self K/V padded to ``max_seq``
-    and the cross K/V in the encoder's dtype."""
+    and the cross K/V in the encoder's dtype (this rank's S and F slices
+    of them where the cache is sharded)."""
     enc_out = encode(params, cfg, frames, tp=tp)
     h, (k, v, kx, vx) = _decoder_seq(params, cfg, tokens, enc_out, tp,
                                      collect_cache=True)
@@ -226,6 +271,20 @@ def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
         pad = (0, 0, 0, 0, 0, max_seq - s)
         k = torch.nn.functional.pad(k, pad)
         v = torch.nn.functional.pad(v, pad)
+    parts = L.model_parts(cfg.encoder_frames)
+    if parts > 1:
+        if kx.shape[2] != cfg.encoder_frames:
+            raise ValueError(f"a cross cache sharded over its frames takes "
+                             f"the config's {cfg.encoder_frames} frames, "
+                             f"got {kx.shape[2]}")
+        n = kx.shape[2] // parts
+        i = L._require_model_mesh().coord("model")
+        kx, vx = (t[:, :, i * n:(i + 1) * n].clone() for t in (kx, vx))
+    mesh = _seq_mesh()
+    if mesh is not None:
+        n = k.shape[2] // mesh.shape["model"]
+        i = mesh.coord("model")
+        k, v = (t[:, :, i * n:(i + 1) * n].clone() for t in (k, v))
     lengths = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
     return (L.unembed(params["embed"], h[:, -1]),
             EncDecCache(k, v, kx, vx, lengths))
@@ -241,7 +300,9 @@ def decode_step(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     whose length is past the position table reads NaN for its position
     embedding (``jnp.take``'s fill), and its K/V write lands at position
     S-1 (``dynamic_update_slice`` clamps).  Only a stale lane, one not in
-    the decode batch, can get there; its output is discarded.
+    the decode batch, can get there; its output is discarded.  On a
+    cache held in context shards the rank holding that position writes
+    it.
     """
     hq, hkv = cfg.padded_heads(tp)
     dh = cfg.d_head
@@ -251,30 +312,57 @@ def decode_step(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     idx = cache.lengths.long()
     pe = params["pos_dec"][idx.clamp(0, rows - 1)].to(dt)
     pe = torch.where((idx < rows)[:, None], pe, math.nan)
-    x = L.embed(params["embed"], tokens) + pe
+    x = L.embed(params["embed"], tokens, cfg.d_model) + pe
     f = cache.cross_k.shape[2]
     cross_valid = torch.ones((b, f), dtype=torch.bool, device=x.device)
-    widx = idx.clamp(0, cache.self_k.shape[2] - 1)
+    cross_mesh = L._model_mesh() \
+        if L.model_parts(cfg.encoder_frames) > 1 else None
+    s = cache.self_k.shape[2]
+    mesh = _seq_mesh()
+    start, s_full = 0, s
+    if mesh is not None:
+        start, s_full = mesh.coord("model") * s, s * mesh.shape["model"]
+    widx = idx.clamp(0, s_full - 1) - start
+    own = ((widx >= 0) & (widx < s))[:, None, None]
+    widx = widx.clamp(0, s - 1)
+    valid = (start + torch.arange(s, device=x.device))[None, :] \
+        < (cache.lengths + 1).to(x.device)[:, None]
     lanes = torch.arange(b, device=x.device)
-    for li in range(cfg.num_layers):
-        lp = _layer(params, "dec", li)
+    for li, lp in enumerate(_layers(params, "dec")):
+        lp = _full(lp, "dec", li)
         sa, xa = lp["self_attn"], lp["cross_attn"]
         kc, vc = cache.self_k[li], cache.self_v[li]
         h = L.apply_norm("layernorm", lp["ln1"], x[:, None])
         q, k, v = L.qkv_project(sa, h, hq, hkv, dh)
-        kc[lanes, widx] = k[:, 0]
-        vc[lanes, widx] = v[:, 0]
-        a = L.decode_attention(q[:, 0], kc, vc, cache.lengths + 1)
-        x = x + a.reshape(b, hq * dh) @ sa["wo"]
+        k, v = k[:, 0], v[:, 0]
+        if mesh is not None:
+            k = torch.where(own, k, kc[lanes, widx])
+            v = torch.where(own, v, vc[lanes, widx])
+        kc[lanes, widx] = k
+        vc[lanes, widx] = v
+        a = _attend(q[:, 0], kc, vc, valid, mesh)
+        x = x + L.row_parallel(a.reshape(b, hq * dh).to(x.dtype), sa["wo"])
         h = L.apply_norm("layernorm", lp["ln_x"], x[:, None])
-        qx = (h @ xa["wq"]).reshape(b, 1, hq, dh)
-        acc, l, _ = L.decode_attention_core(qx[:, 0], cache.cross_k[li],
-                                            cache.cross_v[li], cross_valid)
-        ax = (acc / torch.clamp(l, min=1e-20)[..., None]).reshape(
-            b, hq * dh)
-        x = x + ax.to(x.dtype) @ xa["wo"]
+        qx = _cross_q(xa, h, hq, dh)
+        ax = _attend(qx[:, 0], cache.cross_k[li], cache.cross_v[li],
+                     cross_valid, cross_mesh)
+        x = x + L.row_parallel(ax.reshape(b, hq * dh).to(x.dtype),
+                               xa["wo"])
         h = L.apply_norm("layernorm", lp["ln2"], x)
-        x = x + L.apply_ffn(lp["ffn"], h, "gelu")
+        x = x + L.apply_ffn(lp["ffn"], h, "gelu", d_ff=cfg.d_ff)
     x = L.apply_norm("layernorm", params["ln_f"], x)
     logits = L.unembed(params["embed"], x)
     return logits, cache._replace(lengths=cache.lengths + 1)
+
+
+def _attend(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+            valid: torch.Tensor, mesh) -> torch.Tensor:
+    """Decode attention (B, Hq, D) float32 of q over a cache (B, S, H, D)
+    whose positions ``valid`` marks; on a cache held in shards over
+    "model" (``mesh``) the shards' partials are combined."""
+    acc, l, m = L.decode_attention_core(q, kc, vc, valid)
+    if mesh is not None:
+        acc, l = combine_partials(acc, l, m, mesh, "model")
+    b, hkv, g, d = acc.shape
+    return (acc / torch.clamp(l, min=1e-20)[..., None]).reshape(
+        b, hkv * g, d)

@@ -65,6 +65,15 @@ def _model_mesh():
     return mesh
 
 
+def model_parts(n: int) -> int:
+    """P where a bound mesh's "model" axis of P > 1 ranks divides ``n``
+    (the sharding rules then cut a dim of size ``n`` over it), else 1."""
+    mesh = _model_mesh()
+    if mesh is None or n % mesh.shape["model"]:
+        return 1
+    return mesh.shape["model"]
+
+
 def gather_cols(y: torch.Tensor, width: int) -> torch.Tensor:
     """A column-parallel output (last dim ``width / P`` on each rank)
     gathered to ``width``; unchanged when already full."""

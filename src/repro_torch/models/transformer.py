@@ -95,6 +95,12 @@ def init(cfg: ArchConfig, tp: int = 1, *, device="cuda",
     }
 
 
+def layer_stacks(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
+    """The stacked layer subtrees and their leading layer dims (what the
+    FSDP gatherer walks)."""
+    return {"blocks": (cfg.num_layers,)}
+
+
 def layer_params(params: Params, li: int) -> Params:
     """Layer ``li``'s slice of the stacked block tree (views, no copy);
     under FSDP (``context.fsdp``) gathered over the data axes."""

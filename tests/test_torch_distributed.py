@@ -32,6 +32,7 @@ torch = pytest.importorskip("torch")
 from repro.models import layers as JL  # noqa: E402
 from repro.models import registry as JR  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
+from repro_torch.distributed import sharding as TS  # noqa: E402
 from repro_torch.launch import mesh as TM  # noqa: E402
 from repro_torch.launch import steps as TSTEPS  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
@@ -427,16 +428,38 @@ def test_moe_expert_parallel_matches_reference(runs, shape):
     assert got.sum() > 0      # capacity binds: some pairs are dropped
 
 
-def test_waiting_families_raise_their_item():
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "recurrentgemma-9b",
+                                  "whisper-small"])
+def test_recurrent_and_encdec_cells_build_on_a_mesh_description(arch):
+    """rwkv6, RecurrentGemma and the encoder-decoder build their prefill,
+    serve and train cells under a mesh of two model ranks (meta
+    stand-ins and the reference's spec tables); on a mesh that is a
+    description only, the serve step runs the whole program in this
+    process and gives the unsharded step's logits bitwise."""
     mesh = TM.make_mesh((1, 2), ("data", "model"))
-    cell = ShapeCell("d", 64, 4, "decode")
-    for arch in ("rwkv6-7b", "recurrentgemma-9b", "whisper-small"):
-        entry = TR.get(arch, reduced=True)
-        with pytest.raises(ValueError, match="item 11"):
-            TSTEPS.make_serve_step(entry, 2, mesh, shape=cell)
-        with pytest.raises(ValueError, match="item 11"):
-            TSTEPS.build_cell(entry, mesh, cell)
-    # the transformer families build their train cell
+    entry = TR.get(arch, reduced=True)
+    cfg = entry.config
+    cells = {}
+    for kind in ("prefill", "decode", "train"):
+        cell, args = TSTEPS.build_cell(entry, mesh,
+                                       ShapeCell(kind, 64, 4, kind))
+        assert cell.kind == kind and cell.fsdp is None
+        assert all(t.is_meta for _, t in TS.tree_leaves_with_path(args[0]))
+        cells[kind] = cell
+    # the recurrent state / caches are cut over "model"
+    assert any("model" in spec for spec in cells["decode"].in_specs[1])
+    assert set(cells["train"].in_specs[2]) >= {"tokens", "labels"}
+    params = entry.module.init(cfg, 2, device="cpu", seed=0)
+    tok = torch.arange(4, dtype=torch.int32) * 7
+    cache = entry.cache_zeros(4, 64, 2, device="cpu")
+    plain = TSTEPS.make_serve_step(entry, 2)(
+        params, type(cache)(*(t.clone() for t in cache)), tok)[0]
+    got = cells["decode"].fn(params, cache, tok)[0]
+    assert torch.equal(got, plain)
+
+
+def test_transformer_train_cell_builds_on_a_mesh_description():
+    mesh = TM.make_mesh((1, 2), ("data", "model"))
     cell, args = TSTEPS.build_cell(TR.get("yi-6b", reduced=True), mesh,
                                    ShapeCell("t", 64, 4, "train"))
     assert cell.kind == "train" and cell.fsdp is None
