@@ -172,7 +172,7 @@ Phases, one line each; any failure raises and exits non-zero:
              the single-process run's, while a wrong shard (wo's row
              halves swapped) lies beyond it; the unsharded run's own
              error against float32 compute of the same weights is
-             printed beside them.  In float32 with TF32 off (qwen3 at 8
+             printed beside them.  In float32 with TF32 off (qwen3 at 6
              layers: past the reference's FSDP residency rule, so each
              rank holds its data shard of the model-axis shards and
              gathers one layer at a time, once in the prefill and once a
@@ -219,9 +219,9 @@ Phases, one line each; any failure raises and exits non-zero:
              float32 with TF32 off, each held to the same model's train
              step in this process under the mesh description (losses
              within 1e-5, gradient norms within 1e-3, relative, every
-             rank): (b) two, mesh (2, 1), stablelm-3b at full width, 16
+             rank): (b) two, mesh (2, 1), stablelm-3b at full width, 12
              of 32 layers, FSDP by the reference's residency rule, 2 x
-             16 layer gathers a step, each rank's peak allocated memory;
+             12 layer gathers a step, each rank's peak allocated memory;
              (c) four, mesh (2, 2), stablelm-3b at 4 layers with 2
              microbatches (data and tensor parallel, ZeRO-1) and
              qwen3-30b-a3b at full width, 2 layers (the expert-parallel
@@ -236,6 +236,24 @@ Phases, one line each; any failure raises and exits non-zero:
              tolerances (TRAIN_NOISE_FLOOR).  Times of ranks sharing one
              card measure no collective bandwidth.  Prints each run's
              time and its ranks' peak memory, and the phase's time.
+7. checks  — ``repro_torch.analysis.checks`` on the card: every pass
+             with 0 findings (its kernel probes run the four CUDA
+             kernels: NaN past every length and in the scratch page, an
+             inactive lane on the scratch page, NaN output sentinels,
+             ragged WKV6 T and GEMM M / N, each output finite and within
+             its dtype's tolerance of the plain version), each
+             regression fixture with at least one; the dry run
+             (``launch.dryrun.run_cell``) of yi-6b decode_32k and
+             stablelm-3b train_4k on the 16x16 mesh, whose records it
+             prints; then the count against the card: full-width yi-6b's
+             serve step at mesh (1, 1) with the flash-decode partial on
+             its path (B = 4, contexts 768-778 in an 800-deep bf16
+             cache), counted on meta tensors and again on the card under
+             ``FlopCounterMode``: the aten FLOPs equal, the kernels'
+             share equal (their formulas, on both), the partial launched
+             once a layer, and the counted argument bytes within 1% of
+             the growth of ``torch.cuda.memory_allocated()`` when the
+             stand-ins are made on the card.  Prints the phase's time.
 
 The last three lines are the kernels' JSON, the card's name and power
 limit as nvidia-smi reports them, and the result JSON.  Exits non-zero
@@ -330,9 +348,10 @@ TRAIN_FULL = ("stablelm-3b", 8, 512, 8)
 # stablelm-3b at full width and depth in bf16 (global batch, seq) against
 # the unsharded step bit for bit; then gloo ranks on the one card, in
 # float32 with TF32 off, each held to the same model's train step in one
-# process under the mesh description: (b) mesh (2, 1), 16 of stablelm's
-# 32 layers (1.53 B parameters: 6.1 GB + 8 B x 1.53 B / 2 = 12.2 GB a
-# rank by the reference's residency rule, above 8 GiB, so FSDP), (c)
+# process under the mesh description: (b) mesh (2, 1), 12 of stablelm's
+# 32 layers (1.21 B parameters: 4.8 GB + 8 B x 1.21 B / 2 = 9.7 GB a
+# rank by the reference's residency rule, above 8 GiB, so FSDP; 10
+# layers would not be), (c)
 # mesh (2, 2): stablelm at 4 layers with 2 microbatches (data and tensor
 # parallel, ZeRO-1), and qwen3-30b-a3b at full width, 2 layers (the
 # expert-parallel MoE's backward); (d) mesh (2, 2), full width: rwkv6-7b
@@ -346,7 +365,7 @@ TRAIN_FULL = ("stablelm-3b", 8, 512, 8)
 # batch, seq, microbatch)
 TRAIN_MESH_STEPS = 3
 TRAIN_WORLD_ONE = ("stablelm-3b", 8, 512)
-TRAIN_MESH_RUNS = [("stablelm-3b", 16, (2, 1), 4, 512, 1),
+TRAIN_MESH_RUNS = [("stablelm-3b", 12, (2, 1), 4, 512, 1),
                    ("stablelm-3b", 4, (2, 2), 8, 256, 2),
                    ("qwen3-30b-a3b", 2, (2, 2), 4, 256, 1),
                    ("rwkv6-7b", 2, (2, 2), 4, 256, 1),
@@ -380,13 +399,13 @@ DIST_CASES = [("serve split 2", SERVE_LENGTHS, SERVE_CAP, 2),
 # bf16 program on a host mesh leaves its unsharded tokens too:
 # examples/ref_bf16_shard_drift.py).  qwen3-30b-a3b: 8 of its 48 layers
 # in bf16 (5.6 GB a rank, under the reference's FSDP residency rule) and
-# in float32 (10.9 GB of model-axis shards a rank cross the rule: FSDP,
-# each rank holding 5.6 GB and gathering one layer at a time)
+# 6 in float32 (8.7 GB of model-axis shards a rank cross the rule, which
+# 5 would not: FSDP, each rank gathering one layer at a time)
 DIST_BF16_REL_TOL = 0.1
 DIST_RUNS = [("yi-6b", 0, "bfloat16", (1, 2)),
              ("qwen3-30b-a3b", 8, "bfloat16", (2, 2)),
              ("yi-6b", 0, "float32", (1, 2)),
-             ("qwen3-30b-a3b", 8, "float32", (2, 2)),
+             ("qwen3-30b-a3b", 6, "float32", (2, 2)),
              # the recurrent families: rwkv6 runs the WKV6 kernel on each
              # rank's 32 heads (its prefill on the chunked design)
              ("rwkv6-7b", 0, "bfloat16", (1, 2)),
@@ -2915,6 +2934,106 @@ def phase_train(registry, smi):
     print(f"[train] phase {time.perf_counter() - t0:.1f} s")
 
 
+CHECKS_DRYRUN = (("yi-6b", "decode_32k"), ("stablelm-3b", "train_4k"))
+#: the count check's serve step: yi-6b at full width, mesh (1, 1), B = 4
+#: at contexts 768-778 in an 800-deep cache (profile_step's shape)
+CHECKS_SERVE = ("yi-6b", 4, 800, (768, 771, 775, 778))
+ARG_BYTES_TOL = 0.01
+
+
+def _count_on_card(registry):
+    """yi-6b's serve step counted on meta tensors, then run on the card
+    under the same counters: (meta count, card count, argument bytes
+    counted, memory growth of the stand-ins made on the card, partial
+    launches)."""
+    from repro_torch.analysis import roofline
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import steps
+    from repro_torch.models.config import ShapeCell
+
+    arch, b, cap, lens = CHECKS_SERVE
+    entry = registry.get(arch)
+    mesh = M.simulate(M.make_mesh((1, 1), ("data", "model")))
+    shape = ShapeCell("serve", cap, b, "decode")
+    cell, args = steps.build_cell(entry, mesh, shape, seq_sharded_attn=True)
+    local = cell.shard(*args)
+    counted = sum(t.numel() * t.element_size() for a in local
+                  for _, t in sh.tree_leaves_with_path(a))
+    meta = roofline.count_step(cell.step, *local)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    params = entry.module.init(entry.config, 1, device="cuda", seed=0)
+    cache = entry.cache_zeros(b, cap, 1, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for leaf in (cache.k, cache.v):
+        leaf.normal_(generator=gen)
+    cache.lengths.copy_(torch.tensor(lens, dtype=torch.int32))
+    tokens = torch.randint(0, entry.config.vocab, (b,), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - base
+    fd.reset_launches()
+    card = roofline.count_step(cell.step, params, cache, tokens)
+    torch.cuda.synchronize()
+    launches = fd.LAUNCHES["flash_decode_partial"]
+    finite = bool(torch.isfinite(card.outputs[0]).all())
+    card.outputs = None
+    del params, cache, tokens
+    if not finite:
+        raise AssertionError("[checks] the card's serve step gave "
+                             "non-finite logits")
+    return meta, card, counted, grown, launches
+
+
+def phase_checks(registry, smi):
+    """The port's invariant checks on the card, the dry run's reports and
+    the count held against the card."""
+    from repro_torch.analysis import checks
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    errs = {}
+    findings = checks.run_all("cuda", errs=errs)
+    if not errs:
+        raise AssertionError("[checks] the kernel probes compared nothing")
+    if findings:
+        raise AssertionError("[checks] findings on the port:\n"
+                             + checks.render_report(findings))
+    fixtures = {name: len(checks.run_fixture(name))
+                for name in checks.FIXTURE_NAMES}
+    if not all(fixtures.values()):
+        raise AssertionError(f"[checks] a regression fixture went "
+                             f"unflagged: {fixtures}")
+    print("[checks] " + json.dumps({"findings": 0, "fixtures": fixtures,
+                                    "probe_max_abs_err": errs,
+                                    "card": smi}))
+    for arch, shape in CHECKS_DRYRUN:
+        rec = dryrun.run_cell(arch, shape, "single")
+        if rec.get("status") != "OK":
+            raise AssertionError(f"[checks] dry run {arch} {shape}: "
+                                 f"{rec.get('status')}")
+        print("[checks] dryrun " + json.dumps(rec))
+    meta, card, counted, grown, launches = _count_on_card(registry)
+    row = {"aten_flops": [meta.aten_flops, card.aten_flops],
+           "kernel_flops": [meta.kernels.total_flops,
+                            card.kernels.total_flops],
+           "kernel_calls": [meta.kernels.calls, card.kernels.calls],
+           "partial_launches": launches, "argument_bytes": counted,
+           "allocated_growth": grown, "card": smi}
+    layers = registry.get_config(CHECKS_SERVE[0]).num_layers
+    if (meta.aten_flops != card.aten_flops
+            or meta.kernels.flops != card.kernels.flops
+            or meta.kernels.calls != card.kernels.calls
+            or launches != layers
+            or abs(grown - counted) > ARG_BYTES_TOL * counted):
+        raise AssertionError(f"[checks] the count disagrees with the "
+                             f"card: {row}")
+    print("[checks] count " + json.dumps(row))
+    print(f"[checks] phase {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -2942,6 +3061,7 @@ def main() -> None:
     launches = phase_serve(registry, sched, (fd, wk, sg), smi)
     dist_row, dist_wkv = phase_dist(registry, fd, ref, smi)
     phase_train(registry, smi)
+    phase_checks(registry, smi)
     for name, by_run in dist_wkv.items():
         launches.setdefault(name, {}).update(by_run)
     for row in rows:

@@ -278,6 +278,10 @@ class GPUConfig:
     mem_efficiency: float = 0.50        # achieved fraction on decode GEMV/GEMM
     compute_efficiency: float = 0.40    # achieved fraction of peak on decode
     nvlink_bw_bytes: float = 450e9      # per direction, per GPU
+    # device memory per card (H100 SXM5 80GB): a class constant (no
+    # annotation), kept out of the dataclass fields the reference's model
+    # compares
+    hbm_gb = 80.0
     kernel_overhead_s: float = 5e-6     # launch+sync per fused op group
     power_w: float = 550.0              # sustained decode board power
     tdp_w: float = 700.0

@@ -40,7 +40,10 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, Hq, D); k/v: (B, S, Hkv, D); lengths: (B,) -> (B, Hq, D).
 
     GQA decode attention over each request's valid prefix
-    ``[0, lengths[b])``, float32 softmax.
+    ``[0, lengths[b])``, float32 softmax.  Positions past a length add
+    nothing whatever they hold (their V is zeroed before the product, as
+    the kernels zero-fill them), so a NaN there does not reach the
+    output.
     """
     b, hq, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
@@ -48,14 +51,16 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = 1.0 / math.sqrt(d)
     qr = q.reshape(b, hkv, g, d).float() * scale
     scores = torch.einsum("bhgd,bshd->bhgs", qr, k.float())
-    valid = (torch.arange(s, device=q.device)[None, :]
-             < lengths.to(q.device)[:, None])[:, None, None, :]
+    live = (torch.arange(s, device=q.device)[None, :]
+            < lengths.to(q.device)[:, None])              # (B, S)
+    valid = live[:, None, None, :]
     scores = torch.where(valid, scores, -math.inf)
     m = scores.amax(-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, 0.0)
     p = torch.where(valid, torch.exp(scores - m), 0.0)
     l = p.sum(-1, keepdim=True)
-    out = torch.einsum("bhgs,bshd->bhgd", p, v.float())
+    out = torch.einsum("bhgs,bshd->bhgd", p,
+                       torch.where(live[:, :, None, None], v.float(), 0.0))
     out = out / torch.clamp(l, min=1e-20)
     return out.reshape(b, hq, d).to(q.dtype)
 
@@ -64,11 +69,13 @@ def flash_decode_partial_ref(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, lengths: torch.Tensor):
     """q: (B, Hq, D); k/v: (B, S, Hkv, D); lengths: (B,) -> (acc, l, m),
     the un-normalised partial of ``layers.decode_attention_core`` over
-    the valid prefix ``[0, lengths[b])`` (m = 0 for an empty lane)."""
+    the valid prefix ``[0, lengths[b])`` (m = 0 for an empty lane); V
+    past a length is zeroed first, as in :func:`flash_decode_ref`."""
     from repro_torch.models.layers import decode_attention_core
     s = k.shape[1]
     valid = (torch.arange(s, device=q.device)[None, :]
              < lengths.to(q.device)[:, None])
+    v = torch.where(valid[:, :, None, None], v, 0.0)
     return decode_attention_core(q, k, v, valid)
 
 

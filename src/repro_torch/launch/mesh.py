@@ -11,6 +11,11 @@ coordinate on each axis.  Nothing
 here initialises ``torch.distributed``: the caller does that, with its
 own address, world size and rank.
 
+:func:`simulate` gives a mesh whose groups are stand-ins: the step runs
+one rank's program (its coordinates), and each collective is recorded
+by ``distributed.collectives`` instead of sent, so a cell's traffic can
+be counted with no process group (``launch.dryrun``).
+
 The batch shards over ("pod", "data"); tensor, expert and sequence
 parallelism over "model".
 """
@@ -18,7 +23,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field, replace
-from typing import Any, Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -128,11 +133,11 @@ def _subgroups(dist, mesh: Mesh, axes: Tuple[str, ...], rank: int):
     return mine
 
 
-def bind(mesh: Mesh, device_type: Optional[str] = None) -> Mesh:
+def bind(mesh: Mesh, device_type: str) -> Mesh:
     """``mesh`` attached to the initialised default process group, whose
     world size must equal ``mesh.size``.  Every rank calls it, in the
     same order (it creates process groups).  ``device_type`` is the
-    ``DeviceMesh``'s (default: ``cuda`` where available, else ``cpu``).
+    ``DeviceMesh``'s (``"cuda"`` or ``"cpu"``, the ranks' tensors').
     """
     import torch
     import torch.distributed as dist
@@ -146,8 +151,6 @@ def bind(mesh: Mesh, device_type: Optional[str] = None) -> Mesh:
     if world != mesh.size:
         raise ValueError(f"mesh {mesh.shape} has {mesh.size} ranks; the "
                          f"process group has {world}")
-    device_type = device_type or (
-        "cuda" if torch.cuda.is_available() else "cpu")
     dm = DeviceMesh(device_type, torch.from_numpy(_rank_grid(mesh)),
                     mesh_dim_names=mesh.axis_names)
     groups = {(a,): dm.get_group(a) for a in mesh.axis_names}
@@ -158,3 +161,30 @@ def bind(mesh: Mesh, device_type: Optional[str] = None) -> Mesh:
         groups[mesh.axis_names] = dist.group.WORLD
     coords = dict(zip(mesh.axis_names, dm.get_coordinate()))
     return replace(mesh, device_mesh=dm, groups=groups, coords=coords)
+
+
+@dataclass(frozen=True)
+class SimGroup:
+    """A stand-in process group of ``size`` ranks (:func:`simulate`):
+    ``distributed.collectives`` records a call over it and sends
+    nothing."""
+    size: int
+
+
+def simulate(mesh: Mesh, rank: int = 0) -> Mesh:
+    """``mesh`` as rank ``rank`` would hold it after :func:`bind`, with
+    :class:`SimGroup` stand-ins for its process groups: the step runs
+    that rank's program and every collective is recorded (shapes right,
+    values not exchanged).  Needs no process group and no socket."""
+    if not 0 <= rank < mesh.size:
+        raise ValueError(f"rank {rank} outside a mesh of {mesh.size}")
+    coords = dict(zip(mesh.axis_names,
+                      (int(c) for c in np.unravel_index(rank, mesh.sizes))))
+    keys = [(a,) for a in mesh.axis_names]
+    daxes = data_axes(mesh)
+    if len(daxes) > 1:
+        keys.append(daxes)
+    if len(mesh.axis_names) > 1:
+        keys.append(mesh.axis_names)
+    groups = {k: SimGroup(mesh.axis_size(k)) for k in keys}
+    return replace(mesh, groups=groups, coords=coords)

@@ -171,7 +171,8 @@ class _Zero1:
 
 def make_train_step(entry: registry.ArchEntry, ocfg: axw.AdamWConfig,
                     tp: int = 1, mesh=None, microbatch: int = 1, *,
-                    shape: Optional[ShapeCell] = None) -> Callable:
+                    shape: Optional[ShapeCell] = None,
+                    fsdp: Optional[bool] = None) -> Callable:
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``; ``batch`` holds numpy arrays or tensors and goes to the
     parameters' device.  ``microbatch`` > 1 accumulates float32
@@ -181,8 +182,9 @@ def make_train_step(entry: registry.ArchEntry, ocfg: axw.AdamWConfig,
     Under a bound ``mesh``, ``shape`` gives the global batch; ``params``
     are this rank's shards (``assemble_shardings``' spec), ``opt_state``
     its ZeRO-1 slices and ``batch`` its rows (with ``microbatch`` > 1
-    in the order of :func:`microbatch_rows`).  The step's FSDP gatherer,
-    if any, is ``train_step.fsdp``."""
+    in the order of :func:`microbatch_rows`); ``fsdp`` as
+    :func:`assemble_shardings` takes it.  The step's FSDP gatherer, if
+    any, is ``train_step.fsdp``."""
     cfg, mod = entry.config, entry.module
     sharded = mesh is not None and mesh.bound
     zero1, fs, held = None, None, {}
@@ -191,7 +193,7 @@ def make_train_step(entry: registry.ArchEntry, ocfg: axw.AdamWConfig,
             raise ValueError("the train step on a bound mesh needs the "
                              "cell's ShapeCell (its global batch)")
         _, (pspec, ospec, _), _ = assemble_shardings(entry, mesh, "train",
-                                                     shape, ocfg)
+                                                     shape, ocfg, fsdp)
         zero1 = _Zero1(mesh, pspec, ospec.mu)
         if shape.global_batch % (zero1.dsize * microbatch):
             raise ValueError(f"a global batch of {shape.global_batch} rows "
@@ -323,31 +325,39 @@ def make_serve_step(entry: registry.ArchEntry, tp: int, mesh=None,
 FSDP_RESIDENCY_BYTES = 8 * 2**30
 
 
+def fsdp_by_rule(params_sds, mesh, kind: str) -> bool:
+    """Whether the residency rule (:data:`FSDP_RESIDENCY_BYTES`) shards
+    parameters like ``params_sds`` over the data axes of ``mesh`` for a
+    ``kind`` cell."""
+    leaves = [t for _, t in sh.tree_leaves_with_path(params_sds)]
+    tp = mesh.shape["model"]
+    pbytes = sum(t.numel() * t.element_size() for t in leaves) / tp
+    if kind == "train":
+        dsize = int(np.prod([mesh.shape[a] for a in data_axes(mesh)])) or 1
+        n_par = sum(t.numel() for t in leaves)
+        resid = pbytes + 8.0 * n_par / tp / dsize   # f32 mu+nu, ZeRO-1
+    else:
+        resid = pbytes
+    return resid > FSDP_RESIDENCY_BYTES
+
+
 def assemble_shardings(entry: registry.ArchEntry, mesh, kind: str,
                        shape: ShapeCell,
                        ocfg: Optional[axw.AdamWConfig] = None,
-                       fsdp: bool = True):
+                       fsdp: Optional[bool] = None):
     """``(args, in_specs, out_specs)`` for one cell: the step's arguments
     as meta tensors and the spec trees of its arguments and outputs
     (``()`` is replicated).
 
-    ``fsdp``: additionally shard the parameters over the data axes when
-    the residency rule (:data:`FSDP_RESIDENCY_BYTES`) asks for it."""
+    ``fsdp``: additionally shard the parameters over the data axes, when
+    the residency rule asks for it (:func:`fsdp_by_rule`; ``None``) or
+    as told (``True`` / ``False``)."""
     cfg = entry.config
     tp = mesh.shape["model"]
     params_sds = entry.module.init(cfg, tp, device="meta")
-    leaves = [t for _, t in sh.tree_leaves_with_path(params_sds)]
     pspec = sh.param_pspecs(params_sds, mesh)
-    if fsdp:
-        pbytes = sum(t.numel() * t.element_size() for t in leaves) / tp
-        if kind == "train":
-            dsize = int(np.prod([mesh.shape[a] for a in data_axes(mesh)])
-                        ) or 1
-            n_par = sum(t.numel() for t in leaves)
-            resid = pbytes + 8.0 * n_par / tp / dsize   # f32 mu+nu, ZeRO-1
-        else:
-            resid = pbytes
-        fsdp = resid > FSDP_RESIDENCY_BYTES
+    if fsdp is None:
+        fsdp = fsdp_by_rule(params_sds, mesh, kind)
     if fsdp:
         pspec = sh.fsdp_pspecs(pspec, params_sds, mesh)
     rep = ()
@@ -461,16 +471,18 @@ class Cell:
 def build_cell(entry: registry.ArchEntry, mesh, shape: ShapeCell,
                seq_sharded_attn: bool = False,
                ocfg: Optional[axw.AdamWConfig] = None, microbatch: int = 1,
-               prefill_chunk: Optional[int] = None):
+               prefill_chunk: Optional[int] = None,
+               fsdp: Optional[bool] = None):
     """``(cell, args)``: the :class:`Cell` of one (arch x shape) on
-    ``mesh`` (bound, to run it) and its argument stand-ins."""
+    ``mesh`` (bound, to run it) and its argument stand-ins; ``fsdp`` as
+    :func:`assemble_shardings` takes it."""
     tp = mesh.shape["model"]
     kind = shape.kind
     args, in_specs, out_specs = assemble_shardings(entry, mesh, kind, shape,
-                                                   ocfg)
+                                                   ocfg, fsdp)
     if kind == "train":
         fn = make_train_step(entry, ocfg or axw.AdamWConfig(), tp, mesh,
-                             microbatch, shape=shape)
+                             microbatch, shape=shape, fsdp=fsdp)
         return Cell(kind, mesh, fn, args, in_specs, out_specs, out_specs,
                     fn.fsdp, microbatch), args
     if kind == "prefill":

@@ -9,6 +9,8 @@ GEMM the shapes and tolerances of ``tests/test_kernels.py``.  The port's
 Hopper GEMM mapping is held to the paper's rule.  The CUDA kernels run
 only on the card (the ``cuda``-marked tests here, and ``chip_smoke.py``).
 """
+import types
+
 import numpy as np
 import pytest
 
@@ -156,10 +158,19 @@ def test_wrappers_take_the_plain_path_on_cpu():
     part = acc / torch.clamp(l, min=1e-20)[..., None]
     torch.testing.assert_close(part.reshape(got.shape), got, rtol=1e-6,
                                atol=1e-6)
+    # a meta tensor (the dry run) runs neither: empty outputs of the
+    # right shape; any other device is refused
+    meta = ops.attention_decode(q.to("meta"), k.to("meta"), v.to("meta"),
+                                lengths.to("meta"))
+    assert meta.device.type == "meta" and meta.shape == got.shape
+    acc_m, l_m, m_m = ops.attention_decode_partial(
+        *(t.to("meta") for t in (q, k, v, lengths)))
+    assert (acc_m.shape, l_m.shape, m_m.shape) == (acc.shape, l.shape,
+                                                   l.shape)
     assert fd.LAUNCHES == {"flash_decode": 0, "paged_flash_decode": 0,
                            "flash_decode_partial": 0}
     with pytest.raises(ValueError):
-        ops.attention_decode(q.to("meta"), k, v, lengths)
+        ops._route(types.SimpleNamespace(device=torch.device("xpu")))
 
 
 def _bad_inputs():
@@ -937,10 +948,17 @@ def test_new_wrappers_take_the_plain_path_on_cpu():
     assert wk.LAUNCHES == {"wkv6": 0, "wkv6_chunked": 0}
     assert sg.LAUNCHES == {"snake_decode_gemm_is": 0,
                            "snake_decode_gemm_os": 0}
-    with pytest.raises(ValueError):
-        ops.wkv6_scan(*(t.to("meta") for t in arrs))
-    with pytest.raises(ValueError):
-        ops.decode_gemm(a.to("meta"), b.to("meta"))
+    # a meta tensor (the dry run) runs neither: empty outputs of the
+    # right shape, counted by the entries' formulas
+    with ops.counting() as work:
+        y_m, s_m = ops.wkv6_scan(*(t.to("meta") for t in arrs))
+        g_m = ops.decode_gemm(a.to("meta"), b.to("meta"))
+    assert (y_m.shape, s_m.shape, g_m.shape) == (y.shape, s_t.shape,
+                                                 (4, 64))
+    assert y_m.device.type == "meta" and work.calls == {
+        "wkv6": 1, "snake_decode_gemm": 1}
+    assert work.flops["snake_decode_gemm"] == 2 * 4 * 32 * 64
+    assert wk.LAUNCHES == {"wkv6": 0, "wkv6_chunked": 0}
 
 
 def _bad_wkv_inputs():
