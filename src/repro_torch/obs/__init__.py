@@ -1,8 +1,8 @@
 """Serving-wide observability: tracing, metrics, exporters (the
 reference's ``repro.obs``).
 
-* :mod:`repro_torch.obs.tracer` — typed lifecycle events and the no-op
-  :data:`NULL_TRACER` the hot path defaults to;
+* :mod:`repro_torch.obs.tracer` — typed lifecycle events, the port's
+  host spans and the no-op :data:`NULL_TRACER` the hot path defaults to;
 * :mod:`repro_torch.obs.metrics` — counters, gauges, fixed-bucket
   histograms, the shared :func:`pctl` quantile helper and the
   metric-name contracts;
@@ -16,11 +16,12 @@ from repro_torch.obs.metrics import (DEFAULT_BUCKETS, Counter, Gauge,
                                      ROUTER_METRIC_CONTRACT,
                                      SCHEDULER_METRIC_CONTRACT, pctl,
                                      serving_registry)
-from repro_torch.obs.tracer import (EVENT_KINDS, NULL_TRACER, NullTracer,
-                                    TraceEvent, Tracer)
+from repro_torch.obs.tracer import (EVENT_KINDS, NULL_TRACER, SPAN_KINDS,
+                                    NullTracer, TraceEvent, Tracer)
 
 __all__ = [
-    "EVENT_KINDS", "NULL_TRACER", "NullTracer", "TraceEvent", "Tracer",
+    "EVENT_KINDS", "SPAN_KINDS", "NULL_TRACER", "NullTracer", "TraceEvent",
+    "Tracer",
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "DEFAULT_BUCKETS",
     "SCHEDULER_METRIC_CONTRACT", "ROUTER_METRIC_CONTRACT", "pctl",
     "serving_registry", "export_perfetto", "save_jsonl", "load_jsonl",

@@ -4,9 +4,10 @@ reference's).
 
 * :func:`export_perfetto` — Chrome-trace/Perfetto ``traceEvents`` JSON:
   one *process* per replica, one *thread* lane per slot (tid 0 is the
-  engine/scheduler lane), complete events (``ph: "X"``) for spans,
-  counter tracks (``ph: "C"``) fed by ``gauge`` events.  Open the file
-  at https://ui.perfetto.dev (or chrome://tracing).
+  engine/scheduler lane, tid -1 the port's host spans), complete
+  events (``ph: "X"``) for spans, counter tracks (``ph: "C"``) fed by
+  ``gauge`` events.  Open the file at https://ui.perfetto.dev (or
+  chrome://tracing).
 * :func:`save_jsonl` / :func:`load_jsonl` — lossless event log, one
   JSON object per line.  ``json`` round-trips Python floats exactly, so
   a replayed log reproduces :func:`trace_report` bit for bit.
@@ -57,7 +58,8 @@ def export_perfetto(events: Sequence[TraceEvent],
         meta.append({"ph": "M", "name": "process_name", "pid": pid,
                      "tid": 0, "ts": 0, "args": {"name": f"replica {pid}"}})
         for tid in sorted(tracks[pid]):
-            lane = "engine" if tid == 0 else f"slot {tid - 1}"
+            lane = ("engine" if tid == 0 else "host" if tid < 0
+                    else f"slot {tid - 1}")
             meta.append({"ph": "M", "name": "thread_name", "pid": pid,
                          "tid": tid, "ts": 0, "args": {"name": lane}})
     obj = {"traceEvents": meta + spans, "displayTimeUnit": "ms"}

@@ -17,12 +17,21 @@ origin (the first event unless ``t0`` is given).  ``dur`` is the span
 length; instantaneous events carry ``dur == 0``.  The exporters
 (Perfetto JSON, JSONL save/replay, ``trace_report``) live in
 :mod:`repro_torch.obs.export`.
+
+A ``Tracer(spans=True)`` also records the port's host spans
+(:data:`SPAN_KINDS`): one ``host.tick`` tree per ``Scheduler.tick``,
+opened with :meth:`Tracer.begin` and closed with :meth:`Tracer.end`,
+each child carrying its parent's event index in ``args["parent"]``.
+The tracer takes a ``(perf_counter, time_ns)`` anchor pair when it is
+made and another at :meth:`Tracer.stop`; :meth:`Tracer.wall_ns` maps an
+event onto ``time.time_ns``, the clock ``torch.profiler`` stamps device
+activity with.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 #: The event schema.  One entry per lifecycle edge; ``args`` carries the
 #: per-kind payload (documented in README "Observability"):
@@ -55,6 +64,31 @@ EVENT_KINDS = (
     "ship", "reconfigure", "finish", "gauge",
 )
 
+#: The port's host spans (not in the reference's schema; only a
+#: ``Tracer(spans=True)`` records them).  Each is one stretch of the
+#: host's work inside a scheduler tick (args, documented in README
+#: "Observability"):
+#:
+#: host.tick      one ``Scheduler.tick``, the root (args: chunk_tokens,
+#:                lanes, horizon, clamp)
+#: host.admit     one admission attempt (args: requeued, admitted)
+#: host.chunk     one prefill chunk: gather, extend_step issue, scatter,
+#:                prefix commit, the first token's fetch (args: tokens,
+#:                pos)
+#: host.grow      one page-growth pass (args: pages)
+#: host.horizon   the fused horizon's computation (args: k, clamp)
+#: host.decode    the host issue of a tick's decode steps (args: lanes,
+#:                steps)
+#: host.fetch     the host blocked on a token fetch from the device
+#: host.retire    token appends, finishes, slot release (args: finished)
+SPAN_KINDS = (
+    "host.tick", "host.admit", "host.chunk", "host.grow", "host.horizon",
+    "host.decode", "host.fetch", "host.retire",
+)
+#: the ``slot`` of every host span: a Perfetto track of their own, apart
+#: from the engine lane's lifecycle spans
+HOST_LANE = -2
+
 
 @dataclass
 class TraceEvent:
@@ -85,10 +119,18 @@ class NullTracer:
     the full signature and drops everything."""
 
     enabled = False
+    spans = False
 
     def emit(self, kind: str, *, ts: Optional[float] = None,
              replica: Optional[int] = None, slot: int = -1, rid: int = -1,
              dur: float = 0.0, **args) -> None:
+        return None
+
+    def begin(self, kind: str, *, replica: Optional[int] = None,
+              rid: int = -1, **args) -> int:
+        return -1
+
+    def end(self, index: int, **args) -> None:
         return None
 
     def for_replica(self, replica: int) -> "NullTracer":
@@ -109,20 +151,24 @@ class Tracer(NullTracer):
     the first emitted event's timestamp — right for wall-clock tracing,
     where ``time.perf_counter`` values are arbitrary.  Pass ``t0=0.0``
     when emitting modeled-clock timestamps (the analytic sims).
+    ``spans`` also records the host spans of :data:`SPAN_KINDS`.
     """
 
     enabled = True
 
-    def __init__(self, t0: Optional[float] = None):
+    def __init__(self, t0: Optional[float] = None, spans: bool = False):
         self._t0 = t0
         self._events: List[TraceEvent] = []
+        self.spans = spans
+        self._open: List[int] = []      # indices of the open spans
+        self.anchors = [(time.perf_counter(), time.time_ns())]
 
     def emit(self, kind: str, *, ts: Optional[float] = None,
              replica: Optional[int] = None, slot: int = -1, rid: int = -1,
              dur: float = 0.0, **args) -> None:
-        if kind not in EVENT_KINDS:
+        if kind not in EVENT_KINDS and kind not in SPAN_KINDS:
             raise ValueError(f"unknown trace event kind {kind!r} "
-                             f"(know {EVENT_KINDS})")
+                             f"(know {EVENT_KINDS + SPAN_KINDS})")
         if ts is None:
             ts = time.perf_counter()
         if self._t0 is None:
@@ -131,6 +177,38 @@ class Tracer(NullTracer):
             ts=ts - self._t0, kind=kind,
             replica=0 if replica is None else replica,
             slot=slot, rid=rid, dur=dur, args=args))
+
+    def begin(self, kind: str, *, replica: Optional[int] = None,
+              rid: int = -1, **args) -> int:
+        """Open a host span now, inside the innermost open one; returns
+        its event index, for :meth:`end`."""
+        args["parent"] = self._open[-1] if self._open else -1
+        self.emit(kind, replica=replica, slot=HOST_LANE, rid=rid, **args)
+        i = len(self._events) - 1
+        self._open.append(i)
+        return i
+
+    def end(self, index: int, **args) -> None:
+        """Close span ``index`` now (and any span left open inside it),
+        adding ``args``."""
+        ev = self._events[index]
+        ev.dur = time.perf_counter() - self._t0 - ev.ts
+        ev.args.update(args)
+        while self._open and self._open.pop() != index:
+            pass
+
+    def stop(self) -> None:
+        """Take the closing anchor pair of the clock mapping."""
+        self.anchors.append((time.perf_counter(), time.time_ns()))
+
+    def wall_ns(self, ev: TraceEvent) -> Tuple[int, int]:
+        """``ev``'s start and end on ``time.time_ns``: linear between the
+        first and the last anchor pair (one pair: a second per 1e9 ns)."""
+        (p0, w0), (p1, w1) = self.anchors[0], self.anchors[-1]
+        per_s = (w1 - w0) / (p1 - p0) if p1 > p0 else 1e9
+        t = ev.ts + (self._t0 or 0.0) - p0
+        return (w0 + round(t * per_s),
+                w0 + round((t + ev.dur) * per_s))
 
     def for_replica(self, replica: int) -> "_BoundTracer":
         """A view of this tracer whose events default to ``replica`` —
@@ -145,12 +223,13 @@ class Tracer(NullTracer):
 class _BoundTracer:
     """Replica-bound view over a shared :class:`Tracer`."""
 
-    __slots__ = ("_tracer", "replica", "enabled")
+    __slots__ = ("_tracer", "replica", "enabled", "spans")
 
     def __init__(self, tracer: Tracer, replica: int):
         self._tracer = tracer
         self.replica = replica
         self.enabled = tracer.enabled
+        self.spans = tracer.spans
 
     def emit(self, kind: str, *, ts: Optional[float] = None,
              replica: Optional[int] = None, slot: int = -1, rid: int = -1,
@@ -159,6 +238,15 @@ class _BoundTracer:
                           replica=self.replica if replica is None
                           else replica,
                           slot=slot, rid=rid, dur=dur, **args)
+
+    def begin(self, kind: str, *, replica: Optional[int] = None,
+              rid: int = -1, **args) -> int:
+        return self._tracer.begin(
+            kind, replica=self.replica if replica is None else replica,
+            rid=rid, **args)
+
+    def end(self, index: int, **args) -> None:
+        self._tracer.end(index, **args)
 
     def for_replica(self, replica: int) -> "_BoundTracer":
         return _BoundTracer(self._tracer, replica)

@@ -80,6 +80,14 @@ __all__ = ["EngineConfig", "ServingEngine", "PagedServingEngine",
 # flash-decode attention paths all key off this one set
 _ATTN_FAMILIES = registry.TRANSFORMER_FAMILIES
 
+#: the engine's always-on counts (``counters()``): ticks, ticks that
+#: advanced a prefill chunk, decoding ticks, their decode steps and
+#: lane-steps (tokens), each decoding tick's horizon by the constraint
+#: that set it, admissions, finishes and pages grown for decode
+COUNTERS = ("ticks", "chunk_ticks", "decode_ticks", "decode_steps",
+            "decode_lanes", "clamp_fuse_steps", "clamp_page_edge",
+            "clamp_budget", "admissions", "finishes", "pages_grown")
+
 
 @dataclass
 class EngineConfig:
@@ -176,6 +184,11 @@ class ServingEngine:
         self.role = "mixed"
         # lifecycle tracing: NULL_TRACER keeps the hot path branch-cheap
         self.tracer = NULL_TRACER
+        # always-on counts, and what the current tick did (its host.tick
+        # span's args); the constraint that set the last decode horizon
+        self._counts = dict.fromkeys(COUNTERS, 0)
+        self._tick_chunk = self._tick_lanes = self._tick_horizon = 0
+        self._last_horizon_clamp = "fuse_steps"
         self._init_cache()
         self._init_codesign()
 
@@ -221,10 +234,24 @@ class ServingEngine:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a).to(self.device)
 
+    def _greedy(self, logits: torch.Tensor) -> torch.Tensor:
+        """Greedy ids over the real vocab (the padded tail excluded), on
+        the device."""
+        return logits[..., : self.cfg.vocab].argmax(-1)
+
+    def _fetch(self, ids: torch.Tensor) -> np.ndarray:
+        """``ids`` on the host: the step's only synchronisation, a
+        ``host.fetch`` span."""
+        tr = self.tracer
+        if not tr.spans:
+            return ids.cpu().numpy()
+        i = tr.begin("host.fetch")
+        out = ids.cpu().numpy()
+        tr.end(i)
+        return out
+
     def _argmax(self, logits: torch.Tensor) -> np.ndarray:
-        """Greedy ids over the real vocab (the padded tail excluded); the
-        host fetch is the step's only synchronisation."""
-        return logits[..., : self.cfg.vocab].argmax(-1).cpu().numpy()
+        return self._fetch(self._greedy(logits))
 
     # -- cache backend hooks (overridden by PagedServingEngine) ------------
     def _init_cache(self):
@@ -252,6 +279,35 @@ class ServingEngine:
     def _pre_decode_grow(self) -> None:
         """Hook: ensure capacity for the token the step is about to write."""
 
+    # -- always-on counters ----------------------------------------------
+    def counters(self) -> Dict[str, int]:
+        """The counts of :data:`COUNTERS` since the engine was made (a
+        window's are the difference of two readings)."""
+        return dict(self._counts)
+
+    def tick_args(self) -> dict:
+        """What the last tick did: its chunk's tokens, its decode batch,
+        horizon and the constraint that set it (``host.tick``'s args)."""
+        return {"chunk_tokens": self._tick_chunk, "lanes": self._tick_lanes,
+                "horizon": self._tick_horizon,
+                "clamp": (self._last_horizon_clamp if self._tick_horizon
+                          else None)}
+
+    def _start_tick(self) -> None:
+        self._counts["ticks"] += 1
+        self._tick_chunk = self._tick_lanes = self._tick_horizon = 0
+
+    def _count_decode(self, steps: int, lanes: int, tokens: int) -> None:
+        """One decoding tick: ``steps`` steps over a batch of ``lanes``
+        that emitted ``tokens``, its horizon set by
+        ``_last_horizon_clamp``."""
+        c = self._counts
+        c["decode_ticks"] += 1
+        c["decode_steps"] += steps
+        c["decode_lanes"] += tokens
+        c["clamp_" + self._last_horizon_clamp] += 1
+        self._tick_horizon, self._tick_lanes = steps, lanes
+
     def kv_report(self) -> dict:
         """Resident-KV accounting (tokens of cache reserved vs. in use)."""
         used = sum(len(r.prompt) + len(r.tokens_out)
@@ -275,6 +331,7 @@ class ServingEngine:
     def _finish(self, slot: int, req: RequestState, now: float,
                 hit_eos: bool) -> None:
         req.finish_s = now
+        self._counts["finishes"] += 1
         req.finish_reason = (
             "eos" if (hit_eos or self._budget(req) < self.ecfg.max_new_tokens)
             else "budget")
@@ -332,12 +389,19 @@ class ServingEngine:
             # a prefill-tier engine holds finished prompts for harvest
             # (export_slot_pages) instead of decoding them
             return 0
-        t_step0 = time.perf_counter() if self.tracer.enabled else 0.0
+        tr = self.tracer
+        t_step0 = time.perf_counter() if tr.enabled else 0.0
         batch0 = len(self.active)
         self._pre_decode_grow()
-        logits = self._decode_batch(self._tensor(self._next_tok))
-        nxt = self._argmax(logits)
+        lanes = len(self.active)
+        self._count_decode(1, lanes, lanes)
+        d = tr.begin("host.decode", lanes=lanes, steps=1) if tr.spans else -1
+        ids = self._greedy(self._decode_batch(self._tensor(self._next_tok)))
+        if tr.spans:
+            tr.end(d)
+        nxt = self._fetch(ids)
         now = time.perf_counter()
+        r = tr.begin("host.retire") if tr.spans else -1
         finished = 0
         for slot, req in list(self.active.items()):
             tok = int(nxt[slot])
@@ -351,9 +415,11 @@ class ServingEngine:
                 finished += 1
             else:
                 self._next_tok[slot] = tok
-        if self.tracer.enabled:
-            self.tracer.emit("decode_step", ts=t_step0, dur=now - t_step0,
-                             batch=batch0, finished=finished)
+        if tr.spans:
+            tr.end(r, finished=finished)
+        if tr.enabled:
+            tr.emit("decode_step", ts=t_step0, dur=now - t_step0,
+                    batch=batch0, finished=finished)
         return finished
 
     # -- Sarathi chunk scheduler ---------------------------------------
@@ -393,6 +459,7 @@ class ServingEngine:
         if st is None:
             return False
         t_ck0 = time.perf_counter()
+        c = self._begin_chunk(st)
         toks = self._chunk_tokens(st)
         take = toks.shape[1]
         logits, st["buf"] = self._extend(self.params, toks, st["buf"])
@@ -400,20 +467,41 @@ class ServingEngine:
         n = len(st["req"].prompt)
         if st["pos"] < n:
             self._chunk_progress(st, take, t_ck0)
+            self._end_chunk(c)
             return False
         # prompt fully consumed: move the buffer into the slot
         slot = st["slot"]
         self._insert(slot, st["buf"], n)
         self._prefilling = None
         self._first_token(slot, st["req"], logits, st["t0"], t_ck0, take)
+        self._end_chunk(c)
         return True
+
+    def _begin_chunk(self, st: dict) -> int:
+        """Count a tick's prefill chunk and open its ``host.chunk``
+        span (-1 with spans off)."""
+        take = min(self.ecfg.prefill_chunk, len(st["req"].prompt) - st["pos"])
+        self._counts["chunk_ticks"] += 1
+        self._tick_chunk = take
+        tr = self.tracer
+        if not tr.spans:
+            return -1
+        return tr.begin("host.chunk", rid=st["req"].rid, tokens=take,
+                        pos=st["pos"])
+
+    def _end_chunk(self, index: int) -> None:
+        if index >= 0:
+            self.tracer.end(index)
 
     # -- narrow replica interface (driven by Scheduler) ----------------
     def admit(self, req: RequestState) -> bool:
         """Claim a slot for ``req`` — chunked prefill start when chunking
         is configured, full prefill otherwise.  False when saturated."""
-        return (self._start_chunked(req) if self._chunkable()
-                else self.submit(req))
+        ok = (self._start_chunked(req) if self._chunkable()
+              else self.submit(req))
+        if ok:
+            self._counts["admissions"] += 1
+        return ok
 
     # -- live co-design (TickLatencyModel accounting channel) ----------
     def _init_codesign(self) -> None:
@@ -487,6 +575,7 @@ class ServingEngine:
     def tick(self) -> int:
         """Advance one iteration: at most one prefill chunk co-scheduled
         with one decode step.  Returns #finished requests."""
+        self._start_tick()
         pf_tokens = pf_ctx = 0
         if self._chunkable():
             pf_tokens, pf_ctx = self._pending_chunk()
@@ -803,6 +892,7 @@ class PagedServingEngine(ServingEngine):
         if st is None:
             return False
         t_ck0 = time.perf_counter()
+        c = self._begin_chunk(st)
         slot = st["slot"]
         toks = self._chunk_tokens(st)
         take = toks.shape[1]
@@ -813,6 +903,7 @@ class PagedServingEngine(ServingEngine):
         n = len(st["req"].prompt)
         if st["pos"] < n:
             self._chunk_progress(st, take, t_ck0)
+            self._end_chunk(c)
             return False
         # prompt fully consumed: publish its pages, activate the slot
         self.paged.commit_prefix(slot)
@@ -820,6 +911,7 @@ class PagedServingEngine(ServingEngine):
         self._note_pages()
         self._prefilling = None
         self._first_token(slot, st["req"], logits, st["t0"], t_ck0, take)
+        self._end_chunk(c)
         return True
 
     def kv_report(self) -> dict:
@@ -860,7 +952,9 @@ class PagedServingEngine(ServingEngine):
         """Grow every active slot to cover the token this step writes;
         preempt the youngest request when the pool runs dry."""
         tr = self.tracer
+        g = tr.begin("host.grow") if tr.spans else -1
         pages0 = self.paged.pages_in_use() if tr.enabled else 0
+        grown0 = self.paged.grown_pages
         for slot in sorted(self.active):
             if slot not in self.active:      # preempted mid-loop
                 continue
@@ -883,10 +977,13 @@ class PagedServingEngine(ServingEngine):
                     slot, lambda: self.paged.cow_for_write(slot, ln),
                     " (copy-on-write fork)")
         self._note_pages()
+        self._counts["pages_grown"] += self.paged.grown_pages - grown0
         if tr.enabled:
             grown = self.paged.pages_in_use() - pages0
             if grown > 0:
                 tr.emit("grow", pages=grown)
+        if tr.spans:
+            tr.end(g, pages=self.paged.grown_pages - grown0)
 
     def _preempt_until(self, slot: int, op, why: str) -> None:
         """Run ``op()`` until it succeeds (a page allocation for
@@ -974,6 +1071,8 @@ class PagedServingEngine(ServingEngine):
         step.  Token-level eos cannot be predicted from host state; those
         lanes freeze on device instead (``emitted`` masks their tail
         steps)."""
+        tr = self.tracer
+        h = tr.begin("host.horizon") if tr.spans else -1
         ps = self.ecfg.page_size
         k = self.ecfg.fuse_steps
         clamp = "fuse_steps"            # which constraint set the horizon
@@ -986,6 +1085,8 @@ class PagedServingEngine(ServingEngine):
             if bud < k:
                 k, clamp = bud, "budget"
         self._last_horizon_clamp = clamp
+        if tr.spans:
+            tr.end(h, k=max(1, k), clamp=clamp)
         return max(1, k)
 
     def _cow_horizon(self, k: int) -> None:
@@ -996,6 +1097,9 @@ class PagedServingEngine(ServingEngine):
         does; the horizon stays valid, since lanes only leave."""
         if not self.paged.share:
             return
+        tr = self.tracer
+        g = tr.begin("host.grow") if tr.spans else -1
+        forks0 = self.paged.cow_forks
         ps = self.ecfg.page_size
         for slot in sorted(self.active):
             if slot not in self.active:      # preempted mid-loop
@@ -1006,6 +1110,8 @@ class PagedServingEngine(ServingEngine):
                     slot, lambda: self.paged.cow_for_write(slot, blk * ps),
                     " (fused copy-on-write fork)")
         self._note_pages()
+        if tr.spans:
+            tr.end(g, pages=self.paged.cow_forks - forks0)
 
     def _fused_fn(self, n_steps: int) -> FusedGraph:
         """The fused loop of ``n_steps`` steps, cached per bucket: a CUDA
@@ -1050,15 +1156,17 @@ class PagedServingEngine(ServingEngine):
         Falls back to the per-step path when the horizon degenerates to
         a single step."""
         t_tick0 = time.perf_counter()
+        self._start_tick()
         ecfg = self.ecfg
+        tr = self.tracer
         pf_tokens = pf_ctx = 0
         if self._chunkable():
             pf_tokens, pf_ctx = self._pending_chunk()
             self._prefill_chunk_tick()
-        t_dec0 = time.perf_counter() if self.tracer.enabled else 0.0
+        t_dec0 = time.perf_counter() if tr.enabled else 0.0
         if not self.active:
             self._note_tick(0, [], pf_tokens, pf_ctx)
-            if self.tracer.enabled:
+            if tr.enabled:
                 self._trace_gauges()
             return 0
         self._pre_decode_grow()
@@ -1068,19 +1176,20 @@ class PagedServingEngine(ServingEngine):
                 ctxs = self._active_ctxs()
                 self._note_tick(len(ctxs), ctxs, pf_tokens, pf_ctx)
             n_fin = self.step()
-            if self.tracer.enabled:
+            if tr.enabled:
                 self._trace_gauges()
             return n_fin
         # fork the shared pages the next k writes touch before the table
         # reaches the graph's buffer; a preemption in the pass may defrag,
         # so the mask, lengths and table are read after it
         self._cow_horizon(k)
+        batch = len(self.active)
+        d = tr.begin("host.decode", lanes=batch, steps=k) if tr.spans else -1
         t_price0 = time.perf_counter()
         self._note_gather_cost()     # one placement sample per fused tick
         self.pricing_host_s += time.perf_counter() - t_price0
         base_ctx = {s: len(r.prompt) + len(r.tokens_out)
                     for s, r in self.active.items()}
-        batch = len(self.active)
         b = ecfg.max_batch
         active = np.zeros((b,), bool)
         active[list(self.active)] = True
@@ -1096,13 +1205,20 @@ class PagedServingEngine(ServingEngine):
         store = list(self.paged.store)
         pools = [t for t, seq in zip(store, self.paged.is_seq) if seq]
         t_dev0 = time.perf_counter()
-        out, new_len = fn(packed, self.paged.tables_device(), pools)
+        out, new_len = fn.launch(packed, self.paged.tables_device(), pools)
+        if tr.spans:
+            tr.end(d)
+        out = self._fetch(out)
         t_dev1 = time.perf_counter()
         tok_h, emit_h = out[0], out[1].astype(bool)
+        self._count_decode(k, batch, int(emit_h[:k].sum()))
+        r = tr.begin("host.retire") if tr.spans else -1
         li = self.paged.is_seq.index(False)      # the lengths leaf
         store[li] = torch.where(self._tensor(active), new_len, store[li])
         self.paged.store = store
-        finished = self._apply_fused(tok_h, emit_h, k, t_dev0, t_dev1)
+        finished = self._apply_fused(tok_h, emit_h, k, t_dev1)
+        if tr.spans:
+            tr.end(r, finished=finished)
         if self._tick_model is not None:
             # post-hoc per-step attribution: step j's batch is the lanes
             # that actually ran it (eos'd lanes drop out mid-horizon, as
@@ -1122,41 +1238,38 @@ class PagedServingEngine(ServingEngine):
         dev = t_dev1 - t_dev0
         self._fused_device_s += dev
         self._fused_host_s += (t_tick1 - t_tick0) - dev
-        if self.tracer.enabled:
+        if tr.enabled:
             # the span starts after the co-scheduled prefill chunk so
             # prefill/decode phases stay disjoint
-            self.tracer.emit("fused_tick", ts=t_dec0,
-                             dur=t_tick1 - t_dec0, batch=batch,
-                             horizon=k, clamp=self._last_horizon_clamp,
-                             device_s=dev, finished=finished)
+            tr.emit("fused_tick", ts=t_dec0, dur=t_tick1 - t_dec0,
+                    batch=batch, horizon=k, clamp=self._last_horizon_clamp,
+                    device_s=dev, finished=finished)
             self._trace_gauges()
         return finished
 
     def _apply_fused(self, tok_seq: np.ndarray, emit_seq: np.ndarray,
-                     k: int, t0: float, t1: float) -> int:
+                     k: int, now: float) -> int:
         """Host bookkeeping for one fused tick: append each lane's
         emitted tokens, advance host lengths, retire finished requests.
         ``emit_seq[j, slot]`` masks the steps a lane actually ran — a
         lane frozen by an eos mid-horizon emits nothing afterwards, so
         every append stays behind the emit guard (an unguarded append
-        double-counts the finished lane's last token).  Token times are
-        spread evenly over the horizon."""
+        double-counts the finished lane's last token).  Every token of
+        the horizon is stamped ``now``, when the fetch returned: no
+        client can have one earlier."""
         ecfg = self.ecfg
-        times = [t0 + (j + 1) * (t1 - t0) / k for j in range(k)]
         finished = 0
         for slot, req in list(self.active.items()):
-            last_t = t1
             for j in range(k):
                 if not emit_seq[j, slot]:
                     continue
                 req.tokens_out.append(int(tok_seq[j, slot]))
-                req.token_times.append(times[j])
-                last_t = times[j]
+                req.token_times.append(now)
                 self._lengths_host[slot] += 1
             hit_eos = (ecfg.eos_id >= 0
                        and req.tokens_out[-1] == ecfg.eos_id)
             if hit_eos or len(req.tokens_out) >= self._budget(req):
-                self._finish(slot, req, last_t, hit_eos)
+                self._finish(slot, req, now, hit_eos)
                 del self.active[slot]
                 self._release(slot)
                 finished += 1

@@ -106,14 +106,21 @@ class FusedGraph:
                  ) -> Tuple[np.ndarray, torch.Tensor]:
         """Run the bucket on this tick's inputs; returns ``out`` on the
         host (the horizon's one fetch) and the lengths on the device."""
+        out, lengths = self.launch(packed, tables, pools)
+        return out.cpu().numpy(), lengths
+
+    def launch(self, packed: np.ndarray, tables: torch.Tensor,
+               pools: Sequence[torch.Tensor]
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Queue the bucket on this tick's inputs (on the CPU: run it);
+        returns ``out`` and the lengths on the device, unfetched."""
         moved = [i for i, (p, ptr) in enumerate(zip(pools, self._ptrs))
                  if p.data_ptr() != ptr]
         if moved:
             raise RuntimeError(f"page pools {moved} moved since the "
                                f"{self.n_steps}-step loop was built")
         if self.graph is None:
-            out, lengths = self.body(torch.from_numpy(packed), tables)
-            return out.numpy(), lengths
+            return self.body(torch.from_numpy(packed), tables)
         self._host.numpy()[:] = packed
         self._packed.copy_(self._host, non_blocking=True)
         self._tables.copy_(tables)
@@ -121,4 +128,4 @@ class FusedGraph:
         self.replays += 1
         for c, name, n in self.launches:
             c[name] += n
-        return self._out.cpu().numpy(), self._lengths
+        return self._out, self._lengths

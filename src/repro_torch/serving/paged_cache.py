@@ -551,6 +551,8 @@ class PagedCache:
         self.shared_count = np.zeros((self.max_batch,), np.int64)
         self._pending_prompt: Dict[int, np.ndarray] = {}
         self.cow_forks = 0
+        # pages extend_slot mapped for decode growth
+        self.grown_pages = 0
         # cross-region home migration (defrag's spilled-page repair pass)
         self.migrated_pages = 0
         self.migration_cost_s = 0.0
@@ -718,6 +720,7 @@ class PagedCache:
         if pages is None:
             return False
         self.tables[slot, have:need] = pages
+        self.grown_pages += need - have
         self._mirror_row(slot)
         return True
 

@@ -1,5 +1,6 @@
 """Scheduling loop for one engine replica (a copy of
-``repro.serving.scheduler``; only the imports differ).
+``repro.serving.scheduler``; only the imports and the port's host spans
+differ).
 
 * :class:`RequestState` — one request's lifecycle record;
 * trace makers — :func:`make_trace` (Poisson, optionally eos-aware via
@@ -255,11 +256,13 @@ class Scheduler:
     def tick(self, now: float) -> int:
         """One scheduling iteration at wall-time ``now``: re-admit
         preempted requests first, admit arrived pending requests, then
-        advance the replica (one prefill chunk + one decode step)."""
+        advance the replica (one prefill chunk + one decode step).  With
+        host spans on, the call is one ``host.tick`` tree."""
         eng = self.engine
         tracer = self.tracer
+        root = tracer.begin("host.tick") if tracer.spans else -1
         while eng.requeue:          # preempted requests re-enter first
-            if not eng.admit(eng.requeue[0]):
+            if not self._admit(eng.requeue[0], True):
                 break
             r = eng.requeue.pop(0)
             if tracer.enabled:
@@ -267,13 +270,26 @@ class Scheduler:
                             requeued=True)
         while self.pending and self.pending[0].arrival_s <= now \
                 and not eng.requeue:
-            if not eng.admit(self.pending[0]):
+            if not self._admit(self.pending[0], False):
                 break
             r = self.pending.pop(0)
             if tracer.enabled:
                 tracer.emit("admit", rid=r.rid, slot=r.slot,
                             requeued=False)
-        return eng.tick()
+        n_fin = eng.tick()
+        if tracer.spans:
+            tracer.end(root, **eng.tick_args())
+        return n_fin
+
+    def _admit(self, req: RequestState, requeued: bool) -> bool:
+        """One admission attempt, in a ``host.admit`` span."""
+        tracer = self.tracer
+        if not tracer.spans:
+            return self.engine.admit(req)
+        i = tracer.begin("host.admit", rid=req.rid, requeued=requeued)
+        ok = self.engine.admit(req)
+        tracer.end(i, admitted=ok)
+        return ok
 
     # -- standalone trace loop ------------------------------------------
     def run_trace(self, reqs: List[RequestState]) -> dict:
