@@ -977,7 +977,8 @@ def _launches(kmods):
 
 
 def _watch(eng):
-    """Count the engine's decode steps and check their logits stay
+    """Count the engine's per-tick decode steps (eager, or a fused
+    engine's 1-step graph replays) and check the eager steps' logits stay
     finite, without a host sync per step; keep the last logits."""
     seen = {"steps": 0, "finite": True, "logits": None, "rows": []}
     decode = eng._decode_batch
@@ -991,6 +992,13 @@ def _watch(eng):
         return logits
 
     eng._decode_batch = counted
+    graph_step = getattr(eng, "_graph_step", None)
+    if graph_step is not None:
+        def replayed(*a):
+            seen["steps"] += 1
+            return graph_step(*a)
+
+        eng._graph_step = replayed
     return seen
 
 

@@ -28,7 +28,8 @@ trace-driving loop lives in ``serving/scheduler.py``.
 With ``fuse_steps`` > 1 the paged engine of an attention family fuses up
 to that many decode steps per tick (``transformer.decode_fused_paged``);
 on the card each power-of-two bucket of that horizon is one CUDA graph,
-captured at its first use and replayed (``serving/fused_graph.py``).
+captured at its first use and replayed (``serving/fused_graph.py``); a
+tick whose horizon is one step replays the 1-step graph.
 
 With ``prefix_sharing`` the paged engine maps the leading prompt pages
 already resident onto the existing pages, starts chunked prefill at the
@@ -83,10 +84,13 @@ _ATTN_FAMILIES = registry.TRANSFORMER_FAMILIES
 #: the engine's always-on counts (``counters()``): ticks, ticks that
 #: advanced a prefill chunk, decoding ticks, their decode steps and
 #: lane-steps (tokens), each decoding tick's horizon by the constraint
-#: that set it, admissions, finishes and pages grown for decode
+#: that set it, admissions, finishes, pages grown for decode, and the
+#: decode steps a fused-decode graph ran (a horizon's K, a 1-step tick's
+#: 1; on the CPU the graph's body runs them eagerly)
 COUNTERS = ("ticks", "chunk_ticks", "decode_ticks", "decode_steps",
             "decode_lanes", "clamp_fuse_steps", "clamp_page_edge",
-            "clamp_budget", "admissions", "finishes", "pages_grown")
+            "clamp_budget", "admissions", "finishes", "pages_grown",
+            "graph_steps")
 
 
 @dataclass
@@ -1153,11 +1157,10 @@ class PagedServingEngine(ServingEngine):
         The host surfaces only here, at the fusion-horizon boundary:
         admission/chunk advance, page growth + preemption, then ONE graph
         replay and ONE fetch for all K tokens, then finish bookkeeping.
-        Falls back to the per-step path when the horizon degenerates to
-        a single step."""
+        A horizon of one step replays the 1-step graph as the per-step
+        tick (:meth:`_graph_step`)."""
         t_tick0 = time.perf_counter()
         self._start_tick()
-        ecfg = self.ecfg
         tr = self.tracer
         pf_tokens = pf_ctx = 0
         if self._chunkable():
@@ -1172,13 +1175,7 @@ class PagedServingEngine(ServingEngine):
         self._pre_decode_grow()
         k = self._fused_horizon()
         if k <= 1:
-            if self._tick_model is not None:
-                ctxs = self._active_ctxs()
-                self._note_tick(len(ctxs), ctxs, pf_tokens, pf_ctx)
-            n_fin = self.step()
-            if tr.enabled:
-                self._trace_gauges()
-            return n_fin
+            return self._graph_step(pf_tokens, pf_ctx)
         # fork the shared pages the next k writes touch before the table
         # reaches the graph's buffer; a preemption in the pass may defrag,
         # so the mask, lengths and table are read after it
@@ -1190,22 +1187,11 @@ class PagedServingEngine(ServingEngine):
         self.pricing_host_s += time.perf_counter() - t_price0
         base_ctx = {s: len(r.prompt) + len(r.tokens_out)
                     for s, r in self.active.items()}
-        b = ecfg.max_batch
-        active = np.zeros((b,), bool)
-        active[list(self.active)] = True
-        packed = np.empty((3 * b + 1,), np.int32)
-        packed[:b] = self._next_tok
-        packed[b:2 * b] = np.where(active, self._lengths_host, 0)
-        packed[2 * b:3 * b] = active
-        packed[3 * b] = k
         # bucket the loop length to a power of two: a handful of captured
         # horizons serve every K, and lanes freeze at idx >= k on device
-        n_steps = 1 << (k - 1).bit_length()
-        fn = self._fused_fn(n_steps)
-        store = list(self.paged.store)
-        pools = [t for t, seq in zip(store, self.paged.is_seq) if seq]
+        fn = self._fused_fn(1 << (k - 1).bit_length())
         t_dev0 = time.perf_counter()
-        out, new_len = fn.launch(packed, self.paged.tables_device(), pools)
+        out, new_len, active = self._launch(fn, k)
         if tr.spans:
             tr.end(d)
         out = self._fetch(out)
@@ -1213,9 +1199,7 @@ class PagedServingEngine(ServingEngine):
         tok_h, emit_h = out[0], out[1].astype(bool)
         self._count_decode(k, batch, int(emit_h[:k].sum()))
         r = tr.begin("host.retire") if tr.spans else -1
-        li = self.paged.is_seq.index(False)      # the lengths leaf
-        store[li] = torch.where(self._tensor(active), new_len, store[li])
-        self.paged.store = store
+        self._set_lengths(active, new_len)
         finished = self._apply_fused(tok_h, emit_h, k, t_dev1)
         if tr.spans:
             tr.end(r, finished=finished)
@@ -1247,9 +1231,70 @@ class PagedServingEngine(ServingEngine):
             self._trace_gauges()
         return finished
 
+    def _graph_step(self, pf_tokens: int, pf_ctx: int) -> int:
+        """The tick's decode when its horizon is one step: the 1-step
+        graph replayed in place of :meth:`step`'s launches, with the
+        per-step tick's pricing, counts, spans, retirement and
+        ``decode_step`` event.  The tick has already mapped every slot's
+        next token, so ``step()``'s growth pass, which would grow
+        nothing, is not repeated.  Not a fused tick: ``fused_ticks`` and
+        ``fused_horizons`` count horizons of two steps and more."""
+        tr = self.tracer
+        if self._tick_model is not None:
+            ctxs = self._active_ctxs()
+            self._note_tick(len(ctxs), ctxs, pf_tokens, pf_ctx)
+        t_step0 = time.perf_counter() if tr.enabled else 0.0
+        lanes = len(self.active)
+        self._count_decode(1, lanes, lanes)
+        d = tr.begin("host.decode", lanes=lanes, steps=1) if tr.spans else -1
+        self._note_gather_cost()
+        out, new_len, active = self._launch(self._fused_fn(1), 1)
+        if tr.spans:
+            tr.end(d)
+        out = self._fetch(out)
+        now = time.perf_counter()
+        r = tr.begin("host.retire") if tr.spans else -1
+        self._set_lengths(active, new_len)
+        finished = self._apply_fused(out[0], out[1].astype(bool), 1, now)
+        if tr.spans:
+            tr.end(r, finished=finished)
+        if tr.enabled:
+            tr.emit("decode_step", ts=t_step0, dur=now - t_step0,
+                    batch=lanes, finished=finished)
+            self._trace_gauges()
+        return finished
+
+    def _launch(self, fn: FusedGraph, k: int
+                ) -> Tuple[torch.Tensor, torch.Tensor, np.ndarray]:
+        """Queue ``fn`` for a horizon of ``k`` steps over the active
+        slots; returns the unfetched ``out``, the lanes' new lengths on
+        the device and the active mask."""
+        b = self.ecfg.max_batch
+        active = np.zeros((b,), bool)
+        active[list(self.active)] = True
+        packed = np.empty((3 * b + 1,), np.int32)
+        packed[:b] = self._next_tok
+        packed[b:2 * b] = np.where(active, self._lengths_host, 0)
+        packed[2 * b:3 * b] = active
+        packed[3 * b] = k
+        pools = [t for t, seq in zip(self.paged.store, self.paged.is_seq)
+                 if seq]
+        out, new_len = fn.launch(packed, self.paged.tables_device(), pools)
+        self._counts["graph_steps"] += k
+        return out, new_len, active
+
+    def _set_lengths(self, active: np.ndarray, new_len: torch.Tensor) -> None:
+        """The active lanes' new lengths into the cache's lengths leaf,
+        after the fetch: the mask's pageable copy would otherwise wait
+        for the queued replay inside ``host.decode``."""
+        store = list(self.paged.store)
+        li = self.paged.is_seq.index(False)      # the lengths leaf
+        store[li] = torch.where(self._tensor(active), new_len, store[li])
+        self.paged.store = store
+
     def _apply_fused(self, tok_seq: np.ndarray, emit_seq: np.ndarray,
                      k: int, now: float) -> int:
-        """Host bookkeeping for one fused tick: append each lane's
+        """Host bookkeeping for one graph launch: append each lane's
         emitted tokens, advance host lengths, retire finished requests.
         ``emit_seq[j, slot]`` masks the steps a lane actually ran — a
         lane frozen by an eos mid-horizon emits nothing afterwards, so

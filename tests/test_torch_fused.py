@@ -338,30 +338,47 @@ def _cuda_params(weights):
 
 
 def _steps_per_tick(eng):
-    """Count the per-tick decode steps (the fused engine's k <= 1
-    fallback) an engine runs."""
-    seen = {"steps": 0}
-    decode = eng._decode_batch
+    """Count the per-tick decode steps an engine runs: eager ``step()``
+    launches, and the fused engine's 1-step graph replays (its k <= 1
+    fallback)."""
+    seen = {"eager": 0, "graph": 0}
+    decode, graph_step = eng._decode_batch, eng._graph_step
 
     def counted(toks):
-        seen["steps"] += 1
+        seen["eager"] += 1
         return decode(toks)
 
-    eng._decode_batch = counted
+    def replayed(*a):
+        seen["graph"] += 1
+        return graph_step(*a)
+
+    eng._decode_batch, eng._graph_step = counted, replayed
     return seen
+
+
+def _pool_ptrs(eng):
+    return [t.data_ptr() for t, seq in zip(eng.paged.store,
+                                           eng.paged.is_seq) if seq]
 
 
 @pytest.mark.cuda
 def test_cuda_one_graph_per_bucket(weights):
+    """One graph per bucket, the 1-step graph of the fallback ticks
+    among them, each captured once and replayed once a tick."""
     _need_cuda()
     eng, m, toks, reasons = _port(_cuda_params(weights), "cuda",
                                   fuse_steps=32, use_pallas_decode=True,
-                                  max_new_tokens=16)
+                                  max_new_tokens=12)
+    c = eng.counters()
+    ones = c["decode_ticks"] - m["fused_ticks"]
     buckets = {1 << (k - 1).bit_length() for k in eng.fused_horizons}
-    assert m["fused_ticks"] > 0 and set(eng._fused_graphs) == buckets
+    assert m["fused_ticks"] > 0 and ones > 0
+    assert set(eng._fused_graphs) == buckets | {1}
     assert all(g.graph is not None for g in eng._fused_graphs.values())
+    assert eng._fused_graphs[1].replays == ones
     assert sum(g.replays for g in eng._fused_graphs.values()) \
-        == m["fused_ticks"]
+        == m["fused_ticks"] + ones
+    assert c["graph_steps"] == c["decode_steps"]
 
 
 @pytest.mark.cuda
@@ -397,12 +414,23 @@ def test_cuda_replay_matches_eager(kernel, weights):
     out, lengths = graph(packed, tables, pools)
     np.testing.assert_array_equal(out, out_eager)
     assert torch.equal(lengths.cpu(), len_eager)
+    # the 1-step graph (the fallback tick's) against the eager step()'s
+    # launches on the same inputs: both write the same K/V at each lane's
+    # length, so the order does not matter
+    packed[-1] = 1
+    one, _ = eng._fused_fn(1)(packed, eng.paged.tables_device(), pools)
+    ids = eng._fetch(eng._greedy(eng._decode_batch(
+        eng._tensor(eng._next_tok))))
+    assert one.shape == (2, 1, b)
+    np.testing.assert_array_equal(one[0, 0][active], ids[active])
+    assert one[1, 0].astype(bool).tolist() == active.tolist()
 
 
 @pytest.mark.cuda
 def test_cuda_defrag_between_fused_ticks(weights):
-    """Defrag runs between fused ticks (the skewed trace fragments the
-    pool): the pools keep their addresses and the tokens do not move."""
+    """Defrag runs between fused ticks and between 1-step replays (the
+    skewed trace fragments the pool): the pools keep the addresses every
+    graph captured and the tokens do not move."""
     _need_cuda()
     params = _cuda_params(weights)
     _, _, toks, reasons = _port(params, "cuda", use_pallas_decode=True,
@@ -411,27 +439,32 @@ def test_cuda_defrag_between_fused_ticks(weights):
                                       use_pallas_decode=True,
                                       max_new_tokens=12)
     assert m["defrag_runs"] > 0 and m["fused_ticks"] > 0
+    assert eng._fused_graphs[1].replays > 0
+    assert all(g._ptrs == _pool_ptrs(eng)
+               for g in eng._fused_graphs.values())
     assert f_toks == toks and f_reasons == reasons
 
 
 @pytest.mark.cuda
 def test_cuda_launches_count_replays(weights):
     """Each replay adds its capture's launches: the paged kernel counts
-    (per-tick steps + the bucketed n_steps of every horizon) x layers,
-    warm-ups and captures not at all."""
+    (1-step fallback replays + the bucketed n_steps of every horizon) x
+    layers, warm-ups and captures not at all; no step runs eagerly."""
     _need_cuda()
     params = _cuda_params(weights)
     eng = TE.make_engine(TR.get("yi-6b", reduced=True), TE.EngineConfig(
         device="cuda", fuse_steps=16, use_pallas_decode=True,
-        **dict(BASE, max_new_tokens=16)), params=params)
+        **dict(BASE, max_new_tokens=12)), params=params)
     seen = _steps_per_tick(eng)
     fd.reset_launches()
     eng.run_trace(_trace(tsched.make_trace))
     n_steps = sum(1 << (k - 1).bit_length() for k in eng.fused_horizons)
     layers = eng.cfg.num_layers
+    assert seen["eager"] == 0 and seen["graph"] > 0
+    assert seen["graph"] == eng._fused_graphs[1].replays
     assert eng.fused_horizons and fd.LAUNCHES == {
         "flash_decode": 0, "flash_decode_partial": 0,
-        "paged_flash_decode": (seen["steps"] + n_steps) * layers}
+        "paged_flash_decode": (seen["graph"] + n_steps) * layers}
     for graph in eng._fused_graphs.values():
         assert [(name, n) for _, name, n in graph.launches] == [
             ("paged_flash_decode", graph.n_steps * layers)]

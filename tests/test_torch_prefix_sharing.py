@@ -673,13 +673,17 @@ def test_cuda_shared_fused_matches_per_tick(weights):
             use_pallas_decode=True, **dict(over, fuse_steps=fuse)),
             params=params)
         steps = {"n": 0}
-        decode = eng._decode_batch
+        decode, graph_step = eng._decode_batch, eng._graph_step
 
         def counted(toks, decode=decode, steps=steps):
             steps["n"] += 1
             return decode(toks)
 
-        eng._decode_batch = counted
+        def replayed(*a, graph_step=graph_step, steps=steps):
+            steps["n"] += 1             # the fused engine's 1-step tick
+            return graph_step(*a)
+
+        eng._decode_batch, eng._graph_step = counted, replayed
         fd.reset_launches()
         m = eng.run_trace(_trace(tsched, trace_kw))
         n_steps = steps["n"] + sum(1 << (k - 1).bit_length()

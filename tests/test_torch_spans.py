@@ -1,9 +1,9 @@
 """The port's host spans (``Tracer(spans=True)``) and the engine's
 always-on counters, on tiny engines driven by ``Scheduler.tick`` on the
 CPU: one ``host.tick`` tree a call, children nested in their parents
-and disjoint from their siblings, the fallback tick's second growth
-pass, one token fetch a decoding tick, request ids, the clock mapping,
-and tokens unchanged with the tracer on."""
+and disjoint from their siblings, one growth pass a decoding tick (the
+1-step fallback's too), one token fetch a decoding tick, request ids,
+the clock mapping, and tokens unchanged with the tracer on."""
 import time
 
 import numpy as np
@@ -170,6 +170,10 @@ def _root(spans, j):
 
 
 def test_fallback_tick_grows_twice(traced):
+    """The fallback tick (horizon 1) no longer grows twice: it replays
+    the 1-step graph instead of calling ``step()``, whose second growth
+    pass grew nothing.  Every decoding tick, of either horizon, has one
+    ``host.grow`` child."""
     _, _, _, _, spans = traced("fused")
     seen = {1: 0, 2: 0}
     for i, e in spans.items():
@@ -177,9 +181,8 @@ def test_fallback_tick_grows_twice(traced):
             continue
         grows = [j for j in _children(spans, i)
                  if spans[j].kind == "host.grow"]
-        want = 2 if e.args["horizon"] == 1 else 1
-        assert len(grows) == want
-        seen[want] += 1
+        assert len(grows) == 1
+        seen[min(e.args["horizon"], 2)] += 1
     assert seen[1] and seen[2]
 
 
@@ -214,6 +217,8 @@ def test_tick_args_and_counters_agree(traced):
                                     for r in eng.completed)
     assert c["pages_grown"] == sum(e.args["pages"] for e in spans.values()
                                    if e.kind == "host.grow")
+    # every step of the fused engine ran through a graph
+    assert c["graph_steps"] == c["decode_steps"]
 
 
 def test_counters_run_without_a_tracer(entry, params):
@@ -223,6 +228,7 @@ def test_counters_run_without_a_tracer(entry, params):
     c = eng.counters()
     assert c["ticks"] > c["decode_ticks"] > 0
     assert c["clamp_fuse_steps"] == c["decode_ticks"] == c["decode_steps"]
+    assert c["graph_steps"] == 0
 
 
 def test_default_tracer_records_no_host_span(entry, params):
