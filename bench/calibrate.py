@@ -8,8 +8,10 @@ load and length), after which the sample a run compares is read twice:
 the served tokens against the float32 reference (the program's
 readings, ``max_logit_gap`` and ``mean_logit_gap``) and the token the
 float8 control puts first against the same reference (the control's).
-Prints one JSON line a seed.  The benchmark's
-runs never run this.
+For an MoE both follow the program's recorded routing; the control's
+route numbers come from its own routing, and the gaps of each side
+routing by itself are read too (``unforced``, ``control_unforced``).
+Prints one JSON line a seed.  The benchmark's runs never run this.
 """
 import time
 
@@ -47,7 +49,8 @@ def main(argv=None) -> int:
         info = json.loads(log.getvalue().splitlines()[0][5:])
         print(json.dumps({
             "workload": args.workload, "seed": seed,
-            "program": {k: info.get(k) for k in check.NUMBERS},
+            "program": {k: info[k] for k in check.NUMBERS
+                        + check.ROUTE_NUMBERS if k in info},
             "control": info.get("control"),
             "metrics": {k: v["value"] for k, v in res["metrics"].items()},
             "memory_peak_bytes": res["device"]["memory_peak_bytes"],

@@ -21,7 +21,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from bench.harness import check, spec, trace, weights, window
+from bench.harness import check, routes, spec, trace, weights, window
 
 #: seconds the traced run profiles after the window
 SLICE_S = 3.0
@@ -125,70 +125,79 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace_on: bool,
     params = weights.make(cfg, seed, dev)
     ecfg = engine_config(cfg, mix, device)
     eng = make_engine(registry.from_config(arch), ecfg, params=params)
-    sched = Scheduler(eng)
-    backlog = window.Backlog(mix, arch.vocab, seed, RequestState)
-    paged = getattr(eng, "paged", None)
-    obs = window.Observer(sched, backlog, ecfg.prefill_chunk,
-                          pages_fn=getattr(paged, "pages_in_use", None))
-    # capture every fused-decode bucket up front, so none is captured in
-    # the window (an all-inactive capture writes only the scratch page)
-    capture = getattr(eng, "_fused_fn", None)
-    if capture is not None and ecfg.fuse_steps > 1:
-        for n in range(1, ecfg.fuse_steps.bit_length()):
-            capture(1 << n)
-    t_base = time.perf_counter()
-    window.run_until(obs, backlog, _opened(mix, ecfg.max_batch), t_base)
-    # what set-up made lives to the end: keep the collector off it
-    gc.collect()
-    gc.freeze()
-    _sync(dev)
-    t_open = time.perf_counter()
-    i_open = len(obs.ticks)
-    setup_s = t_open - t_start
-    if window_ticks is None:
-        closed = lambda o: time.perf_counter() - t_open >= seconds
-    else:
-        closed = lambda o: len(o.ticks) - i_open >= window_ticks
-    window.run_until(obs, backlog, closed, t_base)
-    t_close = obs.ticks[-1].t1
-    i_close = len(obs.ticks)
-    sl = None
-    if trace_on and dev.type == "cuda":
-        sl = trace.profile(lambda stop: window.run_until(
-            obs, backlog, lambda o: stop(), t_base), SLICE_S,
-            lambda: _sync(dev))
-        sl.ticks = obs.ticks[i_close:]
-    _sync(dev)
-    peak = (torch.cuda.max_memory_allocated(dev)
-            if dev.type == "cuda" else 0)
-    ticks = obs.ticks[i_open:i_close]
-    done = [r for r in obs.finished if t_open < r.finish_s <= t_close]
-    info = {"setup_s": setup_s, "window_s": t_close - t_open,
-            "ticks": len(ticks), "ramp_ticks": i_open,
-            "requests_finished": len(done), "preemptions": obs.preemptions,
-            "pool_pages": ecfg.num_pages,
-            "ttft_mean_s": float(np.mean(obs.ttft)) if obs.ttft else None,
-            "tick_ms_p10_p50_p90": {
-                kind: [round(1e3 * float(np.percentile(d, q)), 2)
-                       for q in (10, 50, 90)] if d else None
-                for kind, d in (
-                    ("chunk", [t.t1 - t.t0 for t in ticks if t.chunk]),
-                    ("decode", [t.t1 - t.t0 for t in ticks
-                                if not t.chunk]))},
-            "chunks_sound": obs.chunks_sound}
-    run_rec = Run(cell=cell, setup_s=setup_s,
-                  window_s=t_close - t_open, ticks=ticks,
-                  gaps=[g for t, g in obs.gaps if t_open < t <= t_close],
-                  pool_pages=ecfg.num_pages, chunks_sound=obs.chunks_sound,
-                  shape=shape, counts=counts,
-                  peaks=(spec.peaks(torch.cuda.get_device_name(dev))
-                         if dev.type == "cuda" else None),
-                  slice=sl)
-    metrics = {}
-    for m in cell.metrics(trace_on):
-        v = m.reader().read(run_rec)
-        if v is not None:
-            metrics[m.name] = {"value": v, "unit": m.unit}
+    # an MoE's routing is recorded on the timed path, for the reference
+    # to follow (``harness/routes.py``)
+    tap = (routes.Tap(eng, arch.num_layers, arch.topk)
+           if arch.num_experts else None)
+    try:
+        sched = Scheduler(eng)
+        backlog = window.Backlog(mix, arch.vocab, seed, RequestState)
+        paged = getattr(eng, "paged", None)
+        obs = window.Observer(sched, backlog, ecfg.prefill_chunk,
+                              pages_fn=getattr(paged, "pages_in_use", None))
+        # capture every fused-decode bucket up front, so none is captured in
+        # the window (an all-inactive capture writes only the scratch page)
+        capture = getattr(eng, "_fused_fn", None)
+        if capture is not None and ecfg.fuse_steps > 1:
+            for n in range(1, ecfg.fuse_steps.bit_length()):
+                capture(1 << n)
+        t_base = time.perf_counter()
+        window.run_until(obs, backlog, _opened(mix, ecfg.max_batch), t_base)
+        # what set-up made lives to the end: keep the collector off it
+        gc.collect()
+        gc.freeze()
+        _sync(dev)
+        t_open = time.perf_counter()
+        i_open = len(obs.ticks)
+        setup_s = t_open - t_start
+        if window_ticks is None:
+            closed = lambda o: time.perf_counter() - t_open >= seconds
+        else:
+            closed = lambda o: len(o.ticks) - i_open >= window_ticks
+        window.run_until(obs, backlog, closed, t_base)
+        t_close = obs.ticks[-1].t1
+        i_close = len(obs.ticks)
+        sl = None
+        if trace_on and dev.type == "cuda":
+            sl = trace.profile(lambda stop: window.run_until(
+                obs, backlog, lambda o: stop(), t_base), SLICE_S,
+                lambda: _sync(dev))
+            sl.ticks = obs.ticks[i_close:]
+        _sync(dev)
+        peak = (torch.cuda.max_memory_allocated(dev)
+                if dev.type == "cuda" else 0)
+        ticks = obs.ticks[i_open:i_close]
+        done = [r for r in obs.finished if t_open < r.finish_s <= t_close]
+        info = {"setup_s": setup_s, "window_s": t_close - t_open,
+                "ticks": len(ticks), "ramp_ticks": i_open,
+                "requests_finished": len(done), "preemptions": obs.preemptions,
+                "pool_pages": ecfg.num_pages,
+                "ttft_mean_s": float(np.mean(obs.ttft)) if obs.ttft else None,
+                "tick_ms_p10_p50_p90": {
+                    kind: [round(1e3 * float(np.percentile(d, q)), 2)
+                           for q in (10, 50, 90)] if d else None
+                    for kind, d in (
+                        ("chunk", [t.t1 - t.t0 for t in ticks if t.chunk]),
+                        ("decode", [t.t1 - t.t0 for t in ticks
+                                    if not t.chunk]))},
+                "chunks_sound": obs.chunks_sound}
+        run_rec = Run(cell=cell, setup_s=setup_s,
+                      window_s=t_close - t_open, ticks=ticks,
+                      gaps=[g for t, g in obs.gaps if t_open < t <= t_close],
+                      pool_pages=ecfg.num_pages, chunks_sound=obs.chunks_sound,
+                      shape=shape, counts=counts,
+                      peaks=(spec.peaks(torch.cuda.get_device_name(dev))
+                             if dev.type == "cuda" else None),
+                      slice=sl)
+        metrics = {}
+        for m in cell.metrics(trace_on):
+            v = m.reader().read(run_rec)
+            if v is not None:
+                metrics[m.name] = {"value": v, "unit": m.unit}
+
+    finally:
+        if tap is not None:
+            tap.remove()
 
     # the program's state goes before the reference runs
     del sched, eng, obs, paged, capture
@@ -196,35 +205,69 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace_on: bool,
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    reqs = check.sample(done, seed)
+    rec = None
+    if tap is None:
+        reqs = check.sample(done, seed)
+    else:
+        # a preempted request's positions were computed twice: left out
+        kept = [r for r in done if not r.preemptions]
+        info["left_out_preempted"] = len(done) - len(kept)
+        info["route_fault"] = tap.fault
+        reqs = check.sample(kept, seed)
+        rec = [tap.routes[r.rid] for r in reqs]
+        ring = tap.decode_steps()
+        steps = [tap.steps[r.rid] for r in reqs]
+        slots = [tap.slots[r.rid] for r in reqs]
+        del tap
     ref = spec.reference(cfg).Reference(cfg, params,
                                         prefill_chunk=ecfg.prefill_chunk)
     t_ref = time.perf_counter()
-    got = check.served_gap(ref, reqs, dev) if reqs else None
+    got, rows = (check.served_gap(ref, reqs, dev, rec) if reqs
+                 else (None, None))
+    if got is not None and rec is not None:
+        held, fault = check.decode_record(ref, *ring, rec, steps, slots)
+        got.update(held)
+        info["route_fault"] = info["route_fault"] or fault
+        info.update({k: v for k, v in held.items()
+                     if k not in check.ROUTE_NUMBERS})
+        del ring
     info["reference_s"] = time.perf_counter() - t_ref
     compared = {}
     correct, failed = got is not None, 0
     if got is not None:
+        per = got["per_request"]
+        over = [False] * len(reqs)
         for name, lim in cell.limits.items():
             lim = float(lim["limit"])
             compared[name] = {"value": got[name], "limit": lim}
             correct = correct and got[name] <= lim
-        if "max_logit_gap" in compared:
-            lim = compared["max_logit_gap"]["limit"]
-            failed = sum(1 for g in got["per_request"] if g > lim)
-        elif not correct:
+            for i, v in enumerate(per.get(name, ())):
+                over[i] = over[i] or v > lim
+        failed = sum(over)
+        if info.get("route_fault"):
+            correct = False
+        if not correct and not failed:
             failed = len(reqs)
         info.update(requests_compared=len(reqs),
                     tokens_compared=got["tokens"],
-                    gap_per_request=got["per_request"],
-                    **{k: got[k] for k in check.NUMBERS})
+                    gap_per_request=per["max_logit_gap"],
+                    **{k: got[k] for k in check.NUMBERS + check.ROUTE_NUMBERS
+                       if k in got})
     if control and reqs:
         if cfg["torch_dtype"] not in ("bfloat16", "float16"):
             raise ValueError("the control (float8 products) is that of a "
                              "16-bit configuration")
         ctl = spec.reference(cfg).Reference(
             cfg, params, precision="fp8", prefill_chunk=ecfg.prefill_chunk)
-        info["control"] = check.control_gap(ref, ctl, reqs, dev)
+        info["control"] = check.control_gap(ctl, reqs, dev, rows, rec)
+        if rec is not None:
+            info["control"].update(check.control_routing(ref, ctl, reqs,
+                                                         dev))
+            # the same readings with each side routing by itself
+            free, rows = check.served_gap(ref, reqs, dev)
+            info["unforced"] = {k: free[k] for k in check.NUMBERS}
+            info["control_unforced"] = check.control_gap(ctl, reqs, dev,
+                                                         rows)
     result = {
         "correct": bool(correct),
         "attempted": len(done),

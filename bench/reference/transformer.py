@@ -24,6 +24,27 @@ rounded up to a multiple of 16 add nothing.  A decode position is one
 token of a batch whose other lanes the reference does not know; alone it
 never reaches capacity, so it is computed dropless.
 
+Given ``routes`` (the program's record of each sequence's routing:
+``(positions, layers, k)`` expert ids, ``-1 - e`` for a pair the program
+dropped; ``bench/harness/routes.py``), the MoE layer follows it instead:
+the recorded set, weighted by the reference's own float32 router
+probabilities renormalised over that set, a recorded drop adding
+nothing.  The record is then checked against the reference's own scores
+and rule, into ``self.routing``: ``route_slack_max``, the most by which
+a chosen expert's router logit lies below the reference's own k-th
+best, over every position and layer; ``prefill_drop_mismatches``, the
+prompt pairs whose recorded drop disagrees with the capacity rule
+applied to the recorded set chunk by chunk; ``dropped_share_decode``,
+the share of decode pairs recorded dropped; and ``route_flip_share``,
+the share of (position, layer) whose set differs from the reference's
+own top k.  A decode step's drops depend on its other lanes, so they
+are held to the rule over whole recorded steps, every lane of each
+(:meth:`Reference.decode_drop_mismatches`).
+
+``record=True`` keeps the reference's own routing as such a record, in
+``self.recorded``: the control's, handed to the float32 reference as
+``routes``, reads how far a lower precision's own routing strays.
+
 ``precision="fp8"`` is the control of a bf16 configuration: every bf16
 product (projections, experts, head; not the float32 router) takes its
 input rounded to float8 e4m3 with one scale a row and its weight with
@@ -37,7 +58,7 @@ harness holds the program's own configuration to.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -122,6 +143,7 @@ class Reference:
         self.experts = int(cfg.get("num_experts") or 0)
         self.topk = int(cfg.get("num_experts_per_tok") or 0)
         self.factor = float(cfg.get("capacity_factor") or 0.0)
+        self.recorded = None
 
     # -- pieces ---------------------------------------------------------------
     def _lin(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -165,38 +187,100 @@ class Reference:
         gate = torch.nn.functional.silu(self._lin(h, f["w_gate"]))
         return self._lin(gate * self._lin(h, f["w_up"]), f["w_down"])
 
+    def _cap(self, t: int) -> int:
+        """The capacity rule's ``C`` for a call of ``t`` tokens."""
+        cap = max(1, math.ceil(t * self.topk / self.experts * self.factor))
+        return -(-cap // 16) * 16
+
+    def _ranks(self, experts: torch.Tensor) -> torch.Tensor:
+        """(..., T, k) -> each pair's rank within its expert among the
+        ``T k`` pairs of its call, in token-major order."""
+        t, k = experts.shape[-2:]
+        flat = experts.reshape(-1, t * k).long()
+        key = (flat + self.experts * torch.arange(
+            flat.shape[0], device=flat.device)[:, None]).reshape(-1)
+        order = torch.argsort(key, stable=True)
+        sorted_k = key[order]
+        first = torch.searchsorted(sorted_k, sorted_k, right=False)
+        rank = torch.empty_like(key)
+        rank[order] = torch.arange(key.numel(), device=key.device) - first
+        return rank.view(experts.shape)
+
     def _kept(self, experts: torch.Tensor, n_prompt: int) -> torch.Tensor:
         """(S, k) bool: pairs the capacity rule keeps."""
-        s, k = experts.shape
         keep = torch.ones_like(experts, dtype=torch.bool)
         for c0 in range(0, n_prompt, self.chunk):
             t = min(self.chunk, n_prompt - c0)
-            cap = max(1, math.ceil(t * k / self.experts * self.factor))
-            cap = -(-cap // 16) * 16
-            flat = experts[c0:c0 + t].reshape(-1)
-            order = torch.argsort(flat, stable=True)
-            sorted_e = flat[order]
-            first = torch.searchsorted(sorted_e, sorted_e, right=False)
-            rank = torch.empty_like(flat)
-            rank[order] = torch.arange(flat.numel(),
-                                       device=flat.device) - first
-            keep[c0:c0 + t] = (rank < cap).view(t, k)
+            keep[c0:c0 + t] = self._ranks(experts[c0:c0 + t]) < self._cap(t)
         return keep
+
+    def decode_drop_mismatches(self, steps: torch.Tensor,
+                               block: int = 64) -> int:
+        """Pairs of whole decode steps ``steps`` (steps, lanes, layers, k)
+        of recorded ids whose recorded drop disagrees with the capacity
+        rule recounted over the step's lanes, layer by layer."""
+        bad = 0
+        for s0 in range(0, steps.shape[0], block):
+            codes = steps[s0:s0 + block].long().transpose(1, 2)
+            dropped = codes < 0
+            e = torch.where(dropped, -1 - codes, codes)
+            keep = self._ranks(e) < self._cap(codes.shape[2])
+            bad += int((dropped == keep).sum())
+        return bad
 
     def _route(self, h: torch.Tensor, lp: Dict):
         probs = torch.softmax(h @ lp["moe"]["router"].float(), -1)
         w, e = torch.topk(probs, self.topk, dim=-1)
         return w / w.sum(-1, keepdim=True).clamp(min=1e-9), e
 
-    def _kept_for(self, h: torch.Tensor, lp: Dict, n_prompt: int
-                  ) -> torch.Tensor:
-        return self._kept(self._route(h, lp)[1], n_prompt)
-
-    def _moe(self, h: torch.Tensor, lp: Dict, keep) -> torch.Tensor:
-        m = lp["moe"]
+    def _own_routing(self, h: torch.Tensor, lp: Dict, n_prompts,
+                     lens) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(weights, experts) by the reference's own router, the pairs
+        past capacity in a prompt chunk weighted 0."""
         w, e = self._route(h, lp)
-        if keep is not None:
+        keep = torch.ones_like(e, dtype=torch.bool)
+        if self.factor:
+            keep = torch.cat([self._kept(e_i, n) for e_i, n in
+                              zip(e.split(lens), n_prompts)])
             w = torch.where(keep, w, 0.0)
+        if self.recorded is not None:
+            code = torch.where(keep, e, -1 - e).to(torch.int16)
+            for r, c in zip(self.recorded, code.split(lens)):
+                r.append(c)
+        return w, e
+
+    def _forced_routing(self, h: torch.Tensor, lp: Dict, n_prompts, lens,
+                        codes: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(weights, experts) of the recorded sets ``codes`` (N, k), and
+        the record checked against the reference's scores and rule."""
+        e, dropped = (torch.where(codes < 0, -1 - codes, codes),
+                      codes < 0)
+        logits = h @ lp["moe"]["router"].float()
+        w = torch.softmax(logits, -1).gather(1, e)
+        w = w / w.sum(-1, keepdim=True).clamp(min=1e-9)
+        w = torch.where(dropped, 0.0, w)
+        own = torch.topk(logits, self.topk, dim=-1)
+        slack = (own.values[:, -1] - logits.gather(1, e).min(-1).values
+                 ).clamp(min=0.0)
+        flip = (own.indices.sort(-1).values != e.sort(-1).values).any(-1)
+        st = self.routing
+        for i, (s_i, e_i, d_i, n) in enumerate(zip(
+                slack.split(lens), e.split(lens), dropped.split(lens),
+                n_prompts)):
+            keep = (self._kept(e_i, n) if self.factor
+                    else torch.ones_like(d_i))
+            st["slack"][i] = max(st["slack"][i], float(s_i.max()))
+            st["mismatch"][i] += int((d_i[:n] == keep[:n]).sum())
+            st["decode_dropped"][i] += int(d_i[n:].sum())
+            st["decode_pairs"][i] += d_i[n:].numel()
+        st["flips"] += int(flip.sum())
+        st["rows"] += flip.numel()
+        return w, e
+
+    def _moe(self, h: torch.Tensor, lp: Dict, w: torch.Tensor,
+             e: torch.Tensor) -> torch.Tensor:
+        m = lp["moe"]
         out = torch.zeros_like(h)
         for ex in torch.unique(e).tolist():
             tok, slot = (e == ex).nonzero(as_tuple=True)
@@ -209,22 +293,45 @@ class Reference:
 
     # -- forward --------------------------------------------------------------
     @torch.no_grad()
-    def logits(self, seqs: Sequence[torch.Tensor], n_prompts: Sequence[int]
-               ) -> List[torch.Tensor]:
+    def logits(self, seqs: Sequence[torch.Tensor], n_prompts: Sequence[int],
+               routes: Optional[Sequence[torch.Tensor]] = None,
+               record: bool = False) -> List[torch.Tensor]:
         """For each token sequence (a prompt, then served tokens), the
         float32 logits at positions ``n_prompt - 1`` onward: row ``i``
-        scores the token at position ``n_prompt + i``."""
+        scores the token at position ``n_prompt + i``.  ``routes``, one
+        record a sequence, makes an MoE follow the program's routing and
+        fills ``self.routing``; ``record`` keeps an MoE's own routing in
+        ``self.recorded``."""
+        self.recorded = [] if record else None
+        if record:
+            if routes is not None or not self.experts:
+                raise ValueError("only an MoE's own routing is recorded")
+            self.recorded = [[] for _ in seqs]
+        if routes is not None:
+            if not self.experts:
+                raise ValueError("routes are an MoE's")
+            for r, t in zip(routes, seqs):
+                if tuple(r.shape) != (t.numel(), self.layers, self.topk):
+                    raise ValueError(f"a record of shape {tuple(r.shape)} "
+                                     f"for {t.numel()} positions")
+        n = len(seqs)
+        self.routing = {"slack": [0.0] * n, "mismatch": [0] * n,
+                        "decode_dropped": [0] * n, "decode_pairs": [0] * n,
+                        "flips": 0, "rows": 0}
         tf32 = (torch.backends.cuda.matmul.allow_tf32,
                 torch.backends.cudnn.allow_tf32)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         try:
-            return self._logits(seqs, n_prompts)
+            out = self._logits(seqs, n_prompts, routes)
+            if record:
+                self.recorded = [torch.stack(r, 1) for r in self.recorded]
+            return out
         finally:
             (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32) = tf32
 
-    def _logits(self, seqs, n_prompts):
+    def _logits(self, seqs, n_prompts, routes):
         p = self.p
         table = p["embed"]["table"]
         xs = [table[t.long()].float() for t in seqs]
@@ -244,16 +351,17 @@ class Reference:
                 xs[i] = x + self._lin(self._attention(q, k, v), a["wo"])
             # the FFN / MoE of every sequence's positions at once
             h = torch.cat([self._norm(x, lp["ln2"]["scale"]) for x in xs])
-            if self.experts:
-                keep = torch.cat([self._kept_for(h_i, lp, n)
-                                  for h_i, n in zip(
-                                      h.split([x.shape[0] for x in xs]),
-                                      n_prompts)]) if self.factor else None
-                y = self._moe(h, lp, keep)
+            lens = [x.shape[0] for x in xs]
+            if routes is not None:
+                codes = torch.cat([r[:, li] for r in routes]).long()
+                y = self._moe(h, lp, *self._forced_routing(
+                    h, lp, n_prompts, lens, codes))
+            elif self.experts:
+                y = self._moe(h, lp, *self._own_routing(h, lp, n_prompts,
+                                                        lens))
             else:
                 y = self._ffn(h, lp)
-            xs = [x + y_i for x, y_i in
-                  zip(xs, y.split([x.shape[0] for x in xs]))]
+            xs = [x + y_i for x, y_i in zip(xs, y.split(lens))]
         head = p["embed"].get("head")
         if head is None:
             head = p["embed"]["table"].T

@@ -42,7 +42,9 @@ def test_same_seed_same_tokens():
 
 def test_reference_equals_program_in_float32():
     """With float32 weights the reference gives the served tokens exactly,
-    capacity drops included (factor 0.25, 64-token chunks)."""
+    capacity drops included (factor 0.25, 64-token chunks); the MoE's
+    reference follows the program's recorded routes, which are its own
+    and drop what its capacity rule drops."""
     for config, over in (("yi-6b", {}),
                          ("qwen3-30b-a3b", {"capacity_factor": 0.25})):
         c = tiny.cell(config, torch_dtype="float32", **over)
@@ -52,6 +54,13 @@ def test_reference_equals_program_in_float32():
         res, info, _ = tiny.run(c)
         assert info["max_logit_gap"] == 0.0
         assert info["disagree_share"] == 0.0
+        if over:
+            assert info["route_fault"] is None
+            assert info["route_slack_max"] == 0.0
+            assert info["route_flip_share"] == 0.0
+            assert info["prefill_drop_mismatches"] == 0
+            assert info["decode_drop_mismatches"] == 0
+            assert info["decode_steps_recounted"] > 0
 
 
 def test_capacity_rule_is_followed():

@@ -32,9 +32,13 @@ def test_workload_resolves(workload):
     assert spec.reference(cell.config).Reference
     assert spec.counts(cell.config).Shape.of(cell.config)
     from bench.harness import check
-    assert cell.limits and set(cell.limits) <= set(check.NUMBERS)
-    for entry in cell.limits.values():
-        assert isinstance(entry["limit"], float) and entry["limit"] > 0
+    limited = set(check.NUMBERS + check.ROUTE_NUMBERS) - {"route_flip_share"}
+    assert cell.limits and set(cell.limits) <= limited
+    for name, entry in cell.limits.items():
+        assert isinstance(entry["limit"], float)
+        # 0 only where a sound run counts exactly 0
+        assert entry["limit"] > 0 or (name in check.EXACT
+                                      and entry["limit"] == 0)
     names = {m.name for m in cell.end_to_end}
     assert "setup_s" in names and len(names) >= 2
     assert cell.per_layer

@@ -27,6 +27,7 @@ MIX = {"min_waiting": 4, "pool": 64,
 
 
 CELL = "yi6b.decode_saturated"       # the metrics and limits of a cell
+MOE_CELL = "qwen3moe.decode_saturated"   # the limits of an MoE's cell
 #: every configuration and mix the harness keeps files for
 CASES = [("yi-6b", "decode_saturated"), ("qwen3-30b-a3b", "decode_saturated"),
          ("yi-6b", "prefill_saturated")]
@@ -35,9 +36,10 @@ CASES = [("yi-6b", "decode_saturated"), ("qwen3-30b-a3b", "decode_saturated"),
 def cell(config: str = "yi-6b", mix: str = "decode_saturated",
          limit: Optional[float] = None, **over) -> spec.Cell:
     """Configuration file ``config`` under mix ``mix``, cut to the CPU
-    size, with the metrics and limits of ``CELL``; ``over`` replaces
-    configuration keys (``init_std`` by default 0.1, so the logits
-    spread as at the published widths)."""
+    size, with the metrics of ``CELL`` and the limits of ``CELL`` (of
+    ``MOE_CELL`` for an MoE); ``over`` replaces configuration keys
+    (``init_std`` by default 0.1, so the logits spread as at the
+    published widths)."""
     c = spec.resolve(CELL)
     c.config = spec.load_json(spec.BENCH_DIR / "configs" / f"{config}.json")
     c.traffic = spec.load_json(spec.traffic_path(mix))
@@ -45,6 +47,7 @@ def cell(config: str = "yi-6b", mix: str = "decode_saturated",
     cfg.update(SMALL)
     if cfg.get("num_experts"):
         cfg.update(SMALL_MOE)
+        c.limits = spec.resolve(MOE_CELL).limits
     cfg["init_std"] = 0.1
     cfg["engine"] = dict(cfg["engine"], **ENGINE)
     cfg.update(over)
