@@ -122,13 +122,17 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace_on: bool,
     counts = spec.counts(cfg)
     shape = counts.Shape.of(cfg)
     arch = arch_config(cfg)
+    moe = spec.reference(cfg).moe_layers(cfg)
+    if bool(moe) != bool(arch.num_experts):
+        raise ValueError(f"the reference routes in layers {moe}, the port's "
+                         f"{cfg['port']['arch']} has {arch.num_experts} "
+                         f"experts")
     params = weights.make(cfg, seed, dev)
     ecfg = engine_config(cfg, mix, device)
     eng = make_engine(registry.from_config(arch), ecfg, params=params)
-    # an MoE's routing is recorded on the timed path, for the reference
-    # to follow (``harness/routes.py``)
-    tap = (routes.Tap(eng, arch.num_layers, arch.topk)
-           if arch.num_experts else None)
+    # an MoE's routing is recorded on the timed path, one row of ids an
+    # MoE layer, for the reference to follow (``harness/routes.py``)
+    tap = routes.Tap(eng, len(moe), arch.topk) if moe else None
     try:
         sched = Scheduler(eng)
         backlog = window.Backlog(mix, arch.vocab, seed, RequestState)

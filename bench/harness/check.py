@@ -116,11 +116,13 @@ def decode_record(ref, ring: torch.Tensor, ring_steps: torch.Tensor,
                   routes: Sequence[torch.Tensor],
                   steps: Sequence[torch.Tensor],
                   slots: Sequence[int]) -> Tuple[Dict, Optional[str]]:
-    """The decode steps of the tap's ring (``ring`` (steps, lanes, layers,
+    """The decode steps of the tap's ring (``ring`` (steps, lanes, n_moe,
     k), ``ring_steps`` their ascending step numbers) held to the capacity
     rule, and the sampled records (``routes``, each row's decode step
     ``steps``, the request's slot ``slots``) held to the ring: (numbers,
-    a recording fault or None)."""
+    a recording fault or None).  The layer axis counts MoE layers: its
+    ``j`` is the j-th layer of ``ref``'s ``moe_layers``, as in the
+    record (``harness/routes.py``)."""
     if not ring.shape[0]:
         return {}, "no decode step recorded"
     out = {"decode_drop_mismatches": ref.decode_drop_mismatches(ring),

@@ -25,7 +25,7 @@ were:
   are copied, on the device, into the request's record.
 
 Each call of the MoE layer writes its ids into one device buffer of
-rows ``(slot, position)`` by ``(layer, k)``, as ``e`` for a kept pair
+rows ``(slot, position)`` by ``(j, k)``, as ``e`` for a kept pair
 and ``-1 - e`` for a dropped one, and each row the decode step that
 wrote it (``-1`` for a prompt chunk's row).  A decode step's pairs are
 ranked over all of the step's lanes, most of which a sample of requests
@@ -33,6 +33,15 @@ does not hold, so every decode step also writes all its lanes' ids into
 a ring of the last ``RING`` steps (:meth:`Tap.decode_steps`): the
 capacity rule is recounted over whole steps there, and a sampled row
 whose step is still in the ring is held to that step's lane.
+
+The layer axis of the buffer, the ring and every record counts MoE
+layers, not layers: ``j`` is the j-th MoE call of a model call, the
+j-th of the layers the configuration's reference names
+(``moe_layers(cfg)``, ``(i_0 < i_1 < ...)``), and the reference reads
+``routes[:, j]`` at layer ``i_j``.  A layer whose FFN is dense calls
+none of the wrapped MoE functions and writes nothing; a model call that
+records another number of MoE calls than ``n_moe`` is a fault.  Where
+every layer routes, ``j`` is the layer.
 
 Row indices, the step counter and the ring's index are device tensors, so
 the writes are captured into the fused-decode graphs and stay right on
@@ -59,7 +68,7 @@ RING = 1024
 class _Call:
     rows: torch.Tensor              # (tokens,) rows of the buffer
     ring: Optional[torch.Tensor] = None   # (1,) ring index of a decode step
-    layer: int = 0
+    layer: int = 0                  # MoE calls so far: the next ``j``
     experts: Optional[torch.Tensor] = None
     cap: Optional[int] = None
 
@@ -67,16 +76,16 @@ class _Call:
 class Tap:
     """The routing record of one engine (see the module's doc)."""
 
-    def __init__(self, eng, num_layers: int, topk: int):
+    def __init__(self, eng, n_moe: int, topk: int):
         from repro_torch.models import layers as L
         from repro_torch.models import transformer as T
-        self.layers = num_layers
+        self.n_moe = n_moe
         ecfg = eng.ecfg
         self.rows_per_slot = int(ecfg.max_seq) + 1
         n = int(ecfg.max_batch) * self.rows_per_slot
         dev = eng.device
         self.scratch_row = n
-        self.buf = torch.zeros((n + 1, num_layers, topk), dtype=ID_DTYPE,
+        self.buf = torch.zeros((n + 1, n_moe, topk), dtype=ID_DTYPE,
                                device=dev)
         self.slot_base = (torch.arange(int(ecfg.max_batch), device=dev)
                           * self.rows_per_slot)
@@ -85,11 +94,11 @@ class Tap:
                                    device=dev)
         #: decode steps so far; the ring of the last ``RING`` steps' lanes
         self.step = torch.zeros((), dtype=torch.int64, device=dev)
-        self.ring = torch.zeros((RING, int(ecfg.max_batch), num_layers,
-                                 topk), dtype=ID_DTYPE, device=dev)
+        self.ring = torch.zeros((RING, int(ecfg.max_batch), n_moe, topk),
+                                dtype=ID_DTYPE, device=dev)
         self.ring_step = torch.full((RING,), -1, dtype=torch.int64,
                                     device=dev)
-        #: rid -> (len, layers, k) ids of a retired request
+        #: rid -> (len, n_moe, k) ids of a retired request
         self.routes: Dict[int, torch.Tensor] = {}
         #: rid -> (len,) the decode step of each row; rid -> its slot
         self.steps: Dict[int, torch.Tensor] = {}
@@ -126,7 +135,7 @@ class Tap:
         self._eng = None
 
     def decode_steps(self):
-        """(steps, lanes, layers, k) ids of every decode step still in
+        """(steps, lanes, n_moe, k) ids of every decode step still in
         the ring, in the order of the steps, on the device."""
         held = (self.ring_step >= 0).nonzero()[:, 0]
         order = held[self.ring_step[held].argsort()]
@@ -140,9 +149,9 @@ class Tap:
 
     def _leave(self) -> None:
         call, self._call = self._call, None
-        if call is not None and call.layer != self.layers:
+        if call is not None and call.layer != self.n_moe:
             self.fault = (f"{call.layer} MoE layers recorded in a call of "
-                          f"{self.layers}")
+                          f"{self.n_moe}")
 
     def _decode(self, orig):
         def decode_step_paged(params, cfg, tokens, k_pool, v_pool, tables,
@@ -163,7 +172,7 @@ class Tap:
                            lengths, *a, **kw)
             finally:
                 self._leave()
-            # the step's lanes, written layer by layer into the ring
+            # the step's lanes, written MoE layer by MoE layer into the ring
             self.buf[rows] = self.ring[at][0]
             return out
         return decode_step_paged

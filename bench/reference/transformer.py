@@ -25,12 +25,16 @@ token of a batch whose other lanes the reference does not know; alone it
 never reaches capacity, so it is computed dropless.
 
 Given ``routes`` (the program's record of each sequence's routing:
-``(positions, layers, k)`` expert ids, ``-1 - e`` for a pair the program
+``(positions, n_moe, k)`` expert ids, ``-1 - e`` for a pair the program
 dropped; ``bench/harness/routes.py``), the MoE layer follows it instead:
 the recorded set, weighted by the reference's own float32 router
 probabilities renormalised over that set, a recorded drop adding
-nothing.  The record is then checked against the reference's own scores
-and rule, into ``self.routing``: ``route_slack_max``, the most by which
+nothing.  The record's layer axis counts MoE layers, not layers: where
+:func:`moe_layers` gives ``(i_0 < i_1 < ...)``, layer ``i_j`` reads
+``routes[:, j]``.  This forward writes out every layer of an MoE as
+MoE, so there ``j`` is the layer.  The record is then checked against
+the reference's own scores and rule, into ``self.routing``:
+``route_slack_max``, the most by which
 a chosen expert's router logit lies below the reference's own k-th
 best, over every position and layer; ``prefill_drop_mismatches``, the
 prompt pairs whose recorded drop disagrees with the capacity rule
@@ -51,9 +55,10 @@ input rounded to float8 e4m3 with one scale a row and its weight with
 one scale an output column.
 
 The module also states the model it writes out, for the harness:
-``layout`` gives the parameter tree the benchmark makes for it, and
+``layout`` gives the parameter tree the benchmark makes for it,
 ``assumes`` what the forward takes for granted of the model, which the
-harness holds the program's own configuration to.
+harness holds the program's own configuration to, and ``moe_layers`` the
+layers whose FFN routes, which the routing record counts.
 """
 from __future__ import annotations
 
@@ -116,6 +121,23 @@ def assumes(cfg: Dict) -> Dict:
             "gated_ffn": True, "mrope": False}
 
 
+def moe_layers(cfg: Dict) -> Tuple[int, ...]:
+    """The indices, in stack order, of the layers whose FFN routes:
+    every layer of an MoE file, none of a dense one.  The forward writes
+    out one kind of FFN a stack, as the port does, so a file whose
+    Qwen3-MoE keys state a dense layer raises ``ValueError``."""
+    if not cfg.get("num_experts"):
+        return ()
+    dense = list(cfg.get("mlp_only_layers") or [])
+    step = int(cfg.get("decoder_sparse_step", 1))
+    if dense or step != 1:
+        raise ValueError(
+            f"{cfg['name']}: dense layers in an MoE stack (mlp_only_layers "
+            f"{dense}, decoder_sparse_step {step}); this reference writes "
+            f"out every layer of an MoE as MoE")
+    return tuple(range(int(cfg["num_hidden_layers"])))
+
+
 def _qdq(x: torch.Tensor, dim: int) -> torch.Tensor:
     """x rounded to float8 e4m3 with one scale per slice along ``dim``."""
     amax = x.abs().amax(dim=dim, keepdim=True).clamp(min=1e-12)
@@ -143,6 +165,8 @@ class Reference:
         self.experts = int(cfg.get("num_experts") or 0)
         self.topk = int(cfg.get("num_experts_per_tok") or 0)
         self.factor = float(cfg.get("capacity_factor") or 0.0)
+        #: layer -> its ordinal among the MoE layers (a record's layer axis)
+        self.moe = {li: j for j, li in enumerate(moe_layers(cfg))}
         self.recorded = None
 
     # -- pieces ---------------------------------------------------------------
@@ -216,9 +240,9 @@ class Reference:
 
     def decode_drop_mismatches(self, steps: torch.Tensor,
                                block: int = 64) -> int:
-        """Pairs of whole decode steps ``steps`` (steps, lanes, layers, k)
+        """Pairs of whole decode steps ``steps`` (steps, lanes, n_moe, k)
         of recorded ids whose recorded drop disagrees with the capacity
-        rule recounted over the step's lanes, layer by layer."""
+        rule recounted over the step's lanes, MoE layer by MoE layer."""
         bad = 0
         for s0 in range(0, steps.shape[0], block):
             codes = steps[s0:s0 + block].long().transpose(1, 2)
@@ -311,7 +335,7 @@ class Reference:
             if not self.experts:
                 raise ValueError("routes are an MoE's")
             for r, t in zip(routes, seqs):
-                if tuple(r.shape) != (t.numel(), self.layers, self.topk):
+                if tuple(r.shape) != (t.numel(), len(self.moe), self.topk):
                     raise ValueError(f"a record of shape {tuple(r.shape)} "
                                      f"for {t.numel()} positions")
         n = len(seqs)
@@ -352,15 +376,16 @@ class Reference:
             # the FFN / MoE of every sequence's positions at once
             h = torch.cat([self._norm(x, lp["ln2"]["scale"]) for x in xs])
             lens = [x.shape[0] for x in xs]
-            if routes is not None:
-                codes = torch.cat([r[:, li] for r in routes]).long()
+            j = self.moe.get(li)
+            if j is None:
+                y = self._ffn(h, lp)
+            elif routes is not None:
+                codes = torch.cat([r[:, j] for r in routes]).long()
                 y = self._moe(h, lp, *self._forced_routing(
                     h, lp, n_prompts, lens, codes))
-            elif self.experts:
+            else:
                 y = self._moe(h, lp, *self._own_routing(h, lp, n_prompts,
                                                         lens))
-            else:
-                y = self._ffn(h, lp)
             xs = [x + y_i for x, y_i in zip(xs, y.split(lens))]
         head = p["embed"].get("head")
         if head is None:

@@ -3,15 +3,16 @@ what it writes for a prompt chunk and for decode lanes against the
 program's own routes and an independent count of the capacity rule; the
 ring of whole decode steps and its recount against the rule; the
 program's outputs bitwise unchanged under it; a dense cell without it;
-and on the card, the same record from the fused graphs as from the
-eager per-tick step."""
+a stack whose first layer's FFN is dense, recorded over its MoE layers
+alone; and on the card, the same record from the fused graphs as from
+the eager per-tick step."""
 import numpy as np
 import pytest
 import torch
 
 from bench.harness import cell as cell_run
 from bench.harness import check, routes, weights
-from bench.reference.transformer import Reference
+from bench.reference.transformer import Reference, moe_layers
 from bench.tests import tiny
 
 
@@ -63,7 +64,7 @@ def test_chunk_record_is_the_route_and_its_capacity(monkeypatch):
     reference's count, factor 0.25) drops them; other slots untouched."""
     cfg, arch, eng = _engine(max_prompt=128, capacity_factor=0.25)
     seen = _spy_routes(monkeypatch)
-    tap = routes.Tap(eng, arch.num_layers, arch.topk)
+    tap = routes.Tap(eng, len(moe_layers(cfg)), arch.topk)
     ref = Reference(cfg, {}, prefill_chunk=64)
     try:
         cache = eng.entry.cache_zeros(1, eng.ecfg.max_seq, 1, device="cpu")
@@ -102,7 +103,7 @@ def test_decode_record_is_the_route_and_its_capacity(monkeypatch):
     cfg, arch, eng = _engine()
     monkeypatch.setattr(L, "moe_capacity", lambda *a, **kw: 1)
     seen = _spy_routes(monkeypatch)
-    tap = routes.Tap(eng, arch.num_layers, arch.topk)
+    tap = routes.Tap(eng, len(moe_layers(cfg)), arch.topk)
     paged = eng.paged
     kp, vp = [t for t, q in zip(paged.store, paged.is_seq) if q]
     scratch = kp.shape[1] - 1
@@ -187,37 +188,126 @@ def test_decode_steps_held_to_the_capacity_rule():
     assert got["decode_rows_in_ring"] == 3 and fault.startswith("1 ")
 
 
-def test_outputs_bitwise_unchanged_under_the_record():
-    """A prompt chunk's and a decode step's logits, with the record and
-    without, on the same inputs."""
+def _chunk_then_step(eng, arch, lengths):
+    """One 16-token prompt chunk in slot 1, then one decode step of four
+    lanes of ``lengths``, each lane on pages of its own: their logits."""
     from repro_torch.models import transformer as T
-    _, arch, eng = _engine()
     paged = eng.paged
     kp, vp = [t for t, q in zip(paged.store, paged.is_seq) if q]
     tables = torch.arange(4 * paged.max_blocks, dtype=torch.int32).view(
         4, -1) % (kp.shape[1] - 1)
     toks = torch.randint(0, arch.vocab, (1, 16),
                          generator=torch.Generator().manual_seed(2))
-
-    def outputs():
-        eng._prefilling = {"slot": 1, "pos": 0}
+    eng._prefilling = {"slot": 1, "pos": 0}
+    try:
         cache = eng.entry.cache_zeros(1, eng.ecfg.max_seq, 1, device="cpu")
         chunk, _ = eng._extend(eng.params, toks, cache)
-        step, _ = T.decode_step_paged(
-            eng.params, eng.cfg, torch.tensor([1, 2, 3, 4]), kp, vp, tables,
-            torch.tensor([3, 9, 0, 20], dtype=torch.int32))
+    finally:
         eng._prefilling = None
-        return chunk, step
+    step, _ = T.decode_step_paged(
+        eng.params, eng.cfg, torch.tensor([1, 2, 3, 4]), kp, vp, tables,
+        torch.as_tensor(lengths, dtype=torch.int32))
+    return chunk, step
 
-    plain = outputs()
-    tap = routes.Tap(eng, arch.num_layers, arch.topk)
+
+def _unchanged_under_the_record(eng, arch, n_moe: int):
+    """Assert that a prompt chunk's and a decode step's logits are the
+    same, bit for bit, with a record of ``n_moe`` MoE layers and
+    without, on the same inputs; the tap."""
+    lengths = [3, 9, 0, 20]
+    plain = _chunk_then_step(eng, arch, lengths)
+    tap = routes.Tap(eng, n_moe, arch.topk)
     try:
-        tapped = outputs()
+        tapped = _chunk_then_step(eng, arch, lengths)
     finally:
         tap.remove()
     assert tap.buf.any()
     for a, b in zip(plain, tapped):
         assert torch.equal(a, b)
+    return tap
+
+
+def test_outputs_bitwise_unchanged_under_the_record():
+    """A prompt chunk's and a decode step's logits, with the record and
+    without, on the same inputs."""
+    cfg, arch, eng = _engine()
+    _unchanged_under_the_record(eng, arch, len(moe_layers(cfg)))
+
+
+def _dense_first_layer(monkeypatch, eng) -> None:
+    """Make ``eng`` the stand-in of a stack whose first layer's FFN is
+    dense: layer 0's MoE call computes the gated FFN of its expert 0's
+    weights and routes nothing; every other layer's call is the
+    program's."""
+    from repro_torch.models import layers as L
+    first = eng.params["blocks"]["moe"]["router"][0].data_ptr()
+    orig = L.apply_moe
+
+    def apply_moe(p, x, cfg):
+        if p["router"].data_ptr() != first:
+            return orig(p, x, cfg)
+        ffn = {k: p[k][0] for k in ("w_up", "w_gate", "w_down")}
+        return L.apply_ffn(ffn, x, cfg.act).to(x.dtype)
+    monkeypatch.setattr(L, "apply_moe", apply_moe)
+
+
+def test_dense_first_layer_recorded_over_its_moe_layers(monkeypatch):
+    """A 3-layer stand-in whose first layer's FFN is dense, recorded
+    with ``n_moe = L - 1`` at a capacity of 1: a prompt chunk's rows and
+    a decode step's lanes hold at ordinal ``j`` the experts of layer
+    ``j + 1`` (the stand-in's own ``_route`` calls, in order), dropped
+    past rank 1; no fault."""
+    from repro_torch.models import layers as L
+    _, arch, eng = _engine(num_hidden_layers=3)
+    _dense_first_layer(monkeypatch, eng)
+    monkeypatch.setattr(L, "moe_capacity", lambda *a, **kw: 1)
+    seen = _spy_routes(monkeypatch)
+    n, k = arch.num_layers - 1, arch.topk
+    tap = routes.Tap(eng, n, k)
+    # lane 1's row (slot 1, position 20) lies past the chunk's 16 rows
+    lengths = [3, 20, 0, 9]
+    try:
+        _chunk_then_step(eng, arch, lengths)
+    finally:
+        tap.remove()
+    assert tap.fault is None and len(seen) == 2 * n
+    s = tap.rows_per_slot
+    chunk = tap.buf[s:s + 16]
+    ring, _ = tap.decode_steps()
+    assert chunk.shape == (16, n, k) and ring.shape == (1, 4, n, k)
+    drops = 0
+    for j in range(n):
+        e, d = seen[j], seen[n + j]
+        drops += int((_ranks(e) >= 1).sum() + (_ranks(d) >= 1).sum())
+        assert torch.equal(chunk[:, j], _code(e, _ranks(e) >= 1)), j
+        assert torch.equal(ring[0, :, j], _code(d, _ranks(d) >= 1)), j
+        for lane, at in enumerate(lengths):
+            assert torch.equal(tap.buf[lane * s + at, j], ring[0, lane, j])
+    assert drops > 0
+
+
+def test_dense_first_layer_held_to_every_layer_faults(monkeypatch):
+    """The same stand-in recorded as if every layer routed
+    (``n_moe = L``): the prompt chunk and the decode step each route
+    through L - 1 MoE layers, and the record says so."""
+    _, arch, eng = _engine(num_hidden_layers=3)
+    _dense_first_layer(monkeypatch, eng)
+    tap = routes.Tap(eng, arch.num_layers, arch.topk)
+    try:
+        _chunk_then_step(eng, arch, [3, 20, 0, 9])
+    finally:
+        tap.remove()
+    assert tap.fault == "2 MoE layers recorded in a call of 3"
+
+
+def test_outputs_bitwise_unchanged_under_the_record_of_a_dense_first_layer(
+        monkeypatch):
+    """The stand-in's chunk and step logits, with its record of L - 1
+    MoE layers and without, on the same inputs; the record sound."""
+    _, arch, eng = _engine(num_hidden_layers=3)
+    _dense_first_layer(monkeypatch, eng)
+    tap = _unchanged_under_the_record(eng, arch, arch.num_layers - 1)
+    assert tap.fault is None
 
 
 def test_record_removed_after_each_run_and_absent_for_dense():
@@ -239,12 +329,12 @@ def test_record_spans_each_served_sequence():
     """A retired request's record has a row for every position the
     reference scores (prompt and served tokens but the last), each row
     a set of distinct experts."""
-    _, arch, eng = _engine()
+    cfg, arch, eng = _engine()
     from repro_torch.serving.scheduler import make_trace
     reqs = make_trace(
         arch.vocab, rate_req_s=1e9, n_requests=5, prompt_len=0,
         prompt_lens=np.array([9, 30, 17, 40, 5]), seed=3)
-    tap = routes.Tap(eng, arch.num_layers, arch.topk)
+    tap = routes.Tap(eng, len(moe_layers(cfg)), arch.topk)
     try:
         eng.run_trace(reqs)
     finally:
@@ -281,7 +371,7 @@ def test_cuda_graph_record_equals_eager(card):
         reqs = make_trace(
             arch.vocab, rate_req_s=1e9, n_requests=6, prompt_len=0,
             prompt_lens=np.array([9, 17, 5, 30, 12, 24]), seed=3)
-        tap = routes.Tap(eng, arch.num_layers, arch.topk)
+        tap = routes.Tap(eng, len(moe_layers(cfg)), arch.topk)
         try:
             eng.run_trace(reqs)
         finally:

@@ -100,3 +100,32 @@ def test_names_unique_and_legal():
     assert len(names) == len(set(names))
     pairs = [(w["config"], w["traffic"]) for w in SPEC["workloads"]]
     assert len(pairs) == len(set(pairs))
+
+
+@pytest.mark.parametrize("path", sorted((spec.BENCH_DIR / "configs")
+                                        .glob("*.json")), ids=lambda p: p.stem)
+def test_reference_lists_moe_layers_exactly_when_the_port_has_experts(path):
+    cfg = spec.load_json(path)
+    from bench.harness import cell
+    moe = spec.reference(cfg).moe_layers(cfg)
+    assert bool(moe) == bool(cell.arch_config(cfg).num_experts)
+    assert list(moe) == sorted(set(moe))
+    assert all(0 <= i < cfg["num_hidden_layers"] for i in moe)
+
+
+@pytest.mark.parametrize("config, over, match", [
+    ("qwen3-30b-a3b", {"mlp_only_layers": [0]}, "dense layers"),
+    ("qwen3-30b-a3b", {"decoder_sparse_step": 2}, "dense layers"),
+    ("yi-6b", {"port": {"arch": "qwen3-30b-a3b", "family": "moe"}},
+     "experts"),
+], ids=["mlp_only_layers", "decoder_sparse_step", "dense_file_moe_port"])
+def test_a_stack_the_reference_cannot_write_out_is_refused_at_setup(
+        config, over, match, monkeypatch):
+    """A run refuses, before any weights are made, a file whose dense
+    layers the transformer reference would write out as MoE, and a file
+    whose reference routes where the port does not, or the reverse."""
+    from bench.harness import weights
+    from bench.tests import tiny
+    monkeypatch.setattr(weights, "make", lambda *a: pytest.fail("weights"))
+    with pytest.raises(ValueError, match=match):
+        tiny.run(tiny.cell(config, **over))
